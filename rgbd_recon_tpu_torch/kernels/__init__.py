@@ -1,0 +1,28 @@
+"""ctypes wrappers of the hand-written CUDA kernels (sources in ``csrc/``).
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on PyTorch's current stream, raises
+on a nonzero CUDA error code, and adds one to its entry of :data:`LAUNCHES`.
+The plain PyTorch twins and the CPU/CUDA dispatch live in ``ops/`` beside
+their callers (``ops/stencil13.py``, ``ops/bake.py``).
+"""
+
+from __future__ import annotations
+
+# kernel name -> number of launches in this process (reset_launch_counts()
+# zeroes them; a run reads them to show which kernels its path went through)
+LAUNCHES = {
+    "bilateral13": 0,
+    "quality13": 0,
+    "surface_occ": 0,
+    "sentinel_bake": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)

@@ -1,0 +1,106 @@
+"""Build the hand-written CUDA kernels with nvcc and bind them with ctypes.
+
+The sources under ``rgbd_recon_tpu_torch/csrc/`` have a plain C interface
+(pointers, ints and a stream; each entry point returns ``cudaGetLastError()``)
+and compile into one shared library under ``build/kernels/`` at the root of
+the checkout. The build runs at the first kernel launch of a process, never
+at import: the CPU tests import every module on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = (_PKG / "csrc" / "stencil13.cu", _PKG / "csrc" / "bake.cu")
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+LIBRARY = BUILD_DIR / "librgbd_kernels.so"
+
+# No fast math (IEEE division and square roots) and no FMA contraction:
+# the kernels then round every operation like the plain PyTorch versions.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point -> argtypes (all return int, the CUDA error code)
+_SIGNATURES = {
+    "rgbd_bilateral13": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rgbd_quality13": (_P, _P, _P, _I, _I, _I, _P),
+    "rgbd_surface_occ": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rgbd_sentinel_bake": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of this process's nvcc run, if it ran
+
+
+def find_nvcc() -> str:
+    """nvcc from CUDA_HOME (as PyTorch resolves it) or from PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        candidates.append(which)
+    for c in candidates:
+        if os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _stale() -> bool:
+    if not LIBRARY.exists():
+        return True
+    built = LIBRARY.stat().st_mtime
+    return any(s.stat().st_mtime > built for s in SOURCES)
+
+
+def build() -> Path:
+    """Compile the library if it is missing or older than its sources."""
+    global build_seconds
+    if not _stale():
+        return LIBRARY
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
+        )
+    os.replace(tmp, LIBRARY)
+    build_seconds = time.perf_counter() - t0
+    return LIBRARY
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero CUDA error code returned by an entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")

@@ -1,0 +1,74 @@
+"""Launch wrappers of csrc/bake.cu (surface-brick mask, sentinel bake)."""
+
+from __future__ import annotations
+
+import torch
+
+from . import LAUNCHES
+from ._build import check, library
+
+
+def _brick_grid(shape, brick_vox: int):
+    Z, Y, X = shape
+    v = brick_vox
+    return -(-Z // v), -(-Y // v), -(-X // v)
+
+
+def _check_volume(volume: torch.Tensor, brick_vox: int) -> None:
+    if volume.device.type != "cuda":
+        raise ValueError(f"volume must be a CUDA tensor, got {volume.device}")
+    if volume.dtype != torch.float32:
+        raise ValueError(f"volume must be float32, got {volume.dtype}")
+    if volume.dim() != 3:
+        raise ValueError(f"volume must be (Z, Y, X), got {tuple(volume.shape)}")
+    if not volume.is_contiguous():
+        raise ValueError("volume must be contiguous")
+    if brick_vox < 1:
+        raise ValueError(f"brick_vox must be >= 1, got {brick_vox}")
+
+
+def surface_occ_cuda(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
+    """(Z, Y, X) f32 -> (Bz, By, Bx) bool surface-brick mask."""
+    _check_volume(volume, brick_vox)
+    Z, Y, X = volume.shape
+    Bz, By, Bx = _brick_grid(volume.shape, brick_vox)
+    out = torch.empty((Bz, By, Bx), dtype=torch.bool, device=volume.device)
+    lib = library()
+    err = lib.rgbd_surface_occ(
+        volume.data_ptr(), out.data_ptr(), Z, Y, X, brick_vox, Bz, By, Bx,
+        torch.cuda.current_stream(volume.device).cuda_stream,
+    )
+    check(err, "surface_occ")
+    LAUNCHES["surface_occ"] += 1
+    return out
+
+
+def sentinel_bake_cuda(volume: torch.Tensor, bs_scaled: torch.Tensor,
+                       brick_vox: int, rounds: int) -> torch.Tensor:
+    """(Z, Y, X) f32 volume + (Bz, By, Bx) f32 brick clearance * brick_vox
+    -> (Z, Y, X) bf16 sentinel-coded march table."""
+    _check_volume(volume, brick_vox)
+    grid = _brick_grid(volume.shape, brick_vox)
+    if (bs_scaled.device != volume.device
+            or bs_scaled.dtype != torch.float32
+            or tuple(bs_scaled.shape) != grid
+            or not bs_scaled.is_contiguous()):
+        raise ValueError(f"bs_scaled must be a contiguous {grid} float32 "
+                         "tensor on the volume's device")
+    if not 0 <= rounds <= 250:
+        raise ValueError(f"rounds must be in [0, 250], got {rounds}")
+    Z, Y, X = volume.shape
+    out = torch.empty(volume.shape, dtype=torch.bfloat16,
+                      device=volume.device)
+    scratch = torch.empty((2, Z, Y, X), dtype=torch.uint8,
+                          device=volume.device)
+    lib = library()
+    err = lib.rgbd_sentinel_bake(
+        volume.data_ptr(), bs_scaled.data_ptr(), out.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), Z, Y, X, brick_vox,
+        rounds, grid[1], grid[2],
+        torch.cuda.current_stream(volume.device).cuda_stream,
+    )
+    check(err, "sentinel_bake")
+    LAUNCHES["sentinel_bake"] += 1
+    return out

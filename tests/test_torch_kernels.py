@@ -1,0 +1,186 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch twins,
+and the CPU dispatch rules of their wrappers.
+
+Imports torch only (no jax), so the CUDA tests run on a GPU machine without
+the JAX package's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Without a CUDA device the ``cuda`` tests skip; the CPU tests always run.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rgbd_recon_tpu_torch import kernels
+from rgbd_recon_tpu_torch.ops import bake, stencil13
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _depth_maps(rng, n, h, w):
+    """Metric depth with smooth regions, edges, invalid zeros and
+    out-of-range values (numpy, from a seed)."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                         indexing="ij")
+    base = 1.5 + np.sin(xx * 7.0)[None] * 0.6 + (yy > 0.5)[None] * 1.2
+    d = base + rng.normal(0, 0.02, (n, h, w))
+    d[rng.random((n, h, w)) < 0.05] = 0.0
+    d[rng.random((n, h, w)) < 0.01] = 4.8
+    return d.astype(np.float32)
+
+
+def _volume(rng, shape, limit=0.01):
+    """TSDF-like volume: a sphere band at +-limit plus sparse noise."""
+    Z, Y, X = shape
+    z, y, x = np.meshgrid(*(np.arange(s) for s in shape), indexing="ij")
+    r = np.sqrt((x - X / 2) ** 2 + (y - Y / 2) ** 2 + (z - Z / 2) ** 2)
+    vol = np.clip((min(shape) * 0.3 - r) * limit * 0.5, -limit, limit)
+    vol[rng.random(shape) < 1e-4] = limit * 0.5
+    return vol.astype(np.float32)
+
+
+# ---- CPU: dispatch rules --------------------------------------------------
+
+def test_cpu_tensors_take_plain_path_and_count_nothing():
+    """On CPU tensors each wrapper runs its plain twin; no launch counter
+    moves and no kernel is built."""
+    rng = np.random.default_rng(0)
+    kernels.reset_launch_counts()
+    d = torch.from_numpy(_depth_maps(rng, 2, 20, 24))
+    lim = torch.tensor([[0.5, 4.5]] * 2)
+    got = stencil13.bilateral13(d, lim)
+    want = stencil13.bilateral13_plain(d, lim)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    dn = torch.clamp((d - 0.5) / 4.0, -0.1, 1.1)
+    got = stencil13.quality13(dn)
+    for g, w in zip(got, stencil13.quality13_plain(dn)):
+        assert torch.equal(g, w)
+    vol = torch.from_numpy(_volume(rng, (16, 24, 20)))
+    assert torch.equal(bake.surface_occ(vol, 4), bake.surface_occ_plain(vol, 4))
+    bs = torch.from_numpy(rng.integers(0, 3, (4, 6, 5)).astype(np.float32))
+    assert torch.equal(bake.sentinel_bake(vol, bs, 4, 3),
+                       bake.sentinel_bake_plain(vol, bs, 4, 3))
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+def test_cpu_pipeline_launches_no_kernel():
+    """A whole CPU fuse + render runs every plain twin and no kernel."""
+    from rgbd_recon_tpu.core import BoundingBox, PipelineConfig
+    from rgbd_recon_tpu_torch.calib.sensors import build_synthetic_calibration
+    from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+    from rgbd_recon_tpu_torch.sensors.synthetic import (
+        SyntheticScene,
+        default_test_rig,
+        render_rig_frames,
+    )
+
+    bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+    rig = default_test_rig(num_sensors=2, bbox=bbox)
+    calib = build_synthetic_calibration(rig, bbox, cv_res=(16, 24, 16),
+                                        inv_res=(20, 22, 20))
+    frames = render_rig_frames(
+        SyntheticScene(spheres=[((0.0, 1.1, 0.0), 0.55)]), rig)
+    cfg = PipelineConfig(voxel_size=0.1, brick_size=0.2, tsdf_limit=0.04,
+                         num_lods=3)
+    kernels.reset_launch_counts()
+    pipe = TsdfPipeline(calib, cfg, bbox)
+    volume, maps, counts = pipe.fuse(frames)
+    out = pipe.make_renderer(ViewCamera(width=32, height=24))(volume, maps,
+                                                               counts)
+    assert out.color.shape == (24, 32, 3)
+    assert bool(torch.isfinite(out.color).all())
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    from rgbd_recon_tpu_torch.kernels.bake import surface_occ_cuda
+    from rgbd_recon_tpu_torch.kernels.stencil13 import quality13_cuda
+
+    with pytest.raises(ValueError, match="CUDA"):
+        quality13_cuda(torch.zeros(1, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        surface_occ_cuda(torch.zeros(8, 8, 8), 4)
+
+
+def test_port_imports_without_jax():
+    """The port imports with jax and flax blocked, and no file of it names
+    jax in an import."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "import rgbd_recon_tpu_torch, rgbd_recon_tpu_torch.convert\n"
+        "import rgbd_recon_tpu_torch.recon.tsdf_pipeline\n"
+        "import rgbd_recon_tpu_torch.kernels.stencil13\n"
+        "import rgbd_recon_tpu_torch.kernels.bake\n"
+        "import rgbd_recon_tpu_torch.profile_slice\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    pkg = os.path.join(REPO, "rgbd_recon_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(root, f)).read()
+                assert "import jax" not in text and "from jax" not in text, f
+
+
+# ---- CUDA: kernel vs plain twin -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 40, 48), (4, 424, 512)])
+def test_stencil13_kernels_match_plain(cuda, shape):
+    """Kernels 1-2 against the plain fold. Built without FMA contraction or
+    fast math and folded in the same order, they agree to 1e-5 x max|out|
+    (bit-exact expected)."""
+    rng = np.random.default_rng(1)
+    d = torch.from_numpy(_depth_maps(rng, *shape)).to(cuda)
+    lim = torch.tensor([[0.5, 4.5]] * shape[0], device=cuda)
+    before = dict(kernels.LAUNCHES)
+    got = stencil13.bilateral13(d, lim)
+    want = stencil13.bilateral13_plain(d, lim)
+    dn = ((d - 0.5) / 4.0).contiguous()
+    got_q = stencil13.quality13(dn)
+    want_q = stencil13.quality13_plain(dn)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bilateral13"] == before["bilateral13"] + 1
+    assert kernels.LAUNCHES["quality13"] == before["quality13"] + 1
+    for g, w in zip(got + got_q, want + want_q):
+        bound = 1e-5 * float(w.abs().max())
+        assert float((g - w).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,brick_vox", [((24, 32, 40), 8),
+                                             ((20, 22, 18), 4),
+                                             ((200, 220, 200), 10)])
+def test_bake_kernels_bit_exact(cuda, shape, brick_vox):
+    """Kernels 3-4 against the plain versions: bit-exact."""
+    rng = np.random.default_rng(2)
+    vol = torch.from_numpy(_volume(rng, shape)).to(cuda)
+    occ = bake.surface_occ(vol, brick_vox)
+    assert torch.equal(occ, bake.surface_occ_plain(vol, brick_vox))
+    grid = occ.shape
+    bs = torch.from_numpy(
+        rng.integers(0, 4, grid).astype(np.float32) * brick_vox).to(cuda)
+    got = bake.sentinel_bake(vol, bs, brick_vox, 6)
+    want = bake.sentinel_bake_plain(vol, bs, brick_vox, 6)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -1,0 +1,316 @@
+"""Whole-slice parity of the PyTorch port against the JAX package: fuse +
+staged render (bake, block march, tail stages, oct secant refine,
+analytic-model blend, pull-push fill) on the verify scene with
+brick_size=0.2 and a 96x80 camera (the block path with the oct hit table),
+plus unit parity of the march and the hole fill, and the
+NotImplementedError contract for configuration values not ported yet."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax
+import jax.numpy as jnp
+
+from rgbd_recon_tpu.calib import build_synthetic_calibration
+from rgbd_recon_tpu.core import BoundingBox, PipelineConfig
+from rgbd_recon_tpu.ops import holefill as jax_holefill
+from rgbd_recon_tpu.ops import raymarch as jax_raymarch
+from rgbd_recon_tpu.ops.raymarch import ViewCamera
+from rgbd_recon_tpu.recon import TsdfPipeline
+from rgbd_recon_tpu.sensors import (
+    SyntheticScene,
+    default_test_rig,
+    render_rig_frames,
+)
+
+from rgbd_recon_tpu_torch import convert
+from rgbd_recon_tpu_torch.calib.sensors import (
+    build_synthetic_calibration as port_calibration,
+)
+from rgbd_recon_tpu_torch.ops import holefill as port_holefill
+from rgbd_recon_tpu_torch.ops import raymarch as port_raymarch
+from rgbd_recon_tpu_torch.recon.tsdf_pipeline import (
+    TsdfPipeline as PortPipeline,
+)
+from rgbd_recon_tpu_torch.sensors import synthetic as port_synthetic
+
+torch.set_num_threads(2)
+
+BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+SPHERE = [((0.0, 1.1, 0.0), 0.55)]
+CAM = dict(width=96, height=80, eye=(0.0, 1.3, 2.6), target=(0.0, 1.1, 0.0))
+
+
+def _cfg(**kw):
+    return PipelineConfig(voxel_size=0.05, brick_size=0.2, tsdf_limit=0.02,
+                          num_lods=5, **kw)
+
+
+def _np(x):
+    return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+
+
+@pytest.fixture(scope="module")
+def port_setup():
+    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=BBOX)
+    calib = port_calibration(rig, BBOX, cv_res=(24, 32, 24),
+                             inv_res=(40, 44, 40))
+    frames = port_synthetic.render_rig_frames(
+        port_synthetic.SyntheticScene(spheres=SPHERE), rig)
+    return calib, frames
+
+
+def _capturing_fills(store):
+    """Pull-push fills for both packages that record their inputs (the
+    pre-fill r, g, b, alpha planes and window depth, as numpy) in
+    ``store["jax"]`` and ``store["port"]``, then fill as before. The JAX
+    render is jitted, so its inputs come back through a debug callback."""
+    jax_fill = jax_holefill.fill_colors_planar
+    port_fill = port_holefill.fill_colors_planar
+
+    def record_jax(*arrays):
+        store["jax"] = [np.array(a) for a in arrays]
+
+    def jfill(planes, depth, num_lods):
+        jax.debug.callback(record_jax, *planes, depth)
+        return jax_fill(planes, depth, num_lods)
+
+    def pfill(planes, depth, num_lods):
+        store["port"] = [_np(p) for p in planes] + [_np(depth)]
+        return port_fill(planes, depth, num_lods)
+
+    return jfill, pfill
+
+
+@pytest.fixture(scope="module")
+def runs(port_setup):
+    """JAX and port renders of the same scene, default config and with the
+    pull-push fill off; ``prefill`` holds both renders' pre-fill planes."""
+    rig = default_test_rig(num_sensors=4, bbox=BBOX)
+    calib = build_synthetic_calibration(rig, BBOX, cv_res=(24, 32, 24),
+                                        inv_res=(40, 44, 40))
+    frames = render_rig_frames(SyntheticScene(spheres=SPHERE), rig)
+    pcalib, pframes = port_setup
+    out = {"prefill": {}}
+    jfill, pfill = _capturing_fills(out["prefill"])
+    for name, kw in (("default", {}), ("nofill", {"colorfill": False})):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_holefill, "fill_colors_planar", jfill)
+            mp.setattr(port_holefill, "fill_colors_planar", pfill)
+            pipe = TsdfPipeline(calib, _cfg(**kw), BBOX)
+            vol, maps, counts = pipe.fuse(frames)
+            jax_out = pipe.make_renderer(ViewCamera(**CAM))(vol, maps, counts)
+            jax.block_until_ready(jax_out)
+            jax.effects_barrier()
+            ppipe = PortPipeline(pcalib, _cfg(**kw), BBOX)
+            pvol, pmaps, pcounts = ppipe.fuse(pframes)
+            port_out = ppipe.make_renderer(port_raymarch.ViewCamera(**CAM))(
+                pvol, pmaps, pcounts)
+        out[name] = (jax_out, port_out)
+        if name == "default":
+            out["jax_state"] = (pipe, vol, maps, counts)
+    return out
+
+
+def _compare_mask(jax_out, port_out):
+    """Pixels that hit in both and are not next to a hit-mask mismatch
+    (tests/test_golden.py's knife-edge rule)."""
+    hj, hp = _np(jax_out.hit), _np(port_out.hit)
+    mis = torch.from_numpy((hj != hp).astype(np.float32))[None, None]
+    near_mis = F.max_pool2d(mis, 3, stride=1, padding=1)[0, 0].numpy() > 0
+    return hj & hp & ~near_mis
+
+
+@pytest.mark.parametrize("mode", ["default", "nofill"])
+def test_hit_masks_match(runs, mode):
+    """Hit masks equal except at most 0.5% of pixels (knife edges)."""
+    jax_out, port_out = runs[mode]
+    hj, hp = _np(jax_out.hit), _np(port_out.hit)
+    assert hj.sum() > 300
+    assert (hj != hp).sum() <= 0.005 * hj.size
+
+
+@pytest.mark.parametrize("mode", ["default", "nofill"])
+def test_depth_matches(runs, mode):
+    """Window depth at tests/test_golden.py's atol 2e-4 on shared hits."""
+    jax_out, port_out = runs[mode]
+    m = _compare_mask(jax_out, port_out)
+    np.testing.assert_allclose(_np(port_out.depth)[m], _np(jax_out.depth)[m],
+                               rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("mode", ["default", "nofill"])
+def test_overflow_and_samples_equal(runs, mode):
+    """Capacity overflow counters and per-pixel march step counts equal."""
+    jax_out, port_out = runs[mode]
+    np.testing.assert_array_equal(_np(port_out.overflow),
+                                  _np(jax_out.overflow))
+    np.testing.assert_array_equal(_np(port_out.num_samples),
+                                  _np(jax_out.num_samples))
+
+
+def test_color_matches_before_fill(runs):
+    """Blended, shaded hit colors without the pull-push fill: atol 1e-3 on
+    shared hits (tests/test_golden.py's color tolerance)."""
+    jax_out, port_out = runs["nofill"]
+    m = _compare_mask(jax_out, port_out)
+    np.testing.assert_allclose(_np(port_out.color)[m], _np(jax_out.color)[m],
+                               rtol=0, atol=1e-3)
+
+
+def test_color_matches(runs):
+    """Final colors with the default pull-push fill: atol 1e-3 on every
+    shared hit except one named class, hits whose blend fell back to
+    inverse-distance weights (alpha -1). Those take their color from the
+    pyramid, whose pull keeps samples with depth >= the window mean: a
+    knife edge where the depths are equal, which the JAX compiler rounds
+    differently inside the fused render program than in the fill alone
+    (test_fill_on_render_matches holds the port's fill to JAX's fill alone
+    at 1e-6 on these same planes). The class is the same in both packages
+    (96 of 675 shared hits); at most 8 of its pixels (8 today) leave 1e-3,
+    and none leaves 2e-2."""
+    jax_out, port_out = runs["default"]
+    pre = runs["prefill"]
+    m = _compare_mask(jax_out, port_out)
+    fallback = pre["jax"][3] == -1.0
+    np.testing.assert_array_equal((pre["port"][3] == -1.0)[m], fallback[m])
+    cls = m & fallback
+    assert 0 < cls.sum() <= 100
+    cp, cj = _np(port_out.color), _np(jax_out.color)
+    np.testing.assert_allclose(cp[m & ~cls], cj[m & ~cls], rtol=0, atol=1e-3)
+    diff = np.abs(cp[cls] - cj[cls]).max(-1)
+    assert (diff > 1e-3).sum() <= 8
+    assert diff.max() <= 2e-2
+
+
+def test_fill_on_render_matches(runs):
+    """The port's pull-push on the JAX render's own pre-fill planes (r, g,
+    b, alpha, window depth) against the JAX fill run alone on them: the
+    tolerances of test_holefill_matches (atol 1e-6, depth exact)."""
+    planes = runs["prefill"]["jax"]
+    assert (planes[3] == -1.0).any() and (planes[4] < 1.0).sum() > 300
+    cj, dj = jax_holefill.fill_colors_planar(
+        [jnp.asarray(p) for p in planes[:4]], jnp.asarray(planes[4]), 5)
+    cp, dp = port_holefill.fill_colors_planar(
+        [torch.from_numpy(p) for p in planes[:4]],
+        torch.from_numpy(planes[4]), 5)
+    for a, b in zip(cp, cj):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(_np(dp), _np(dj))
+
+
+def test_render_from_carried_state(runs):
+    """The port's renderer on the JAX volume and maps carried across: the
+    render alone, at the whole-slice tolerances."""
+    pipe, vol, maps, counts = runs["jax_state"]
+    jax_out, _ = runs["default"]
+    ccal = convert.calibration_from_numpy(convert.field_arrays(pipe.calib))
+    ppipe = PortPipeline(ccal, _cfg(), BBOX)
+    out = ppipe.make_renderer(port_raymarch.ViewCamera(**CAM))(
+        torch.from_numpy(np.array(vol)),
+        convert.sensor_maps_from_numpy(convert.field_arrays(maps)),
+        torch.from_numpy(np.array(counts)))
+    hj, hp = _np(jax_out.hit), _np(out.hit)
+    assert (hj != hp).sum() <= 0.005 * hj.size
+    m = _compare_mask(jax_out, out)
+    np.testing.assert_allclose(_np(out.depth)[m], _np(jax_out.depth)[m],
+                               rtol=0, atol=2e-4)
+    np.testing.assert_array_equal(_np(out.overflow), _np(jax_out.overflow))
+
+
+def test_march_matches(runs):
+    """The nearest-tap sentinel march on the JAX bf16 march table: same
+    hits and step counts, states to f32 rounding."""
+    pipe, vol, maps, counts = runs["jax_state"]
+    render_fn, _ = pipe.make_render_fn(ViewCamera(**CAM))
+    packed = render_fn.bake(vol, counts, pipe._limit)[0]
+    rng = np.random.default_rng(8)
+    n = 512
+    pos0 = rng.uniform(0.0, 1.0, (3, n)).astype(np.float32)
+    pos0[2] = 0.02
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d[2] = np.abs(d[2]) + 0.5
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    length = rng.uniform(0.0, 1.2, n).astype(np.float32)
+    h_min = 1.0 / 44
+    hit_j, _, num_j, st_j = jax_raymarch.march(
+        packed, jnp.zeros(3), tuple(jnp.asarray(x) for x in d), pipe._limit,
+        60, (tuple(jnp.asarray(x) for x in pos0), jnp.asarray(length)),
+        mode="nearest", refine_nearest=False, sentinel_skip=True,
+        sentinel_scale=h_min, return_state=True)
+    table = torch.from_numpy(
+        np.asarray(packed.pairs).view(np.uint16).astype(np.int16)
+    ).view(torch.bfloat16).reshape(tuple(vol.shape))
+    hit_p, num_p, st_p = port_raymarch.march(
+        table, float(pipe._limit), 60,
+        (tuple(torch.from_numpy(x) for x in pos0), torch.from_numpy(length)),
+        tuple(torch.from_numpy(x) for x in d), sentinel_scale=h_min)
+    assert int(_np(hit_j).sum()) > 20
+    np.testing.assert_array_equal(_np(hit_p), _np(hit_j))
+    np.testing.assert_array_equal(_np(num_p), _np(num_j))
+    for a, b in zip(st_p, st_j):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-6, atol=1e-6)
+
+
+def test_holefill_matches():
+    """Pull-push on the same random planes: selection matmuls are exact and
+    the bilinear resampling agrees to f32 rounding (atol 1e-6)."""
+    rng = np.random.default_rng(9)
+    H, W = 80, 96
+    rgba = rng.random((H, W, 4)).astype(np.float32)
+    rgba[..., 3] = np.where(rng.random((H, W)) < 0.3, -1.0, 1.0)
+    depth = rng.uniform(0.9, 0.99, (H, W)).astype(np.float32)
+    depth[rng.random((H, W)) < 0.2] = 1.0
+    cj, dj = jax_holefill.fill_colors_planar(
+        [jnp.asarray(rgba[..., i]) for i in range(4)], jnp.asarray(depth), 5)
+    cp, dp = port_holefill.fill_colors_planar(
+        [torch.from_numpy(rgba[..., i]) for i in range(4)],
+        torch.from_numpy(depth), 5)
+    for a, b in zip(cp, cj):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(_np(dp), _np(dj))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_shade_matches(mode):
+    """Blinn-Phong shading (shading.glsl) on random view-space inputs:
+    f32 math in both, powf(x, 20) and norms may differ by ulps (1e-5)."""
+    rng = np.random.default_rng(10)
+    pos = rng.normal(size=(64, 3)).astype(np.float32) - [0, 0, 3]
+    nrm = rng.normal(size=(64, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    dif = rng.random((64, 3)).astype(np.float32)
+    want = jax_raymarch.shade(jnp.asarray(pos), jnp.asarray(nrm),
+                              jnp.asarray(dif), shade_mode=mode)
+    got = port_raymarch.shade(torch.from_numpy(pos), torch.from_numpy(nrm),
+                              torch.from_numpy(dif), shade_mode=mode)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("integrate_taps", "bilinear"),
+    ("march_mode", "trilinear"),
+    ("march_chunk", 8),
+    ("bracket_per_block", True),
+    ("oct_hit_table", False),
+    ("blend_mode", "best_two"),
+    ("march_dtype", "float32"),
+    ("recon_mode", 0),
+])
+def test_unported_config_raises(port_setup, field, value):
+    calib, _ = port_setup
+    cfg = dataclasses.replace(_cfg(), **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        PortPipeline(calib, cfg, BBOX)
+
+
+def test_small_camera_raises(port_setup):
+    """A camera under 4 blocks per axis takes render_dense, not ported."""
+    calib, _ = port_setup
+    pipe = PortPipeline(calib, _cfg(), BBOX)
+    with pytest.raises(NotImplementedError, match="render_dense"):
+        pipe.make_renderer(port_raymarch.ViewCamera(width=8, height=8))
