@@ -48,3 +48,24 @@ def mark_bricks(world_pos: torch.Tensor, valid: torch.Tensor,
 def occupied_mask(counts: torch.Tensor, min_voxels: int = 10) -> torch.Tensor:
     """(Bz, By, Bx) bool occupancy (brick_occupied, inc_bricks.glsl:60-62)."""
     return counts > min_voxels
+
+
+def expand_mask_to_voxel_grid(mask: torch.Tensor, vol_shape: tuple,
+                              bbox_size: tuple,
+                              brick_size: float) -> torch.Tensor:
+    """(Bz, By, Bx) brick mask -> (Z, Y, X) voxel mask: each voxel takes
+    the brick containing its center, floor(world offset / brick_size),
+    clamped to the brick grid."""
+    Z, Y, X = vol_shape
+    sx, sy, sz = bbox_size
+    Bz, By, Bx = mask.shape
+
+    def axis_idx(R, B, size):
+        i = torch.arange(R, dtype=torch.float32, device=mask.device)
+        b = torch.floor((i + 0.5) / R * (size / brick_size)).to(torch.int64)
+        return torch.clamp(b, 0, B - 1)
+
+    iz = axis_idx(Z, Bz, sz)
+    iy = axis_idx(Y, By, sy)
+    ix = axis_idx(X, Bx, sx)
+    return mask[iz][:, iy][:, :, ix]

@@ -1,12 +1,16 @@
-"""TSDF raymarching pieces of the staged render (counterpart of
-rgbd_recon_tpu/ops/raymarch.py): the view camera, the nearest-tap sentinel
-march, the oct cell-corner hit table with its secant refine and gradient,
-the analytic-model color blend and Blinn-Phong shading.
+"""TSDF raymarching pieces of the render (counterpart of
+rgbd_recon_tpu/ops/raymarch.py): the view camera, the march (nearest or
+trilinear taps, with or without skip sentinels), the oct cell-corner hit
+table with its secant refine and gradient, the table-based secant refine
+and central-difference gradient, the color blends (calibration volumes,
+their nearest-lookup variant, analytic projection models) and Blinn-Phong
+shading.
 
 Marching happens in volume-normalized coordinates [0, 1]^3 with step
-tsdf_limit / 2 (glsl/tsdf_raymarch.fs:34). The march table is the (Z, Y, X)
-bf16 sentinel-coded volume of ops/bake.py: values below -1.5 encode a
-certified-safe advance of -(value + 2) voxel extents.
+tsdf_limit / 2 (glsl/tsdf_raymarch.fs:34). A march table is a (Z, Y, X)
+tensor: the raw f32 volume, or the bf16 sentinel-coded volume of
+ops/bake.py, whose values below -1.5 encode a certified-safe advance of
+-(value + 2) voxel extents.
 """
 
 from __future__ import annotations
@@ -17,7 +21,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .sampling import quad_bilinear
+from .sampling import (
+    bilinear_2d,
+    nearest_3d,
+    pair_bilinear,
+    pair_trilinear,
+    quad_bilinear,
+    trilinear_3d,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,25 +240,104 @@ def oct_refine_crossing(oct: OctVolume, pos0, dn, lo_t, hi_t, hit, hit_pos,
     return torch.where(ok[..., None], refined, hit_pos)
 
 
+def refine_crossing(table: torch.Tensor, pos0, dn, lo_t, hi_t, hit,
+                    hit_pos, clamp_floor=None) -> torch.Tensor:
+    """Trilinear secant refinement at the march's crossing bracket
+    [lo_t, hi_t] (tsdf_raymarch.fs:98-101) from the (Z, Y, X) march table;
+    ``clamp_floor`` neutralises skip sentinels. Rays whose trilinear
+    bracket does not confirm the crossing keep ``hit_pos``."""
+    p0x, p0y, p0z = pos0
+    dnx, dny, dnz = dn
+    v1 = pair_trilinear(table, p0x + dnx * hi_t, p0y + dny * hi_t,
+                        p0z + dnz * hi_t, clamp_floor)
+    v0 = pair_trilinear(table, p0x + dnx * lo_t, p0y + dny * lo_t,
+                        p0z + dnz * lo_t, clamp_floor)
+    ok = hit & (v1 > 0.0) & (v0 <= 0.0)
+    tstar = hi_t - (hi_t - lo_t) * (v1 / _secant_den(v1 - v0))
+    refined = torch.stack([p0x + dnx * tstar, p0y + dny * tstar,
+                           p0z + dnz * tstar], dim=-1)
+    return torch.where(ok[..., None], refined, hit_pos)
+
+
+def gradient_normal(table: torch.Tensor, pos: torch.Tensor, limit: float,
+                    mode: str = "trilinear", clamp_floor=None
+                    ) -> torch.Tensor:
+    """Central-difference TSDF gradient at +-step along each axis, negated
+    and normalized (get_gradient, tsdf_raymarch.fs:148-157), in volume-
+    normalized space. ``mode="nearest"`` takes nearest samples;
+    ``clamp_floor`` clamps each sample (each tap when trilinear) from
+    below."""
+    sd = float(np.float32(limit) * np.float32(0.5))
+    p = [pos[..., 0], pos[..., 1], pos[..., 2]]
+
+    def s(q):
+        if mode == "nearest":
+            v = sample_nearest_p(table, *q)
+            return v if clamp_floor is None else torch.clamp_min(
+                v, clamp_floor)
+        return pair_trilinear(table, *q, clamp_floor)
+
+    def diff(axis):
+        hi = [x + sd if j == axis else x for j, x in enumerate(p)]
+        lo = [x - sd if j == axis else x for j, x in enumerate(p)]
+        return s(hi) - s(lo)
+
+    g = torch.stack([diff(0), diff(1), diff(2)], dim=-1)
+    return -g / torch.clamp_min(_norm(g), 1e-20)
+
+
 # a CPU-side .any() check of the loop condition every this many steps:
 # extra iterations past the last active ray change nothing (the body
 # freezes inactive rays), so the results equal a per-step exit
 _EXIT_CHECK_EVERY = 8
 
 
-def march(table: torch.Tensor, limit: float, max_steps: int,
-          start_end, dirs, sentinel_scale: float = 1.0, resume=None):
-    """Nearest-tap march with sentinel skipping (tsdf_raymarch.fs:62-114):
-    each active ray samples the table at its position, records the secant
-    zero of the (prev_t, t) bracket on the first positive sample and
-    advances by max(safe_steps * sentinel_scale, step) on a sentinel, else
-    by one step (tsdf_limit / 2).
+def unit_cube_entry(eye: torch.Tensor, dirs, limit: float):
+    """Start positions and ray lengths of rays from ``eye`` through the unit
+    cube (the slab test of tsdf_raymarch.fs:371-382 in march steps of
+    tsdf_limit / 2): the ``start_end`` of a full-screen march. Rays that
+    miss the cube, or whose exit lies behind the eye, get length 0."""
+    sd = float(np.float32(limit) * np.float32(0.5))
+    dnx, dny, dnz = dirs
 
-    ``start_end`` = ((px, py, pz) start positions, (R,) ray lengths);
-    ``dirs`` = planar unit directions; ``resume`` = (t, prev_t, prev) from
-    an earlier march. Runs at most ``max_steps`` iterations and stops early
-    once no ray is active. Returns (hit, num, state) with state = (t,
-    prev_t, prev, lo_t, hi_t, hit_t) in arc length from the start."""
+    def slab(c0, d):
+        inv = 1.0 / (d * sd)
+        tb = inv * (0.0 - c0)
+        tt = inv * (1.0 - c0)
+        return torch.minimum(tb, tt), torch.maximum(tb, tt)
+
+    l0, h0 = slab(eye[0], dnx)
+    l1, h1 = slab(eye[1], dny)
+    l2, h2 = slab(eye[2], dnz)
+    t0 = torch.maximum(torch.maximum(l0, l1), l2)
+    t1 = torch.minimum(torch.minimum(h0, h1), h2)
+    is_t0 = t0 <= t1
+    t_near = torch.clamp_min(torch.where(is_t0, t0, t1), 0.0)
+    t_far = torch.where(is_t0, t1, t0)
+    pos0 = tuple(eye[i] + d * sd * t_near
+                 for i, d in enumerate((dnx, dny, dnz)))
+    length = torch.where(is_t0 & (t_far > t_near), (t_far - t_near) * sd,
+                         0.0)
+    return pos0, length
+
+
+def march(table: torch.Tensor, limit: float, max_steps: int,
+          start_end, dirs, mode: str = "nearest", sentinel_skip: bool = True,
+          sentinel_scale: float = 1.0, resume=None):
+    """The march loop of tsdf_raymarch.fs:62-114: each active ray samples
+    the table at its position (``mode`` "nearest": the nearest texel;
+    "trilinear": sampling.pair_trilinear), records the secant zero of the
+    (prev_t, t) bracket on the first positive sample and advances by one
+    step (tsdf_limit / 2). With ``sentinel_skip`` a sample below -1.5 is a
+    skip sentinel: the ray advances by max(safe_steps * sentinel_scale,
+    step) and the sample counts as -limit.
+
+    ``start_end`` = ((px, py, pz) start positions, (R,) ray lengths), e.g.
+    from :func:`unit_cube_entry`; ``dirs`` = planar unit directions;
+    ``resume`` = (t, prev_t, prev) from an earlier march. Runs at most
+    ``max_steps`` iterations and stops early once no ray is active.
+    Returns (hit, num, state) with state = (t, prev_t, prev, lo_t, hi_t,
+    hit_t) in arc length from the start."""
     sd = float(np.float32(limit) * np.float32(0.5))
     (pos0x, pos0y, pos0z), ray_len = start_end
     dnx, dny, dnz = dirs
@@ -272,15 +362,22 @@ def march(table: torch.Tensor, limit: float, max_steps: int,
         px = pos0x + dnx * t
         py = pos0y + dny * t
         pz = pos0z + dnz * t
-        raw = sample_nearest_p(table, px, py, pz)
+        if mode == "nearest":
+            raw = sample_nearest_p(table, px, py, pz)
+        else:
+            raw = pair_trilinear(table, px, py, pz)
         density = torch.clamp_min(raw, -limit)   # neutralise the sentinel
         found = active & (density > 0.0)
         tstar = t - (t - prev_t) * (density / _secant_den(density - prev))
         hit_t = torch.where(found, tstar, hit_t)
         lo_t = torch.where(found, prev_t, lo_t)
         hi_t = torch.where(found, t, hi_t)
-        advance = torch.where(
-            raw < -1.5, torch.clamp_min((-raw - 2.0) * sentinel_scale, sd), sd)
+        if sentinel_skip:
+            advance = torch.where(
+                raw < -1.5, torch.clamp_min((-raw - 2.0) * sentinel_scale, sd),
+                sd)
+        else:
+            advance = sd
         num = torch.where(active, num + 1, num)
         prev_t = torch.where(active, t, prev_t)
         prev = torch.where(active, density, prev)
@@ -289,13 +386,89 @@ def march(table: torch.Tensor, limit: float, max_steps: int,
     return hit, num, (t, prev_t, prev, lo_t, hi_t, hit_t)
 
 
+def _blend_accumulate(col, depth, qual, z, in_frustum, limit, acc):
+    """One sensor's term of the blendColors fold (tsdf_raymarch.fs:
+    303-338): quality / (dist + 0.01) weights inside the truncation band,
+    inverse-distance weights for the fallback."""
+    total_c, total_w, total_c2, total_w2 = acc
+    dist = torch.abs(depth - z)
+    qual = torch.where((dist < limit) & in_frustum, qual, 0.0)
+    w = qual / (dist + 0.01)
+    w2 = torch.where(in_frustum, 1.0 / torch.clamp_min(dist, 1e-20), 0.0)
+    return (total_c + col * w[..., None], total_w + w,
+            total_c2 + col * w2[..., None], total_w2 + w2)
+
+
+def _blend_finalize(acc):
+    """(..., 4) rgba: the quality blend with alpha 1 where any quality
+    weight is positive, else the inverse-distance blend with alpha -1."""
+    total_c, total_w, total_c2, total_w2 = acc
+    use_primary = total_w > 0.0
+    primary = total_c / torch.clamp_min(total_w, 1e-20)[..., None]
+    fallback = total_c2 / torch.clamp_min(total_w2, 1e-20)[..., None]
+    rgb = torch.where(use_primary[..., None], primary, fallback)
+    alpha = torch.where(use_primary, 1.0, -1.0)
+    return torch.cat([rgb, alpha[..., None]], dim=-1)
+
+
+def _blend_zeros(shape, device):
+    z3 = torch.zeros(shape + (3,), dtype=torch.float32, device=device)
+    z1 = torch.zeros(shape, dtype=torch.float32, device=device)
+    return (z3, z1, z3, z1)
+
+
+def blend_colors(sample_pos: torch.Tensor, cv_xyz_inv, cv_uv, colors,
+                 depths, qualities, limit: float) -> torch.Tensor:
+    """The reference-exact color blend (blendColors, tsdf_raymarch.fs:
+    303-338) through the calibration volumes: per sensor, a trilinear
+    cv_xyz_inv lookup at the volume-normalized hit position, a trilinear
+    cv_uv lookup for the color texcoord, and bilinear fetches of color,
+    depth and quality. Returns (..., 4) rgba."""
+    acc = _blend_zeros(sample_pos.shape[:-1], sample_pos.device)
+    dq = torch.stack([depths, qualities], dim=-1)
+    for i in range(colors.shape[0]):
+        lookup = trilinear_3d(cv_xyz_inv[i], sample_pos)
+        pos_calib = lookup[..., :3]
+        in_frustum = lookup[..., 3] > 0.99
+        pos_color = trilinear_3d(cv_uv[i], pos_calib)[..., :2]
+        col = bilinear_2d(colors[i], pos_color)
+        dqv = bilinear_2d(dq[i], pos_calib[..., :2])
+        acc = _blend_accumulate(col, dqv[..., 0], dqv[..., 1],
+                                pos_calib[..., 2], in_frustum, limit, acc)
+    return _blend_finalize(acc)
+
+
+def blend_colors_fast(sample_pos: torch.Tensor, cv_xyz_inv, cv_uv, colors,
+                      depths, qualities, limit: float) -> torch.Tensor:
+    """:func:`blend_colors` with nearest calibration-volume lookups (the
+    volumes vary smoothly at voxel scale), colors rounded to bf16, and
+    color and f32 depth/quality read with sampling.pair_bilinear (the
+    x-pair tap rule of the JAX package's raymarch._pair_bilinear)."""
+    acc = _blend_zeros(sample_pos.shape[:-1], sample_pos.device)
+    col_bf = colors.to(torch.bfloat16)
+    dq = torch.stack([depths, qualities], dim=-1)
+    for i in range(colors.shape[0]):
+        lookup = nearest_3d(cv_xyz_inv[i], sample_pos)
+        pos_calib = lookup[..., :3]
+        in_frustum = lookup[..., 3] > 0.99
+        pos_color = nearest_3d(cv_uv[i], pos_calib)
+        col = pair_bilinear(col_bf[i], pos_color[..., 0], pos_color[..., 1])
+        dqv = pair_bilinear(dq[i], pos_calib[..., 0], pos_calib[..., 1])
+        acc = _blend_accumulate(col, dqv[..., 0], dqv[..., 1],
+                                pos_calib[..., 2], in_frustum, limit, acc)
+    return _blend_finalize(acc)
+
+
 def blend_colors_analytic(world_pos: torch.Tensor, proj_models, colors,
-                          depths, qualities, limit: float) -> torch.Tensor:
+                          depths, qualities, limit: float,
+                          dq_taps: str = "nearest") -> torch.Tensor:
     """Quality-weighted multi-sensor color blend (blendColors,
     tsdf_raymarch.fs:303-338) through the analytic projection models:
     per sensor, a bilinear color fetch from the bf16-rounded color map and
-    a nearest fetch of depth/quality. Returns (..., 4) rgba; alpha 1 for
-    the quality blend, -1 for the inverse-distance fallback."""
+    a fetch of depth/quality at the nearest texel (``dq_taps="nearest"``)
+    or with the four-corner rule of sampling.quad_bilinear from the f32
+    maps (``"bilinear"``). Returns (..., 4) rgba; alpha 1 for the quality
+    blend, -1 for the inverse-distance fallback."""
     N = colors.shape[0]
     H, W = depths.shape[1:3]
     px, py, pz = world_pos[..., 0], world_pos[..., 1], world_pos[..., 2]
@@ -304,19 +477,21 @@ def blend_colors_analytic(world_pos: torch.Tensor, proj_models, colors,
     tc2 = [torch.zeros_like(px) for _ in range(3)]
     tw2 = torch.zeros_like(px)
     col_bf = colors.to(torch.bfloat16)
-    dflat = depths.reshape(N, H * W)
-    qflat = qualities.reshape(N, H * W)
+    dq = torch.stack([depths, qualities], dim=-1)
     for i in range(N):
         u, v, d = proj_models.uvd_p(i, px, py, pz)
         in_frustum = ((u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
                       & (d >= 0.0) & (d <= 1.0))
         cu, cv_ = proj_models.color_uv_p(i, px, py, pz)
         col = quad_bilinear(col_bf[i], cu, cv_)
-        xi = torch.clamp((u * W).to(torch.int32), 0, W - 1)
-        yi = torch.clamp((v * H).to(torch.int32), 0, H - 1)
-        idx = (yi * W + xi).to(torch.int64)
-        depth = dflat[i][idx]
-        qual = qflat[i][idx]
+        if dq_taps == "nearest":
+            xi = torch.clamp((u * W).to(torch.int32), 0, W - 1)
+            yi = torch.clamp((v * H).to(torch.int32), 0, H - 1)
+            dqv = dq[i].reshape(H * W, 2)[(yi * W + xi).to(torch.int64)]
+        else:
+            dqv = quad_bilinear(dq[i], u, v)
+        depth = dqv[..., 0]
+        qual = dqv[..., 1]
         dist = torch.abs(depth - d)
         qual = torch.where((dist < limit) & in_frustum, qual, 0.0)
         w = qual / (dist + 0.01)
@@ -343,9 +518,12 @@ _SHININESS = 20.0
 _SOLID_DIFFUSE = 0.5
 
 
+def _norm(x):
+    return torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+
+
 def _unit(x):
-    n = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
-    return x / torch.clamp_min(n, 1e-20)
+    return x / torch.clamp_min(_norm(x), 1e-20)
 
 
 def shade(view_pos, view_normal, diffuse, shade_mode: int = 0,

@@ -69,6 +69,52 @@ def nearest_2d(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return flat[y * W + x]
 
 
+def nearest_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """NEAREST sample of a (D, H, W, C) volume at (..., 3) normalized
+    (x, y, z): the truncated texel index, clamped. -> (..., C)."""
+    D, H, W, C = volume.shape
+    x = _idx(coords[..., 0] * W, W)
+    y = _idx(coords[..., 1] * H, H)
+    z = _idx(coords[..., 2] * D, D)
+    return volume.reshape(D * H * W, C)[(z * H + y) * W + x]
+
+
+def pair_trilinear(table: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                   pz: torch.Tensor, clamp_floor=None) -> torch.Tensor:
+    """Trilinear sample of a (Z, Y, X) table at planar normalized positions
+    with the tap rule of raymarch.PackedVolume.sample_trilinear_p: the x
+    taps are (x0, min(x0+1, X-1)) with zero x weight left of the first
+    texel, the y and z taps clamp as in trilinear_3d. ``clamp_floor``
+    clamps each tap from below before interpolation. Reads f32 from an f32
+    or bf16 table; returns f32."""
+    D, H, W = table.shape
+    flat = table.reshape(-1)
+    cx = px * W - 0.5
+    cy = py * H - 0.5
+    cz = pz * D - 0.5
+    x0f, y0f, z0f = torch.floor(cx), torch.floor(cy), torch.floor(cz)
+    fx = torch.where(x0f < 0.0, 0.0, cx - x0f)
+    fy = cy - y0f
+    fz = cz - z0f
+    x0 = _idx(x0f, W)
+    x1 = torch.clamp_max(x0 + 1, W - 1)
+    y0, y1 = _idx(y0f, H), _idx(y0f + 1.0, H)
+    z0, z1 = _idx(z0f, D), _idx(z0f + 1.0, D)
+
+    def pair(z, y):
+        base = (z * H + y) * W
+        a = flat[base + x0].to(torch.float32)
+        b = flat[base + x1].to(torch.float32)
+        if clamp_floor is not None:
+            a = torch.clamp_min(a, clamp_floor)
+            b = torch.clamp_min(b, clamp_floor)
+        return a * (1.0 - fx) + b * fx
+
+    c0 = pair(z0, y0) * (1.0 - fy) + pair(z0, y1) * fy
+    c1 = pair(z1, y0) * (1.0 - fy) + pair(z1, y1) * fy
+    return c0 * (1.0 - fz) + c1 * fz
+
+
 def pair_bilinear(image: torch.Tensor, u: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """Bilinear sample with the x-pair tap rule of raymarch._pair_bilinear:

@@ -1,11 +1,13 @@
-"""Brick-compact TSDF integration (counterpart of rgbd_recon_tpu/ops/tsdf.py).
+"""TSDF integration (counterpart of rgbd_recon_tpu/ops/tsdf.py).
 
 Per voxel (volume-normalized position p), per sensor i in order, the exact
 branch structure of glsl/tsdf_integration.vs:23-58: silhouette carve while
 nothing is written yet, behind-surface clamp to -limit, in-band quality-
-weighted running average. Only occupied bricks are integrated; every other
-voxel holds the clear value -limit. Layouts are brick-major: the padded
-volume viewed as (B, V) with B bricks of V = brick_vox^3 voxels.
+weighted running average. The brick-compact path integrates only occupied
+bricks (every other voxel holds the clear value -limit) in a brick-major
+layout: the padded volume viewed as (B, V) with B bricks of V =
+brick_vox^3 voxels. The dense path integrates every voxel, optionally
+gated by a per-voxel mask.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .sampling import trilinear_3d
+from .sampling import bilinear_2d, quad_bilinear, trilinear_3d
 
 
 def brick_layout(vol_shape: Tuple[int, int, int], brick_vox: int):
@@ -40,6 +42,54 @@ def voxel_centers(vol_shape: Tuple[int, int, int],
     xi = torch.arange(X, dtype=f32, device=device).view(1, 1, X)
     return torch.stack(torch.broadcast_tensors(
         (xi + 0.5) / tx, (yi + 0.5) / ty, (zi + 0.5) / tz), dim=-1)
+
+
+def bake_projections(cv_xyz_inv: torch.Tensor,
+                     vol_shape: Tuple[int, int, int]):
+    """Dense per-voxel projections (pos_calib (N, Z, Y, X, 3), in_frustum
+    (N, Z, Y, X) bool): each voxel center's trilinear cv_xyz_inv lookup,
+    valid when the interpolated validity channel is > 0.99. One-time setup
+    cost."""
+    pos = voxel_centers(vol_shape, device=cv_xyz_inv.device)
+    pos_calib, in_frustum = [], []
+    for inv in cv_xyz_inv:
+        look = trilinear_3d(inv, pos)
+        pos_calib.append(look[..., :3])
+        in_frustum.append(look[..., 3] > 0.99)
+        del look
+    return torch.stack(pos_calib), torch.stack(in_frustum)
+
+
+def integrate(vol_shape: Tuple[int, int, int], cv_xyz_inv: torch.Tensor,
+              depths: torch.Tensor, qualities: torch.Tensor,
+              silhouettes: torch.Tensor, limit: float,
+              voxel_mask: Optional[torch.Tensor] = None,
+              projections=None, carve_sil_threshold: float = 1.0,
+              phantom_hull: bool = False) -> torch.Tensor:
+    """Dense integration of every voxel with bilinear map taps; returns the
+    (Z, Y, X) volume, -limit outside ``voxel_mask`` when one is given.
+    ``projections`` are :func:`bake_projections`' output; without them the
+    lookups are made here."""
+    if projections is None:
+        projections = bake_projections(cv_xyz_inv, vol_shape)
+    pos_calib, in_frustum = projections
+    N = depths.shape[0]
+    dev = depths.device
+    tsd = torch.full(tuple(vol_shape), limit, dtype=torch.float32,
+                     device=dev)
+    total_w = torch.zeros_like(tsd)
+    maps = torch.stack([silhouettes, depths, qualities], dim=-1)
+    for i in range(N):
+        vals = bilinear_2d(maps[i], pos_calib[i, ..., :2])
+        tsd, total_w = fuse_sensor(
+            tsd, total_w, pos_calib[i, ..., 2], vals[..., 1], vals[..., 2],
+            vals[..., 0], in_frustum[i], limit, carve_sil_threshold,
+        )
+    if not phantom_hull:
+        tsd = torch.where((total_w <= 0.0) & (tsd >= limit), -limit, tsd)
+    if voxel_mask is not None:
+        tsd = torch.where(voxel_mask, tsd, -limit)
+    return tsd
 
 
 def bake_projections_bricks(cv_xyz_inv: torch.Tensor,
@@ -106,20 +156,30 @@ def integrate_bricks(proj_bricks: torch.Tensor, ids: torch.Tensor,
                      carve_sil_threshold: float = 1.0,
                      phantom_hull: bool = False,
                      taps: str = "nearest") -> torch.Tensor:
-    """Occupied-bricks-only integration with nearest map taps; returns the
-    dense (Z, Y, X) volume. Quality and silhouette are rounded to bf16 as
-    the reference's fast path stores them (tsdf.py:337-354); depth stays
-    f32."""
-    if taps != "nearest":
-        raise NotImplementedError(f"integrate_taps={taps!r}")
+    """Occupied-bricks-only integration; returns the dense (Z, Y, X)
+    volume. ``taps="nearest"`` fetches the maps at the nearest texel, with
+    quality and silhouette rounded to bf16 as the reference's fast path
+    stores them (tsdf.py:337-354) and depth in f32; ``taps="bilinear"``
+    interpolates the f32 maps with the four-corner rule of
+    sampling.quad_bilinear (tsdf.py:363-407)."""
     N, B, V, _ = proj_bricks.shape
     H, W = depths.shape[1:3]
     ids_c = torch.clamp_max(ids, B - 1)
     proj = proj_bricks[:, ids_c]                         # (N, K, V, 4)
+    in_frustum = proj[..., 3] > 0.0
+    if taps != "nearest":
+        maps = torch.stack([depths, qualities, silhouettes], dim=-1)
+        vals = torch.stack([quad_bilinear(maps[i], proj[i, ..., 0],
+                                          proj[i, ..., 1])
+                            for i in range(N)])          # (N, K, V, 3)
+        return fold_and_scatter(
+            proj[..., 2], vals[..., 0], vals[..., 1], vals[..., 2],
+            in_frustum, ids, limit, vol_shape, brick_vox,
+            carve_sil_threshold, phantom_hull,
+        )
     qs = torch.stack([qualities, silhouettes], dim=-1).to(torch.bfloat16)
     qs = qs.to(torch.float32).reshape(N, H * W, 2)
     dflat = depths.reshape(N, H * W)
-    in_frustum = proj[..., 3] > 0.0
     xi = torch.clamp((proj[..., 0] * W).to(torch.int32), 0, W - 1)
     yi = torch.clamp((proj[..., 1] * H).to(torch.int32), 0, H - 1)
     idx = (yi * W + xi).to(torch.int64)

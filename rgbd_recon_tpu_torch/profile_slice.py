@@ -112,15 +112,15 @@ def main() -> None:
     proj, limit = pipe._get_projection_models(), pipe._limit
 
     volume, maps, counts = pipe.fuse(frames)       # fits the models
-    baked = render.bake(volume)
+    baked = render.bake(volume, counts)
     stages = {
         "preprocess+mark": lambda: pipe.preprocess(frames),
         "integrate": lambda: pipe.integrate(maps, counts),
         "fuse": lambda: pipe.fuse(frames),
-        "bake": lambda: render.bake(volume),
+        "bake": lambda: render.bake(volume, counts),
         "render_from_baked": lambda: render.render_from_baked(
             baked, maps, cam, proj, limit),
-        "render": lambda: render(volume, maps, cam, proj, limit),
+        "render": lambda: render(volume, maps, counts, cam, proj, limit),
     }
     stage_ms = {}
     for name, fn in stages.items():
@@ -130,7 +130,7 @@ def main() -> None:
 
     def frame():
         v, m, c = pipe.fuse(frames)
-        return render(v, m, cam, proj, limit)
+        return render(v, m, c, cam, proj, limit)
 
     frame()
     torch.cuda.synchronize()

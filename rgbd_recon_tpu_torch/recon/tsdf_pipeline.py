@@ -3,13 +3,16 @@ raymarch (counterpart of rgbd_recon_tpu/recon/tsdf_pipeline.py).
 
   frames --preprocess (5-pass chain)--> sensor maps
          --brick marking (histogram)--> occupancy counts
-         --brick-compact TSDF integration--> volume
-         --bake (surface bricks, sentinel march table, oct hit table)
-         --block-compacted staged march + secant refine + blend--> hits
+         --TSDF integration (brick-compact, or dense)--> volume
+         --bake (surface bricks; sentinel march table and oct hit table
+           on the fast path, the raw f32 volume otherwise)
+         --block-compacted staged march (or a full-screen march)
+           + secant refine + gradient + blend--> hits
          --pull-push colorfill--> final frame
 
-This port covers the default fast configuration. Configuration values it
-does not implement raise NotImplementedError naming the value.
+This port covers the fast configuration and the reference-exact parity
+configuration with their variants; the configuration values it does not
+implement raise NotImplementedError naming the value (check_supported).
 """
 
 from __future__ import annotations
@@ -69,26 +72,24 @@ class CamParams:
         )
 
 
+def _uses_sentinels(c: PipelineConfig) -> bool:
+    """The render marches a bf16 skip-sentinel table (else the raw f32
+    volume) exactly when the march is nearest with empty-space skipping."""
+    return c.march_empty_skip and c.march_mode == "nearest"
+
+
 def check_supported(c: PipelineConfig) -> None:
     """Raise NotImplementedError for configuration values this port does not
     implement yet."""
     unsupported = {
         "recon_mode": c.recon_mode != 1,
-        "integrate_taps": c.integrate_taps != "nearest",
-        "march_mode": c.march_mode != "nearest",
-        "march_dtype": c.march_dtype != "bfloat16",
         "march_chunk": c.march_chunk > 0,
-        "march_empty_skip": not c.march_empty_skip,
         "bracket_per_block": bool(c.bracket_per_block),
-        "oct_hit_table": not c.oct_hit_table,
-        "surface_skip": not c.surface_skip,
-        "projection_model": not c.projection_model,
         "blend_mode": c.blend_mode != "quality",
-        "shade_mode": c.shade_mode not in (0, 1, 2),
+        "shade_mode": c.shade_mode == 3,
         "debug_skip": bool(c.debug_skip),
-        "bricking": not c.bricking,
-        "skip_space": not c.skip_space,
-        "ray_compaction": c.ray_compaction <= 0.0,
+        # an f32 sentinel table needs an f32 output of the bake kernel
+        "march_dtype": _uses_sentinels(c) and c.march_dtype != "bfloat16",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -148,7 +149,7 @@ class TsdfPipeline:
         torch.backends.cudnn.allow_tf32 = False
         self._limit = float(np.float32(self.config.tsdf_limit))
         self._pixel_models_cache = {}
-        self._projection_models = None
+        self._projection_models = None   # (models or None,) once fitted
         self._build_grids()
 
     def _build_grids(self):
@@ -164,13 +165,17 @@ class TsdfPipeline:
             and tsdf.brick_layout(self.volume_grid.shape, self.brick_vox)[0]
             == self.brick_grid.shape
         )
-        if not self.compact:
-            raise NotImplementedError(
-                "dense integrate (brick_size must be a whole number of "
-                f"voxels: brick_size={c.brick_size!r}, "
-                f"voxel_size={c.voxel_size!r})")
-        self.projections = tsdf.bake_projections_bricks(
-            self.calib.cv_xyz_inv, self.volume_grid.shape, self.brick_vox)
+        # frame-invariant per-voxel projections, brick-major for the compact
+        # integration, dense otherwise (None: looked up every frame)
+        if self.compact:
+            self.projections = tsdf.bake_projections_bricks(
+                self.calib.cv_xyz_inv, self.volume_grid.shape,
+                self.brick_vox)
+        elif c.precompute_projections:
+            self.projections = tsdf.bake_projections(
+                self.calib.cv_xyz_inv, self.volume_grid.shape)
+        else:
+            self.projections = None
 
     def _get_pixel_models(self, depth_hw):
         """Per-pixel calibration closed forms for this depth resolution,
@@ -190,18 +195,21 @@ class TsdfPipeline:
         return self._pixel_models_cache[key]
 
     def _get_projection_models(self):
-        """Analytic world -> sensor models for the color blend, fitted once.
-        The volume-lookup blends are not ported: a rig whose fit residual
-        exceeds ~one sensor pixel raises."""
+        """Analytic world -> sensor models for the color blend, fitted once;
+        None when disabled or when the fit residual exceeds ~one sensor
+        pixel (2e-3 normalized units): the blend then goes through the
+        calibration volumes."""
+        if not self.config.projection_model:
+            return None
         if self._projection_models is None:
             models, residual = derive_projection_models(
                 self.calib.cv_xyz, self.calib.cv_uv)
             if residual > 2e-3:
-                raise NotImplementedError(
-                    f"projection-model residual {residual:.2e}: the volume-"
-                    "lookup color blends are not ported")
-            self._projection_models = models
-        return self._projection_models
+                print(f"projection-model residual {residual:.2e} too large; "
+                      "blending through calibration volumes")
+                models = None
+            self._projection_models = (models,)
+        return self._projection_models[0]
 
     # -- fuse -----------------------------------------------------------------
 
@@ -253,10 +261,33 @@ class TsdfPipeline:
         )
         return maps, self._mark_bricks(pm, maps)
 
+    def _voxel_mask(self, brick_counts: torch.Tensor):
+        """Per-voxel gate of the dense integration: the occupied bricks'
+        voxels, or None without bricking."""
+        c = self.config
+        if not c.bricking:
+            return None
+        occ = brick_ops.occupied_mask(brick_counts, c.min_voxels_per_brick)
+        return brick_ops.expand_mask_to_voxel_grid(
+            occ, self.volume_grid.shape,
+            tuple(float(s) for s in self.bbox.size), c.brick_size)
+
     def integrate(self, maps: SensorMaps, brick_counts: torch.Tensor,
                   limit: Optional[float] = None) -> torch.Tensor:
+        """Brick-compact integration of the occupied bricks when the brick
+        edge is a whole number of voxels, else dense integration gated by
+        the occupied bricks (ungated without bricking)."""
         c = self.config
         lim = self._limit if limit is None else float(np.float32(limit))
+        if not self.compact:
+            return tsdf.integrate(
+                self.volume_grid.shape, self.calib.cv_xyz_inv,
+                maps.depth[..., 0], maps.quality, maps.silhouette, lim,
+                voxel_mask=self._voxel_mask(brick_counts),
+                projections=self.projections,
+                carve_sil_threshold=c.carve_sil_threshold,
+                phantom_hull=c.phantom_hull,
+            )
         ids = tsdf.occupied_brick_ids(brick_counts, c.min_voxels_per_brick,
                                       c.brick_capacity)
         return tsdf.integrate_bricks(
@@ -276,30 +307,46 @@ class TsdfPipeline:
 
     def _shade_hits(self, hit, hit_pos, maps: SensorMaps, proj_models,
                     cam: CamParams, near: float, far: float, limit: float,
-                    oct: raymarch.OctVolume):
-        """Normal (analytic oct-cell gradient), color blend and shading at
-        the hit positions. Returns (rgba, window depth)."""
+                    table: torch.Tensor, clamp_floor=None,
+                    oct: Optional[raymarch.OctVolume] = None):
+        """Normal, color blend and shading at the hit positions. The normal
+        is the analytic oct-cell gradient with an oct table, else the
+        central-difference gradient of the march table; the blend goes
+        through the projection models when they fit, else through the
+        calibration volumes. Returns (rgba, window depth)."""
         c = self.config
         calib = self.calib
         bbox_sz = torch.from_numpy(np.asarray(self.bbox.size, np.float32)
                                    ).to(hit_pos.device)
-        g, gvalid = oct.gradient_p(hit_pos[..., 0], hit_pos[..., 1],
-                                   hit_pos[..., 2])
-        grad = -g / torch.clamp_min(_norm(g), 1e-20)
-        # hits anchored off the oct table shade with a toward-camera normal
-        w = cam.eye_w - (hit_pos * bbox_sz + calib.bbox_min)
-        fb = w * bbox_sz
-        fb = fb / torch.clamp_min(_norm(fb), 1e-20)
-        grad = torch.where(gvalid[..., None], grad, fb)
+        if oct is not None:
+            g, gvalid = oct.gradient_p(hit_pos[..., 0], hit_pos[..., 1],
+                                       hit_pos[..., 2])
+            grad = -g / torch.clamp_min(_norm(g), 1e-20)
+            # hits anchored off the oct table shade with a toward-camera
+            # normal
+            w = cam.eye_w - (hit_pos * bbox_sz + calib.bbox_min)
+            fb = w * bbox_sz
+            fb = fb / torch.clamp_min(_norm(fb), 1e-20)
+            grad = torch.where(gvalid[..., None], grad, fb)
+        else:
+            grad = raymarch.gradient_normal(table, hit_pos, limit,
+                                            mode=c.march_mode,
+                                            clamp_floor=clamp_floor)
         n_world = grad / bbox_sz
         n_world = n_world / torch.clamp_min(_norm(n_world), 1e-20)
 
         world_pos = hit_pos * bbox_sz + calib.bbox_min
         view_pos = (world_pos - cam.eye_w) @ cam.rot
         view_normal = n_world @ cam.rot
-        rgba = raymarch.blend_colors_analytic(
-            world_pos, proj_models, maps.color, maps.depth[..., 0],
-            maps.quality, limit)
+        if proj_models is not None:
+            rgba = raymarch.blend_colors_analytic(
+                world_pos, proj_models, maps.color, maps.depth[..., 0],
+                maps.quality, limit, dq_taps=c.integrate_taps)
+        else:
+            blend = (raymarch.blend_colors_fast if c.march_mode == "nearest"
+                     else raymarch.blend_colors)
+            rgba = blend(hit_pos, calib.cv_xyz_inv, calib.cv_uv, maps.color,
+                         maps.depth[..., 0], maps.quality, limit)
         shaded = raymarch.shade(view_pos, view_normal, rgba[..., :3],
                                 shade_mode=c.shade_mode, world_normal=n_world)
         rgba = torch.cat([shaded, rgba[..., 3:]], dim=-1)
@@ -313,10 +360,13 @@ class TsdfPipeline:
     def make_render_fn(self, camera: raymarch.ViewCamera,
                        max_steps: Optional[int] = None):
         """Build the render function for ``camera``'s projection. Returns
-        ``(render, cam0)`` with ``render(volume, maps, cam, proj_models,
-        limit) -> RenderOutput`` and ``cam0`` the camera's CamParams.
-        ``render.bake(volume)`` and ``render.render_from_baked(baked, maps,
-        cam, proj_models, limit)`` are its two halves."""
+        ``(render, cam0)`` with ``render(volume, maps, brick_counts, cam,
+        proj_models, limit) -> RenderOutput`` and ``cam0`` the camera's
+        CamParams. On the block path (``render.use_blocks``),
+        ``render.bake(volume, brick_counts)`` and
+        ``render.render_from_baked(baked, maps, cam, proj_models, limit)``
+        are its two halves; otherwise ``render`` is one full-screen march
+        and ``render_from_baked`` is None."""
         c = self.config
         dev = self.device
         H, W = camera.height, camera.width
@@ -343,20 +393,21 @@ class TsdfPipeline:
         Hb, Wb = Hp // ds, Wp // ds
         B2 = ds * ds
         NB = Hb * Wb
-        if not (Hb >= 4 and Wb >= 4):
-            raise NotImplementedError(
-                f"render_dense (camera {W}x{H} has fewer than 4 blocks of "
-                f"interval_downsample={ds} per axis)")
+        # degenerate-small images (fewer than 4 blocks per axis) and the
+        # configs without space skipping march every pixel instead
+        use_blocks = (c.skip_space and c.bricking and c.ray_compaction > 0.0
+                      and Hb >= 4 and Wb >= 4)
         if not (0.0 < c.interval_step_frac <= 1.0):
             raise ValueError(
                 "interval_step_frac must be in (0, 1]: the dilated-set "
                 f"detection guarantee breaks beyond 1.0 (got "
                 f"{c.interval_step_frac})")
-        if not (brick_vox >= 2 and all(s % brick_vox == 0 for s in vol_shape)
-                and vol_shape[2] % 2 == 0):
-            raise NotImplementedError(
-                f"the non-oct render branch (volume {vol_shape} is not "
-                f"aligned to brick_vox={brick_vox} with an even X)")
+        skip_ = _uses_sentinels(c)
+        # the oct hit table needs a brick-aligned volume with an even X
+        use_oct = (skip_ and c.oct_hit_table and c.surface_skip
+                   and brick_vox >= 2
+                   and all(s % brick_vox == 0 for s in vol_shape)
+                   and vol_shape[2] % 2 == 0)
         h_min = 1.0 / max(vol_shape)
         brick_norm = brick_vox * h_min
         step_len = c.interval_step_frac * brick_norm
@@ -456,28 +507,42 @@ class TsdfPipeline:
             return RenderOutput(color=color, depth=depth_out, hit=hit_img,
                                 num_samples=num_img, overflow=overflow)
 
-        def bake(volume):
-            """volume -> (bf16 march table, oct hit table, surface-brick
-            mask, brick clearance field)."""
+        def bake(volume, brick_counts):
+            """volume -> (march table, oct hit table or None, surface-brick
+            mask, brick clearance field). The surface-brick mask is the
+            bricks whose 1-voxel dilation holds a positive voxel, or the
+            marked occupancy without ``surface_skip``. The march table is
+            the bf16 skip-sentinel table with sentinels, else the raw f32
+            volume."""
             volume = volume.contiguous()
-            occ = bake_ops.surface_occ(volume, brick_vox)
+            if c.surface_skip:
+                occ = bake_ops.surface_occ(volume, brick_vox)
+            else:
+                occ = brick_ops.occupied_mask(brick_counts,
+                                              c.min_voxels_per_brick)
             # brick-level clearance to the surface bricks (plain torch)
             bsafe = bake_ops.fine_safe_field(occ, c.skip_brick_rounds)
+            if not skip_:
+                return volume, None, occ, bsafe
             table = bake_ops.sentinel_bake(
                 volume, (bsafe * float(brick_vox)).contiguous(), brick_vox,
                 c.skip_fine_rounds)
-            oct = raymarch.build_oct_bricks(volume, occ, brick_vox,
-                                            oct_capacity)
+            oct = (raymarch.build_oct_bricks(volume, occ, brick_vox,
+                                             oct_capacity)
+                   if use_oct else None)
             return table, oct, occ, bsafe
 
         def do_march(table, limit, budget, pos0, dirs, length, resume=None):
             return raymarch.march(table, limit, budget, (pos0, length), dirs,
+                                  mode=c.march_mode, sentinel_skip=skip_,
                                   sentinel_scale=h_min, resume=resume)
 
         def render_from_baked(baked, maps: SensorMaps, cam: CamParams,
                               proj_models, limit):
-            """Staged block march + hit refine + shading + hole fill."""
+            """Block march (staged with sentinels, else one full-length
+            march) + hit refine + shading + hole fill."""
             table, oct, occ, bsafe = baked
+            floor = -limit if skip_ else None   # sentinel clamp
             dn = ray_dirs(cam, Hp, Wp)
             dirs_c = tuple(d[ds // 2::ds, ds // 2::ds] for d in dn)
 
@@ -584,7 +649,7 @@ class TsdfPipeline:
 
             overflow2 = 0
             p1 = c.march_phase1_steps
-            if p1 > 0:
+            if p1 > 0 and skip_:
                 hit, num, st = do_march(table, limit, p1, pos0_f, dn_f,
                                         len_brkt_f)
                 st8 = state8(hit, num, st)
@@ -632,12 +697,18 @@ class TsdfPipeline:
             dn_h = (rh[:, 3], rh[:, 4], rh[:, 5])
             hit_pos_h = torch.stack([rh[:, i] + rh[:, 3 + i] * sh[:, 5]
                                      for i in range(3)], dim=-1)
-            hp = raymarch.oct_refine_crossing(
-                oct, pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h, hit_pos_h,
-                limit, widen_steps=c.refine_widen_steps,
-                widen_samples=c.refine_widen_samples)
+            if oct is not None:
+                hp = raymarch.oct_refine_crossing(
+                    oct, pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h,
+                    hit_pos_h, limit, widen_steps=c.refine_widen_steps,
+                    widen_samples=c.refine_widen_samples)
+            else:
+                hp = raymarch.refine_crossing(
+                    table, pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h,
+                    hit_pos_h, clamp_floor=floor)
             rgba_h, depth_h = self._shade_hits(
-                live_h, hp, maps, proj_models, cam, near, far, limit, oct)
+                live_h, hp, maps, proj_models, cam, near, far, limit, table,
+                clamp_floor=floor, oct=oct)
 
             hit6 = torch.cat([rgba_h, depth_h[:, None],
                               live_h.to(torch.float32)[:, None]], dim=-1)
@@ -659,17 +730,42 @@ class TsdfPipeline:
                 max(int(flags.sum()) - capB, 0),
                 overflow2,
                 max(int(hit.sum()) - capH, 0),
-                max(int(occ.sum()) - oct_capacity, 0),
+                max(int(occ.sum()) - oct_capacity, 0) if oct is not None
+                else 0,
             ], dtype=torch.int32, device=dev)
             return finalize(rgba_img, depth_img, hit_img, num_img, overflow)
 
-        def render(volume, maps: SensorMaps, cam: CamParams, proj_models,
-                   limit):
-            return render_from_baked(bake(volume), maps, cam, proj_models,
-                                     limit)
+        def render_dense(volume, maps: SensorMaps, cam: CamParams,
+                         proj_models, limit):
+            """Full-screen march of the raw volume without compaction (the
+            parity/debug path): every pixel's ray from its unit-cube entry,
+            a trilinear secant refine after a nearest march, shading."""
+            dn = ray_dirs(cam, H, W)
+            pos0, length = raymarch.unit_cube_entry(cam.eye_vol, dn, limit)
+            hit, num, st = raymarch.march(
+                volume, limit, max_steps, (pos0, length), dn,
+                mode=c.march_mode, sentinel_skip=False)
+            hit_pos = torch.stack([pos0[i] + dn[i] * st[5] for i in range(3)],
+                                  dim=-1)
+            if c.march_mode == "nearest":
+                hit_pos = raymarch.refine_crossing(
+                    volume, pos0, dn, st[3], st[4], hit, hit_pos)
+            rgba, depth_win = self._shade_hits(
+                hit, hit_pos, maps, proj_models, cam, near, far, limit,
+                volume)
+            overflow = torch.zeros(4, dtype=torch.int32, device=dev)
+            return finalize(rgba, depth_win, hit, num, overflow)
 
+        def render(volume, maps: SensorMaps, brick_counts, cam: CamParams,
+                   proj_models, limit):
+            if not use_blocks:
+                return render_dense(volume, maps, cam, proj_models, limit)
+            return render_from_baked(bake(volume, brick_counts), maps, cam,
+                                     proj_models, limit)
+
+        render.use_blocks = use_blocks
         render.bake = bake
-        render.render_from_baked = render_from_baked
+        render.render_from_baked = render_from_baked if use_blocks else None
         return render, CamParams.from_camera(camera, self.bbox, dev)
 
     def make_renderer(self, camera: raymarch.ViewCamera,
@@ -677,8 +773,9 @@ class TsdfPipeline:
         """Returns ``renderer(volume, maps, brick_counts=None,
         camera_pose=None) -> RenderOutput``; pass a ViewCamera or CamParams
         as ``camera_pose`` to move the view (same projection).
-        ``brick_counts`` is accepted for the JAX package's signature and
-        unused: the render's surface bricks come from the volume."""
+        ``brick_counts`` (the fuse's brick occupancy counts) is read only
+        with ``surface_skip=False``, whose block march skips around the
+        marked bricks instead of the volume's surface bricks."""
         render, cam0 = self.make_render_fn(camera, max_steps)
 
         def renderer(volume, maps: SensorMaps, brick_counts=None,
@@ -690,7 +787,7 @@ class TsdfPipeline:
             else:
                 cam = CamParams.from_camera(camera_pose, self.bbox,
                                             self.device)
-            return render(volume, maps, cam, self._get_projection_models(),
-                          self._limit)
+            return render(volume, maps, brick_counts, cam,
+                          self._get_projection_models(), self._limit)
 
         return renderer

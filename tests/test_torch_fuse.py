@@ -203,7 +203,8 @@ def test_bake_matches_jnp_form(jax_run, port_run, part):
     pipe = port_run["pipe"]
     render_fn, _ = pipe.make_render_fn(PortCamera(**CAM))
     vol = torch.from_numpy(np.array(jax_run["volume"]))
-    table, oct, occ, bsafe = render_fn.bake(vol)
+    counts = torch.from_numpy(np.array(jax_run["counts"]))
+    table, oct, occ, bsafe = render_fn.bake(vol, counts)
     packed, oct_j, occ_j, bsafe_j, _ = jax_run["baked"]
     if part == "occ":
         np.testing.assert_array_equal(_np(occ), _np(occ_j))

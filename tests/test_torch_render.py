@@ -10,7 +10,6 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +37,8 @@ from rgbd_recon_tpu_torch.recon.tsdf_pipeline import (
 )
 from rgbd_recon_tpu_torch.sensors import synthetic as port_synthetic
 
+from test_torch_parity import capturing_fills, shared_hits
+
 torch.set_num_threads(2)
 
 BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
@@ -64,28 +65,6 @@ def port_setup():
     return calib, frames
 
 
-def _capturing_fills(store):
-    """Pull-push fills for both packages that record their inputs (the
-    pre-fill r, g, b, alpha planes and window depth, as numpy) in
-    ``store["jax"]`` and ``store["port"]``, then fill as before. The JAX
-    render is jitted, so its inputs come back through a debug callback."""
-    jax_fill = jax_holefill.fill_colors_planar
-    port_fill = port_holefill.fill_colors_planar
-
-    def record_jax(*arrays):
-        store["jax"] = [np.array(a) for a in arrays]
-
-    def jfill(planes, depth, num_lods):
-        jax.debug.callback(record_jax, *planes, depth)
-        return jax_fill(planes, depth, num_lods)
-
-    def pfill(planes, depth, num_lods):
-        store["port"] = [_np(p) for p in planes] + [_np(depth)]
-        return port_fill(planes, depth, num_lods)
-
-    return jfill, pfill
-
-
 @pytest.fixture(scope="module")
 def runs(port_setup):
     """JAX and port renders of the same scene, default config and with the
@@ -96,7 +75,7 @@ def runs(port_setup):
     frames = render_rig_frames(SyntheticScene(spheres=SPHERE), rig)
     pcalib, pframes = port_setup
     out = {"prefill": {}}
-    jfill, pfill = _capturing_fills(out["prefill"])
+    jfill, pfill = capturing_fills(out["prefill"])
     for name, kw in (("default", {}), ("nofill", {"colorfill": False})):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jax_holefill, "fill_colors_planar", jfill)
@@ -116,15 +95,6 @@ def runs(port_setup):
     return out
 
 
-def _compare_mask(jax_out, port_out):
-    """Pixels that hit in both and are not next to a hit-mask mismatch
-    (tests/test_golden.py's knife-edge rule)."""
-    hj, hp = _np(jax_out.hit), _np(port_out.hit)
-    mis = torch.from_numpy((hj != hp).astype(np.float32))[None, None]
-    near_mis = F.max_pool2d(mis, 3, stride=1, padding=1)[0, 0].numpy() > 0
-    return hj & hp & ~near_mis
-
-
 @pytest.mark.parametrize("mode", ["default", "nofill"])
 def test_hit_masks_match(runs, mode):
     """Hit masks equal except at most 0.5% of pixels (knife edges)."""
@@ -138,7 +108,7 @@ def test_hit_masks_match(runs, mode):
 def test_depth_matches(runs, mode):
     """Window depth at tests/test_golden.py's atol 2e-4 on shared hits."""
     jax_out, port_out = runs[mode]
-    m = _compare_mask(jax_out, port_out)
+    m = shared_hits(jax_out, port_out)
     np.testing.assert_allclose(_np(port_out.depth)[m], _np(jax_out.depth)[m],
                                rtol=0, atol=2e-4)
 
@@ -157,7 +127,7 @@ def test_color_matches_before_fill(runs):
     """Blended, shaded hit colors without the pull-push fill: atol 1e-3 on
     shared hits (tests/test_golden.py's color tolerance)."""
     jax_out, port_out = runs["nofill"]
-    m = _compare_mask(jax_out, port_out)
+    m = shared_hits(jax_out, port_out)
     np.testing.assert_allclose(_np(port_out.color)[m], _np(jax_out.color)[m],
                                rtol=0, atol=1e-3)
 
@@ -175,7 +145,7 @@ def test_color_matches(runs):
     and none leaves 2e-2."""
     jax_out, port_out = runs["default"]
     pre = runs["prefill"]
-    m = _compare_mask(jax_out, port_out)
+    m = shared_hits(jax_out, port_out)
     fallback = pre["jax"][3] == -1.0
     np.testing.assert_array_equal((pre["port"][3] == -1.0)[m], fallback[m])
     cls = m & fallback
@@ -216,7 +186,7 @@ def test_render_from_carried_state(runs):
         torch.from_numpy(np.array(counts)))
     hj, hp = _np(jax_out.hit), _np(out.hit)
     assert (hj != hp).sum() <= 0.005 * hj.size
-    m = _compare_mask(jax_out, out)
+    m = shared_hits(jax_out, out)
     np.testing.assert_allclose(_np(out.depth)[m], _np(jax_out.depth)[m],
                                rtol=0, atol=2e-4)
     np.testing.assert_array_equal(_np(out.overflow), _np(jax_out.overflow))
@@ -292,25 +262,16 @@ def test_shade_matches(mode):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("integrate_taps", "bilinear"),
-    ("march_mode", "trilinear"),
     ("march_chunk", 8),
     ("bracket_per_block", True),
-    ("oct_hit_table", False),
     ("blend_mode", "best_two"),
-    ("march_dtype", "float32"),
+    ("march_dtype", "float32"),     # with the default skip sentinels
     ("recon_mode", 0),
+    ("shade_mode", 3),
+    ("debug_skip", "grad"),
 ])
 def test_unported_config_raises(port_setup, field, value):
     calib, _ = port_setup
     cfg = dataclasses.replace(_cfg(), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         PortPipeline(calib, cfg, BBOX)
-
-
-def test_small_camera_raises(port_setup):
-    """A camera under 4 blocks per axis takes render_dense, not ported."""
-    calib, _ = port_setup
-    pipe = PortPipeline(calib, _cfg(), BBOX)
-    with pytest.raises(NotImplementedError, match="render_dense"):
-        pipe.make_renderer(port_raymarch.ViewCamera(width=8, height=8))
