@@ -7,10 +7,16 @@ launch wrappers in ``kernels/``; ``core/`` (grids, config, cameras) is
 imported from rgbd_recon_tpu, which needs no jax.
 
 Layout:
-  calib/    numpy calibration bake + frustum, torch calibration containers
+  calib/    numpy calibration bake, frustum, .yml parser, volume files and
+            k-NN inverter; torch calibration containers
   sensors/  frame container, numpy synthetic rig and renderer
-  ops/      preprocess, bricks, integration, bake, raymarch, hole fill
-  recon/    TsdfPipeline (fuse + staged render)
+  ops/      preprocess, bricks, integration, bake, raymarch, hole fill,
+            splat
+  recon/    TsdfPipeline (fuse + staged render) and the points, trigrid,
+            MVT and calib-vis renderers
+  viz/      PNG output, colorizations, stereo composition
+  io/       frame feed onto the device
+  app       the command line (python -m rgbd_recon_tpu_torch.app)
   kernels/  nvcc build + ctypes launch wrappers with launch counters
   csrc/     CUDA C++ sources (sm_90a)
   convert   JAX-package state (as numpy) -> torch twins on a device

@@ -1,10 +1,10 @@
-"""Sensor frustum apex from calibration-volume corner samples (numpy).
+"""Sensor view frustums from calibration-volume corner samples (numpy).
 
-The part of rgbd_recon_tpu/calib/frustum.py that the synthetic calibration
-needs (framework/calibration/frustum.cpp:21-33): the camera position is the
-average of the pairwise closest points between the four frustum edge rays
-and the central view ray. Copied because that package's __init__ imports
-jax and flax.
+A copy of rgbd_recon_tpu/calib/frustum.py (that package's __init__ imports
+jax and flax): 8 corner texels of cv_xyz define 6 half-space planes
+(frustum.cpp:113-177); the camera position is the average of the pairwise
+closest points between the four frustum edge rays and the central view
+ray (frustum.cpp:21-33).
 
 Corner ordering (getCornerPoints, calibration_inverter.cpp:157-172):
   0: (0, 0, 0)    1: (0, ymax, 0)    2: (xmax, ymax, 0)    3: (xmax, 0, 0)
@@ -32,9 +32,58 @@ def _closest_point(p, u, q, v):
     return (p + u * sc + q + v * tc) * 0.5
 
 
+def _edge_centers(c):
+    # frustum.cpp:130-147
+    pairs = [
+        (0, 1), (1, 2), (2, 3), (3, 0),
+        (4, 5), (5, 6), (6, 7), (7, 4),
+        (0, 4), (1, 5), (2, 6), (3, 7),
+    ]
+    return np.stack([(c[i] + c[j]) * 0.5 for i, j in pairs])
+
+
+def _side_centers(c):
+    # frustum.cpp:113-128: near, far, left, right, top, bottom
+    quads = [
+        (0, 1, 2, 3), (4, 5, 6, 7), (0, 1, 4, 5),
+        (2, 3, 6, 7), (1, 2, 5, 6), (0, 3, 4, 7),
+    ]
+    return np.stack([(c[a] + c[b] + c[d] + c[e]) * 0.25
+                     for a, b, d, e in quads])
+
+
+def _side_normals(c):
+    # frustum.cpp:149-166
+    e = _edge_centers(c)
+    n = np.stack([
+        np.cross(e[0] - e[2], e[3] - e[2]),       # near
+        np.cross(e[4] - e[6], e[5] - e[7]),       # far
+        np.cross(e[0] - e[4], e[9] - e[8]),       # left
+        np.cross(e[2] - e[6], e[11] - e[10]),     # right
+        np.cross(e[9] - e[10], e[1] - e[5]),      # top
+        np.cross(e[8] - e[11], e[7] - e[3]),      # bottom
+    ])
+    return n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+
 @dataclasses.dataclass(frozen=True)
 class Frustum:
     corners: np.ndarray  # (8, 3) float32
+
+    @property
+    def planes(self) -> np.ndarray:
+        """(6, 4) plane equations [n, -n.center] (frustum.cpp:167-177)."""
+        centers = _side_centers(self.corners)
+        normals = _side_normals(self.corners)
+        d = -np.sum(normals * centers, axis=-1, keepdims=True)
+        return np.concatenate([normals, d], axis=-1).astype(np.float32)
+
+    def inside(self, points: np.ndarray) -> np.ndarray:
+        """Vectorized half-space containment test (frustum.cpp:36-43)."""
+        p = np.asarray(points, np.float32)
+        homo = np.concatenate([p, np.ones(p.shape[:-1] + (1,), p.dtype)],
+                              axis=-1)
+        return np.all(homo @ self.planes.T >= 0.0, axis=-1)
 
     def camera_position(self) -> np.ndarray:
         """Frustum apex = camera center (frustum.cpp:21-33)."""

@@ -68,6 +68,19 @@ class ViewCamera:
         dirs_cam = np.stack([xx, yy, -np.ones_like(xx)], axis=-1)
         return dirs_cam @ self.rotation().T
 
+    def world_to_view(self, p: torch.Tensor) -> torch.Tensor:
+        """World -> GL view space (camera at origin looking down -z)."""
+        r = torch.from_numpy(self.rotation()).to(p.device)
+        eye = torch.tensor(self.eye, dtype=torch.float32, device=p.device)
+        return (p - eye) @ r
+
+    def window_depth(self, view_z: torch.Tensor) -> torch.Tensor:
+        """GL window-space depth in [0, 1] from positive view distance
+        (tsdf_raymarch.fs:133's projection arithmetic)."""
+        n, f = self.near, self.far
+        z = torch.clamp_min(view_z, n * 1.001)
+        return torch.clamp((1.0 / n - 1.0 / z) / (1.0 / n - 1.0 / f), 0.0, 1.0)
+
 
 def sample_nearest_p(table: torch.Tensor, px, py, pz) -> torch.Tensor:
     """GL NEAREST sample of a (Z, Y, X) table at planar normalized

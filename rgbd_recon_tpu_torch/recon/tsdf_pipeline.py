@@ -71,6 +71,19 @@ class CamParams:
             eye_vol=torch.from_numpy(bbox.normalize(eye)).to(device),
         )
 
+    @classmethod
+    def from_matrix(cls, mat, bbox: BoundingBox, device="cpu") -> "CamParams":
+        """Pose from a 4x4 camera-to-world matrix (GL convention: camera
+        looks along -z), the form the feedback channel delivers
+        (FeedbackReceiver cyclops/model mats, kinect_client.cpp:637-673)."""
+        m = np.asarray(mat, np.float32)
+        eye = np.ascontiguousarray(m[:3, 3])
+        return cls(
+            eye_w=torch.from_numpy(eye).to(device),
+            rot=torch.from_numpy(np.ascontiguousarray(m[:3, :3])).to(device),
+            eye_vol=torch.from_numpy(bbox.normalize(eye)).to(device),
+        )
+
 
 def _uses_sentinels(c: PipelineConfig) -> bool:
     """The render marches a bf16 skip-sentinel table (else the raw f32
@@ -80,9 +93,9 @@ def _uses_sentinels(c: PipelineConfig) -> bool:
 
 def check_supported(c: PipelineConfig) -> None:
     """Raise NotImplementedError for configuration values this port does not
-    implement yet."""
+    implement yet. ``recon_mode`` is not among them: it picks the renderer
+    (the app's choice), and the pipeline fuses in every mode."""
     unsupported = {
-        "recon_mode": c.recon_mode != 1,
         "march_chunk": c.march_chunk > 0,
         "bracket_per_block": bool(c.bracket_per_block),
         "blend_mode": c.blend_mode != "quality",
@@ -302,6 +315,30 @@ class TsdfPipeline:
         (volume, maps, brick_counts)."""
         maps, counts = self.preprocess(frames)
         return self.integrate(maps, counts), maps, counts
+
+    def diagnostics(self, brick_counts: torch.Tensor,
+                    render_out: Optional[RenderOutput] = None) -> dict:
+        """Host-side overflow/occupancy report for one frame: occupied brick
+        count vs the compact-integration capacity, plus the render's
+        block/ray/hit/oct capacity drops. Any nonzero ``*_dropped`` means
+        geometry or pixels were lost to a fixed capacity this frame: raise
+        ``brick_capacity`` / ``ray_compaction`` / ``hit_compaction``."""
+        c = self.config
+        n_occ = int((brick_counts > c.min_voxels_per_brick).sum())
+        out = {
+            "occupied_bricks": n_occ,
+            "brick_capacity": c.brick_capacity,
+            "bricks_dropped": (max(0, n_occ - c.brick_capacity)
+                               if self.compact else 0),
+        }
+        if render_out is not None and render_out.overflow is not None:
+            ov = render_out.overflow.tolist()
+            out["blocks_dropped"] = ov[0]
+            out["phase2_rays_dropped"] = ov[1]
+            out["hits_dropped"] = ov[2]
+            if len(ov) > 3:
+                out["oct_bricks_dropped"] = ov[3]
+        return out
 
     # -- render ---------------------------------------------------------------
 

@@ -265,8 +265,8 @@ def test_shade_matches(mode):
     ("march_chunk", 8),
     ("bracket_per_block", True),
     ("blend_mode", "best_two"),
+    ("blend_mode", "normal_deviation"),
     ("march_dtype", "float32"),     # with the default skip sentinels
-    ("recon_mode", 0),
     ("shade_mode", 3),
     ("debug_skip", "grad"),
 ])
