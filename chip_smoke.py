@@ -5,16 +5,22 @@
 
 Builds the port's hand-written CUDA kernels from ``rgbd_recon_tpu_torch/csrc``
 (nvcc, sm_90a), holds each kernel against its plain PyTorch twin at the
-shapes the main path gives it, then drives three paths at reference scale
-through the entry points a user calls: 4 synthetic sensors at 512x424
-depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm voxels (200x220x200),
-``TsdfPipeline.fuse`` then ``make_renderer(camera)`` at 1280x720:
+shapes the main path gives it (bit for bit where the kernel folds in the
+plain version's order), times each kernel beside its bound (bytes or
+operations of this run's inputs at the H100's peak rates) and, where one
+PyTorch call computes the same function, that call; then drives four paths
+at reference scale through the entry points a user calls: 4 synthetic
+sensors at 512x424 depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm
+voxels (200x220x200), ``TsdfPipeline.fuse`` then ``make_renderer(camera)``
+at 1280x720:
 
 - ``fast``: the default fast config (the main path);
 - ``parity``: bench.py's reference-exact parity config (bilinear integrate
   taps, one trilinear march of the raw volume, calibration-volume blend);
 - ``parity_dense``: the parity config without bricking or space skipping
-  (dense integrate, full-screen render), scripts/make_golden.py's form.
+  (dense integrate, full-screen render), scripts/make_golden.py's form;
+- ``fast_f32``: the fast config with ``march_dtype="float32"``: f32
+  sentinel and oct tables (the sentinel bake's f32 output).
 
 For each path it checks which kernels launched (launch counts set to 0
 just before the path's fuse + render and read just after), that the output
@@ -36,8 +42,9 @@ Then, at the same scale:
   frame index and each run's kernel launch counts.
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with the
-per-kernel results (launches on the fast path, and per path), and as the
-last line
+per-kernel results (launches on the fast path, and per path; max |kernel -
+plain|; kernel, plain and library ms; the bound, what sets it and the
+share of it the kernel reaches), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and the script exits non-zero; without CUDA it
 exits non-zero before printing any result.
@@ -63,20 +70,29 @@ TPU_EXACT_RMSE_MM = 5.55
 PARITY = dict(march_mode="trilinear", march_empty_skip=False,
               integrate_taps="bilinear", mark_stride=1,
               projection_model=False, march_dtype="float32")
-PARITY_PATHS = {
+# the paths driven after the fast path, with the config changes of each
+SIDE_PATHS = {
     "parity": PARITY,
     "parity_dense": dict(PARITY, bricking=False, skip_space=False),
+    "fast_f32": dict(march_dtype="float32"),
 }
-# kernels each parity path must and must not launch
-PARITY_LAUNCHES = {
+# kernels each side path must and must not launch
+SIDE_LAUNCHES = {
     "parity": (("bilateral13", "quality13", "surface_occ"),
                ("sentinel_bake",)),
     "parity_dense": (("bilateral13", "quality13"), ("sentinel_bake",)),
+    "fast_f32": (("bilateral13", "quality13", "surface_occ",
+                  "sentinel_bake"), ()),
 }
-# kernels 1-2 against the plain fold: |kernel - plain| <= 1e-5 * max|plain|
+# quality13 against the plain fold: |kernel - plain| <= 1e-5 * max|plain|
 # (the library is built without FMA contraction or fast math, and folds in
-# the plain version's order, so the expected difference is 0)
+# the plain version's order, so the expected difference is 0); every other
+# kernel is held bit for bit
 STENCIL_REL_BOUND = 1e-5
+# the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
+# and f32 operations/s outside the tensor cores, at the 700 W power limit
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
 # splat modes (phase 7) against the analytic sphere: at most 1% of the
 # covered pixels outside its silhouette dilated by 3 px (2 px of maximum
 # splat radius plus rounding), median |view depth - sphere depth| over the
@@ -109,6 +125,33 @@ def _max_abs_err(torch, got, want) -> float:
         got, want = (got,), (want,)
     return max(float((g.to(torch.float32) - w.to(torch.float32)).abs().max())
                for g, w in zip(got, want))
+
+
+def _bound(tensors, ops):
+    """(least ms, what sets it) of a function that reads and writes
+    ``tensors`` once each and does ``ops`` operations: the larger of the
+    bytes over the card's memory rate and the operations over its f32
+    rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _stencil_ops(torch, d, non_border, per_tap, per_kept):
+    """Operations of a 13x13 fold over the (N, H, W) map ``d`` with edge
+    padding: ``per_tap`` on every tap, ``per_kept`` more on each tap for
+    which ``non_border(s)`` holds (the data decides how many)."""
+    from rgbd_recon_tpu_torch.ops.stencil13 import KS, _edge_pad
+
+    H, W = d.shape[1:]
+    pad = _edge_pad(d, KS)
+    kept = torch.zeros((), dtype=torch.int64, device=d.device)
+    for dy in range(2 * KS + 1):
+        for dx in range(2 * KS + 1):
+            kept += non_border(pad[:, dy: dy + H, dx: dx + W]).sum()
+    taps = d.numel() * (2 * KS + 1) ** 2
+    return per_tap * taps + per_kept * int(kept)
 
 
 def _surface_rmse_mm(np, out, cam, center, radius):
@@ -301,7 +344,7 @@ def _phase8_app(torch, pipe, frames, card, by_path):
     import shutil
     from pathlib import Path
 
-    from rgbd_recon_tpu.io.checkpoint import CheckpointManager
+    from rgbd_recon_tpu_torch.io.checkpoint import CheckpointManager
     from rgbd_recon_tpu_torch import app, kernels
     from rgbd_recon_tpu_torch.calib.volume_io import write_calibration_volume
 
@@ -431,31 +474,59 @@ def main() -> int:
         quality13_cuda,
     )
 
+    # operations per tap (every tap: the range and its three border tests,
+    # plus the border count in quality13; each non-border tap: the range
+    # weight's division and subtraction and the sums) and per voxel (the
+    # positive test, K rounds of three separable 2-max passes, the encode)
+    near = limits[:, :1, None]
+    far = limits[:, 1:, None]
+    drm_b = d_m * stencil13._DRM_SCALE
+    drm_q = 0.35 * d_norm
+    ops = {
+        "bilateral13": _stencil_ops(
+            torch, d_m, lambda s: (s >= near) & (s <= far)
+            & ((s - d_m).abs() <= drm_b), per_tap=5, per_kept=7),
+        "quality13": _stencil_ops(
+            torch, d_norm, lambda s: (s > 0.0) & (s < 1.0)
+            & ((s - d_norm).abs() <= drm_q), per_tap=6, per_kept=3),
+        "surface_occ": 2 * vol.numel(),
+        "sentinel_bake": (5 + 6 * K) * vol.numel(),
+    }
+
+    def surface_occ_library():
+        # brick max-pool of the volume over each brick grown by one voxel
+        pooled = torch.nn.functional.max_pool3d(
+            vol[None, None], kernel_size=bv + 2, stride=bv, padding=1,
+            ceil_mode=True)
+        return pooled[0, 0] > 0.0
+
     cases = [
         ("bilateral13", "rgbd_recon_tpu_torch/csrc/stencil13.cu",
          "rgbd_recon_tpu/ops/stencil_pallas.py:153",
          lambda: bilateral13_cuda(d_m, limits),
-         lambda: stencil13.bilateral13_plain(d_m, limits)),
+         lambda: stencil13.bilateral13_plain(d_m, limits), None, [d_m, limits]),
         ("quality13", "rgbd_recon_tpu_torch/csrc/stencil13.cu",
          "rgbd_recon_tpu/ops/stencil_pallas.py:186",
          lambda: quality13_cuda(d_norm),
-         lambda: stencil13.quality13_plain(d_norm)),
+         lambda: stencil13.quality13_plain(d_norm), None, [d_norm]),
         ("surface_occ", "rgbd_recon_tpu_torch/csrc/bake.cu",
          "rgbd_recon_tpu/ops/bake_pallas.py:58",
          lambda: surface_occ_cuda(vol, bv),
-         lambda: bake.surface_occ_plain(vol, bv)),
+         lambda: bake.surface_occ_plain(vol, bv), surface_occ_library,
+         [vol]),
         ("sentinel_bake", "rgbd_recon_tpu_torch/csrc/bake.cu",
          "rgbd_recon_tpu/ops/bake_pallas.py:112",
          lambda: sentinel_bake_cuda(vol, bs_scaled, bv, K),
-         lambda: bake.sentinel_bake_plain(vol, bs_scaled, bv, K)),
+         lambda: bake.sentinel_bake_plain(vol, bs_scaled, bv, K), None,
+         [vol, bs_scaled]),
     ]
     results = []
-    for name, source, replaces, kern, plain in cases:
+    for name, source, replaces, kern, plain, library, inputs in cases:
         got = kern()
         want = plain()
         torch.cuda.synchronize()
         err = _max_abs_err(torch, got, want)
-        if name in ("bilateral13", "quality13"):
+        if name == "quality13":
             scale = max(float(w.abs().max()) for w in want)
             bound = STENCIL_REL_BOUND * scale
         else:
@@ -467,9 +538,38 @@ def main() -> int:
                                  f"{err} > {bound}")
         ms = event_ms(kern, iters=20, warmup=3)
         plain_ms = event_ms(plain, iters=5, warmup=1)
-        results.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
+        outs = list(got) if isinstance(got, tuple) else [got]
+        bound_ms, bound_by = _bound(inputs + outs, ops[name])
+        library_ms = None
+        if library is not None:
+            if not torch.equal(library(), want):
+                raise AssertionError(f"{name}: the library call computes "
+                                     "another function")
+            library_ms = event_ms(library, iters=20, warmup=3)
+        row = dict(name=name, route="cuda", source=source,
+                   replaces=replaces, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms, library_ms=library_ms,
+                   ops=ops[name])
+        if name == "sentinel_bake":
+            # the f32 table of march_dtype="float32", also bit for bit
+            got32 = sentinel_bake_cuda(vol, bs_scaled, bv, K, torch.float32)
+            want32 = bake.sentinel_bake_plain(vol, bs_scaled, bv, K,
+                                              torch.float32)
+            torch.cuda.synchronize()
+            err32 = _max_abs_err(torch, got32, want32)
+            if not (got32.dtype == torch.float32 and err32 == 0.0):
+                raise AssertionError(f"sentinel_bake f32: {got32.dtype}, "
+                                     f"max|kernel - plain| = {err32}")
+            ms32 = event_ms(lambda: sentinel_bake_cuda(
+                vol, bs_scaled, bv, K, torch.float32), iters=20, warmup=3)
+            row.update(f32_max_abs_err=err32, f32_ms=ms32,
+                       f32_bound_ms=_bound([vol, bs_scaled, got32],
+                                           ops[name])[0])
+        print(f"{name}: {ms!r} ms (plain {plain_ms!r}, library "
+              f"{library_ms!r}), bound {bound_ms!r} ms by {bound_by}, "
+              f"{bound_ms / ms:.1%} of it, on {card}", flush=True)
+        results.append(row)
 
     # ---- 4. the main path, counted -----------------------------------------
     kernels.reset_launch_counts()
@@ -502,8 +602,8 @@ def main() -> int:
           flush=True)
     del volume, maps, counts, out
 
-    # ---- 6. the parity paths, counted and checked --------------------------
-    for name, overrides in PARITY_PATHS.items():
+    # ---- 6. the side paths, counted and checked ----------------------------
+    for name, overrides in SIDE_PATHS.items():
         t0 = time.perf_counter()
         ppipe = TsdfPipeline(calib, dataclasses.replace(cfg, **overrides),
                              pipe.bbox)
@@ -518,7 +618,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launched = kernels.launch_counts()
         print(f"launches on the {name} path: {launched}", flush=True)
-        must, must_not = PARITY_LAUNCHES[name]
+        must, must_not = SIDE_LAUNCHES[name]
         missing = [k for k in must if launched[k] <= 0]
         extra = [k for k in must_not if launched[k] > 0]
         if missing or extra:
@@ -527,9 +627,17 @@ def main() -> int:
         by_path[name] = launched
         rmse, _ = _check_render(np, torch, name, volume, out, counts,
                                 ppipe.config, camera, fast_hits)
-        print(f"{name}: surface RMSE {rmse!r} mm; BENCH_r05.json records "
-              f"{TPU_EXACT_RMSE_MM} mm for the JAX reference-exact path, "
-              "measured on a TPU", flush=True)
+        if name.startswith("parity"):
+            print(f"{name}: surface RMSE {rmse!r} mm; BENCH_r05.json "
+                  f"records {TPU_EXACT_RMSE_MM} mm for the JAX "
+                  "reference-exact path, measured on a TPU", flush=True)
+        else:
+            render_fn, _ = ppipe.make_render_fn(camera)
+            table = render_fn.bake(volume, counts)[0]
+            print(f"{name}: march table {table.dtype}", flush=True)
+            if table.dtype != torch.float32:
+                raise AssertionError(f"{name}: march table {table.dtype}")
+            del render_fn, table
         fuse_ms = timed(lambda: ppipe.fuse(frames), samples=2, iters=3)
         frame_ms = timed(frame_fn(ppipe, prender), samples=2, iters=3)
         print(f"{name}: fuse ms {fuse_ms}, fuse+render ms {frame_ms} on "

@@ -37,16 +37,16 @@ _PREVIEW_ITEM = "ROADMAP.md §1.4, viz/preview"
 
 
 def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            f"--device {name}: torch.cuda.is_available() is false; pass "
-            "--device cpu to run on the CPU")
-    return dev
+    from .device import resolve
+
+    try:
+        return resolve(name)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {name}: {e}") from None
 
 
 def _load_scene(ks_path, conf_path=None):
-    from rgbd_recon_tpu.core.config import PipelineConfig, parse_conf, parse_ks
+    from .core.config import PipelineConfig, parse_conf, parse_ks
 
     scene = parse_ks(ks_path)
     config = PipelineConfig()
@@ -62,7 +62,7 @@ def _build_calibration(scene, device, cv_res=(128, 256, 128), inv_res=None,
     / .cv_xyz_inv volumes when present, else an analytic bake of the .yml
     files, else (no calibration on disk) a synthetic rig of the scene's
     sensor count."""
-    from rgbd_recon_tpu.core.camera import SensorRig
+    from .core.camera import SensorRig
 
     from .calib.frustum import frustum_from_cv_xyz
     from .calib.kinect_yml import parse_kinect_yml
@@ -130,7 +130,7 @@ def _wire_compressions(args, scene, num_sensors):
     """Per-sensor wire encodings, from each sensor's calibration flags
     (NetKinectArray.cpp:120-144); --stream-compression / --stream-depth-u8
     override all."""
-    from rgbd_recon_tpu.io.stream import RAW, FrameCompression
+    from .io.stream import RAW, FrameCompression
 
     from .calib.kinect_yml import parse_kinect_yml
 
@@ -158,8 +158,8 @@ def _wire_compressions(args, scene, num_sensors):
 def _stream_source(args, num_sensors, compressions):
     """.stream replay: every frame in order, through the native GIL-free
     reader when it builds (native/framering.cpp), else the Python one."""
-    from rgbd_recon_tpu.io import native as native_io
-    from rgbd_recon_tpu.io.stream import StreamReader
+    from .io import native as native_io
+    from .io.stream import StreamReader
 
     use_native = not args.no_native_ingest and native_io.available()
     paths = sorted(Path(args.streams).glob("*.stream"))
@@ -202,7 +202,8 @@ def _synthetic_source(args, scene, num_sensors):
         clock[0] += 1.0 / 30.0
         sc = SyntheticScene(
             spheres=[((0.25 * np.sin(t), 1.1, 0.25 * np.cos(t)), 0.55)])
-        fr = render_rig_frames(sc, rig, t)
+        # host frames: the feed copies them to the device
+        fr = render_rig_frames(sc, rig, t, device="cpu")
         return t, fr.colors.numpy(), fr.depths.numpy()
 
     return source
@@ -227,8 +228,8 @@ def _warn_overflow(diag: dict) -> None:
 
 
 def cmd_run(args):
-    from rgbd_recon_tpu.bench import TimerDatabase
-    from rgbd_recon_tpu.io.checkpoint import (
+    from .bench import TimerDatabase
+    from .io.checkpoint import (
         CheckpointManager,
         ReconCheckpoint,
         config_to_json,
@@ -304,7 +305,7 @@ def cmd_run(args):
     zmq_source = None
     feed_mode = "ordered"
     if args.zmq:
-        from rgbd_recon_tpu.io.network import ZmqFrameSource
+        from .io.network import ZmqFrameSource
 
         feed_mode = "latest"
         zmq_source = ZmqFrameSource(
@@ -323,7 +324,7 @@ def cmd_run(args):
     # kinect_client.cpp:637-673)
     fbr = None
     if args.feedback:
-        from rgbd_recon_tpu.io.network import FeedbackReceiver
+        from .io.network import FeedbackReceiver
 
         fbr = FeedbackReceiver(args.feedback)
         print(f"feedback channel on {args.feedback}", file=sys.stderr)
@@ -414,7 +415,7 @@ def cmd_run(args):
 
 def cmd_invert(args):
     """Offline inverse-calibration baking (source/calib_inverter.cpp)."""
-    from rgbd_recon_tpu.core.config import parse_ks
+    from .core.config import parse_ks
 
     from .calib.inverter import invert_calibration_knn
     from .calib.volume_io import (
@@ -447,8 +448,8 @@ def cmd_warm(args):
 
 def cmd_record(args):
     """Synthesize a moving-sphere sequence into .stream files."""
-    from rgbd_recon_tpu.core.grid import BoundingBox
-    from rgbd_recon_tpu.io.stream import FrameCompression, StreamWriter
+    from .core.grid import BoundingBox
+    from .io.stream import FrameCompression, StreamWriter
 
     from .sensors.synthetic import (
         SyntheticScene,
@@ -477,7 +478,7 @@ def cmd_record(args):
             t = f / 30.0
             scene = SyntheticScene(
                 spheres=[((0.25 * np.sin(t), 1.1, 0.25 * np.cos(t)), 0.55)])
-            fr = render_rig_frames(scene, rig, t)
+            fr = render_rig_frames(scene, rig, t, device="cpu")
             for i, w in enumerate(writers):
                 w.write_frame(fr.colors[i].numpy(), fr.depths[i].numpy())
             print(f"recorded frame {f}", file=sys.stderr)

@@ -25,8 +25,8 @@ from typing import Tuple
 
 import numpy as np
 
-from rgbd_recon_tpu.core.camera import RGBDSensor
-from rgbd_recon_tpu.core.grid import BoundingBox
+from ..core.camera import RGBDSensor
+from ..core.grid import BoundingBox
 
 
 def _texel_grid(res: Tuple[int, int, int]) -> np.ndarray:

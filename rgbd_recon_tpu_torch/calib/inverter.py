@@ -21,8 +21,7 @@ from typing import Tuple
 
 import numpy as np
 
-from rgbd_recon_tpu.core.grid import BoundingBox
-
+from ..core.grid import BoundingBox
 from .frustum import frustum_from_cv_xyz
 
 

@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from rgbd_recon_tpu.core.camera import PinholeCamera, RGBDSensor
+from ..core.camera import PinholeCamera, RGBDSensor
 
 _NUM_RE = re.compile(r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?")
 

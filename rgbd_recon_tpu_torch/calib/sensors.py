@@ -10,9 +10,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from rgbd_recon_tpu.core.camera import SensorRig
-from rgbd_recon_tpu.core.grid import BoundingBox
-
+from ..core.camera import SensorRig
+from ..core.grid import BoundingBox
+from ..device import DEFAULT, resolve
 from ..ops.sampling import trilinear_3d
 from .bake import bake_cv_uv, bake_cv_xyz, bake_cv_xyz_inv_analytic
 from .frustum import frustum_from_cv_xyz
@@ -49,11 +49,12 @@ def build_synthetic_calibration(
     bbox: BoundingBox,
     cv_res: Tuple[int, int, int] = (32, 64, 32),
     inv_res: Tuple[int, int, int] = (64, 64, 64),
-    device="cpu",
+    device=DEFAULT,
 ) -> CalibrationSet:
     """Bake a full calibration set from analytic sensors in numpy and move it
-    to ``device``. cv_res is (W, H, D) of the sensor-space volumes; inv_res
+    to ``device`` (the card unless the caller names another). cv_res is (W, H, D) of the sensor-space volumes; inv_res
     is (X, Y, Z) of the inverse volumes."""
+    device = resolve(device)
     cv_xyz_list, cv_uv_list, inv_list, limits, campos = [], [], [], [], []
     for sensor in rig.sensors:
         cv_xyz = bake_cv_xyz(sensor, cv_res)

@@ -1,8 +1,10 @@
-"""JAX-package state, carried across as numpy, into the port's twins.
+"""State carried across as numpy (from the JAX package, or from a
+checkpoint) into the port's containers.
 
-Each function takes a mapping from field name to array (for a flax container
-``c``: ``{f: np.asarray(getattr(c, f)) for f in fields}``) and returns the
-port's frozen dataclass with the same fields as tensors on ``device``.
+Each function takes a mapping from field name to array (for a dataclass
+container ``c``: ``{f: np.asarray(getattr(c, f)) for f in fields}``) and
+returns the port's frozen dataclass with the same fields as tensors on
+``device``, the card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .calib.sensors import CalibrationSet, PixelModels, ProjectionModels
+from .device import DEFAULT, resolve
 from .ops.preprocess import SensorMaps
 from .sensors.frames import FrameSet
 
@@ -23,6 +26,7 @@ def _twin(cls, arrays: Mapping[str, np.ndarray], device):
     missing = [n for n in names if n not in arrays]
     if missing:
         raise KeyError(f"{cls.__name__}: missing fields {missing}")
+    device = resolve(device)
     return cls(**{
         n: torch.from_numpy(np.array(arrays[n], copy=True)).to(device)
         for n in names
@@ -30,8 +34,8 @@ def _twin(cls, arrays: Mapping[str, np.ndarray], device):
 
 
 def field_arrays(container) -> dict:
-    """{field: np.asarray(value)} of a dataclass container (a flax
-    struct.dataclass of the JAX package, or one of this port's)."""
+    """{field: np.asarray(value)} of one of the port's dataclass
+    containers (its tensors copied to the host)."""
     out = {}
     for f in dataclasses.fields(container):
         n = f.name
@@ -42,21 +46,21 @@ def field_arrays(container) -> dict:
     return out
 
 
-def calibration_from_numpy(arrays, device="cpu") -> CalibrationSet:
+def calibration_from_numpy(arrays, device=DEFAULT) -> CalibrationSet:
     return _twin(CalibrationSet, arrays, device)
 
 
-def frames_from_numpy(arrays, device="cpu") -> FrameSet:
+def frames_from_numpy(arrays, device=DEFAULT) -> FrameSet:
     return _twin(FrameSet, arrays, device)
 
 
-def pixel_models_from_numpy(arrays, device="cpu") -> PixelModels:
+def pixel_models_from_numpy(arrays, device=DEFAULT) -> PixelModels:
     return _twin(PixelModels, arrays, device)
 
 
-def projection_models_from_numpy(arrays, device="cpu") -> ProjectionModels:
+def projection_models_from_numpy(arrays, device=DEFAULT) -> ProjectionModels:
     return _twin(ProjectionModels, arrays, device)
 
 
-def sensor_maps_from_numpy(arrays, device="cpu") -> SensorMaps:
+def sensor_maps_from_numpy(arrays, device=DEFAULT) -> SensorMaps:
     return _twin(SensorMaps, arrays, device)

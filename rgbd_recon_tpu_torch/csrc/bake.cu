@@ -1,5 +1,5 @@
-// March-volume bake: the surface-brick mask and the sentinel-coded bf16
-// march table.
+// March-volume bake: the surface-brick mask and the sentinel-coded march
+// table.
 //
 // Replaces the Pallas TPU kernels surface_occ_tpu and sentinel_bake_tpu of
 // rgbd_recon_tpu/ops/bake_pallas.py.
@@ -11,18 +11,42 @@
 // plus the 1-voxel halo re-reads (a thread stops at its first positive
 // voxel), so the kernel is a DRAM stream.
 //
-// sentinel_bake: the Chebyshev distance to the nearest positive voxel,
-// capped at K+1, computed separably in three passes (x, then y, then z) over
-// a uint8 scratch volume, each pass one thread per voxel reading 2K+1
-// neighbours along its axis; the z pass also encodes the output:
-//   fine_safe = clamp(cheb - 1, 0, K)
-//   field     = max(fine_safe, bs_scaled[brick of the voxel])
-//   out       = field > 0 ? -(2 + field) : tsdf value, rounded to bf16 (RNE).
-// For L-infinity distance the separable min-max passes are exact. Bound:
-// DRAM traffic of one f32 volume read, three uint8 scratch round trips and
-// one bf16 write (~85 MB at reference scale); the neighbour reads along an
-// axis hit L1/L2. Every value is an integer or a copy until the single
-// bf16 rounding, so the output is bit-exact against the plain version.
+// sentinel_bake: for every voxel
+//   fine  = clamp(cheb - 1, 0, K)      (cheb: Chebyshev distance to the
+//                                       nearest voxel > 0)
+//         = the number of the K box-dilation rounds of volume > 0 that have
+//           not reached the voxel
+//   field = max(fine, bs_scaled[brick of the voxel])
+//   out   = field > 0 ? -(2 + field) : tsdf value, as bf16 (RNE) or f32.
+// Bound: bytes. The function must read the f32 volume once and write the
+// table once (52.8 MB in bf16 at reference scale, 15.8 us at 3.35 TB/s).
+// Design, three launches (one, the encode, when K = 0):
+//  1. pack_positive: volume > 0 as 32-voxel bit words along z, one thread
+//     per 4 (y, x) columns (1 where X is not a multiple of 4) and word,
+//     float4 loads 8 in flight (1.2 MB of words at reference scale).
+//  2. dilate_count: one 32 x 32 block of threads per tile of (y, x)
+//     columns, one column a thread, its words along z in registers (the
+//     whole column up to 224 voxels; longer columns go in chunks of 5
+//     words with one word of halo each side). The tile overlaps its
+//     neighbours by K columns each side, so its (32 - 2K)^2 core columns
+//     see every voxel within K. Each of the K box-dilation rounds, as the
+//     TPU kernel runs them, is a shift with carry between the words of a
+//     column (z), a warp shuffle from the lanes beside it (x) and an
+//     exchange through shared memory with the rows beside it (y); a
+//     bit-sliced counter in registers adds the voxels each round missed.
+//     The core columns write the counters' P bit planes (P = bits of K;
+//     3.7 MB at K = 6).
+//  3. encode: one thread per 4 voxels along x (1 where X is not a multiple
+//     of 4) at 8 successive z, neighbouring threads on neighbouring x: its
+//     plane words read once, then per z one float4 read of the volume and
+//     the table written as 4 bf16 (8 bytes) or a float4. Brick indices come
+//     from a multiply-high by a reciprocal of brick_vox, exact below 2^16.
+// Indices are 32-bit products of grid coordinates; no thread divides a
+// 64-bit index. What stays above the bound: the volume is read twice (the
+// pack and the encode, 88 MB against 52.8), and the dilation rounds run
+// between the two passes.
+// Every value is an integer or a copy until the single rounding, so the
+// output is bit-exact against the plain version (ops/bake.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,73 +77,307 @@ __global__ void surface_occ_kernel(const float* __restrict__ vol,
   if (threadIdx.x == 0) out[b] = found ? 1 : 0;
 }
 
-// pass 1: distance along x to the nearest positive voxel, capped at K+1
-__global__ void cheb_x_kernel(const float* __restrict__ vol,
-                              uint8_t* __restrict__ dist, int Z, int Y, int X,
-                              int K) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n = (size_t)Z * Y * X;
-  if (i >= n) return;
-  const int x = (int)(i % X);
-  const float* row = vol + (i - x);
-  int best = K + 1;
-  for (int d = -K; d <= K; ++d) {
-    const int xx = x + d;
-    if (xx < 0 || xx >= X) continue;
-    const int a = d < 0 ? -d : d;
-    if (a < best && row[xx] > 0.0f) best = a;
-  }
-  dist[i] = (uint8_t)best;
-}
+constexpr int BT = 32;       // bake block: BT x BT threads, one column each
+constexpr int ZREG = 7;      // words of a column in registers
+// K halo columns each side leave a core of BT - 2K; kernels/bake.py
+// MAX_ROUNDS holds the same limit
+constexpr int MAX_ROUNDS = 15;
+constexpr int PACK_TY = 8;   // pack block: 32 x 8 threads
 
-// pass 2: min over dy of max(|dy|, x-distance), capped at K+1
-__global__ void cheb_y_kernel(const uint8_t* __restrict__ src,
-                              uint8_t* __restrict__ dst, int Z, int Y, int X,
-                              int K) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n = (size_t)Z * Y * X;
-  if (i >= n) return;
-  const int y = (int)((i / X) % Y);
-  int best = K + 1;
-  for (int d = -K; d <= K; ++d) {
-    const int yy = y + d;
-    if (yy < 0 || yy >= Y) continue;
-    const int a = d < 0 ? -d : d;
-    const int s = src[i + (ptrdiff_t)d * X];
-    const int m = a > s ? a : s;
-    if (m < best) best = m;
-  }
-  dst[i] = (uint8_t)best;
-}
-
-// pass 3: min over dz, then the sentinel encode and the bf16 cast
-__global__ void cheb_z_encode_kernel(const uint8_t* __restrict__ src,
-                                     const float* __restrict__ vol,
-                                     const float* __restrict__ bs_scaled,
-                                     __nv_bfloat16* __restrict__ out, int Z,
-                                     int Y, int X, int K, int v, int By,
-                                     int Bx) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+// bits[zw][y][x]: bit i is volume[32 zw + i, y, x] > 0; bits past Z are 0.
+// VEC = 4: a thread packs columns x .. x+3 (X % 4 == 0) from float4 loads,
+// 8 in flight at a time; VEC = 1: one column.
+template <int VEC>
+__global__ void pack_positive_kernel(const float* __restrict__ vol,
+                                     uint32_t* __restrict__ bits, int Z,
+                                     int Y, int X) {
+  const int x = (blockIdx.x * 32 + threadIdx.x) * VEC;
+  const int y = blockIdx.y * PACK_TY + threadIdx.y;
+  const int zw = blockIdx.z;
+  if (x >= X || y >= Y) return;
   const size_t plane = (size_t)Y * X;
-  const size_t n = (size_t)Z * plane;
-  if (i >= n) return;
-  const int z = (int)(i / plane);
-  const int y = (int)((i / X) % Y);
-  const int x = (int)(i % X);
-  int best = K + 1;
-  for (int d = -K; d <= K; ++d) {
-    const int zz = z + d;
-    if (zz < 0 || zz >= Z) continue;
-    const int a = d < 0 ? -d : d;
-    const int s = src[i + (ptrdiff_t)d * plane];
-    const int m = a > s ? a : s;
-    if (m < best) best = m;
+  const float* p = vol + (size_t)zw * 32 * plane + (size_t)y * X + x;
+  const int nz = min(32, Z - zw * 32);
+  const size_t o = ((size_t)zw * Y + y) * X + x;
+  if (VEC == 4) {
+    uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+    for (int i0 = 0; i0 < nz; i0 += 8) {
+      float4 f[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i0 + i < nz)
+          f[i] = *reinterpret_cast<const float4*>(p + (i0 + i) * plane);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i0 + i < nz) {
+          w0 |= (f[i].x > 0.0f ? 1u : 0u) << (i0 + i);
+          w1 |= (f[i].y > 0.0f ? 1u : 0u) << (i0 + i);
+          w2 |= (f[i].z > 0.0f ? 1u : 0u) << (i0 + i);
+          w3 |= (f[i].w > 0.0f ? 1u : 0u) << (i0 + i);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(bits + o) = make_uint4(w0, w1, w2, w3);
+  } else {
+    uint32_t w = 0;
+    for (int i = 0; i < nz; ++i) w |= (p[i * plane] > 0.0f ? 1u : 0u) << i;
+    bits[o] = w;
   }
-  const int fine = min(max(best - 1, 0), K);
-  const float bs = bs_scaled[((size_t)(z / v) * By + (y / v)) * Bx + (x / v)];
+}
+
+// P: bit planes of the per-voxel counters (enough for K, P >= 1).
+// planes[p][zw][y][x]: bit i counts, in binary digit p, the rounds that
+// missed voxel (32 zw + i, y, x).
+template <int P>
+__global__ void __launch_bounds__(BT * BT, 1)
+dilate_count_kernel(const uint32_t* __restrict__ bits,
+                    uint32_t* __restrict__ planes, int Y, int X, int ZW,
+                    int K) {
+  __shared__ uint32_t ex[BT][ZREG][BT];  // the y exchange: [row][word][lane]
+  const int lane = threadIdx.x, row = threadIdx.y;
+  const int core = BT - 2 * K;
+  const int x = blockIdx.x * core - K + lane;
+  const int y = blockIdx.y * core - K + row;
+  // the column's words in registers: all of them, or a chunk of
+  // ZREG - 2 core words with one halo word each side
+  const bool whole = ZW <= ZREG;
+  const int base = whole ? 0 : blockIdx.z * (ZREG - 2) - 1;
+  const int k_lo = whole ? 0 : 1;
+  const int k_hi = whole ? ZW : min(ZREG - 1, ZW - base);
+  const bool inside = x >= 0 && x < X && y >= 0 && y < Y;
+  uint32_t c[ZREG];
+#pragma unroll
+  for (int k = 0; k < ZREG; ++k) {
+    const int wz = base + k;
+    c[k] = (inside && wz >= 0 && wz < ZW) ? bits[(wz * Y + y) * X + x] : 0u;
+  }
+  uint32_t cnt[P][ZREG];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int k = 0; k < ZREG; ++k) cnt[p][k] = 0u;
+
+  for (int r = 0; r < K; ++r) {
+    uint32_t t[ZREG];
+#pragma unroll
+    for (int k = 0; k < ZREG; ++k) {
+      // z: the neighbours in the word, and across the word boundaries
+      const uint32_t lo = k > 0 ? c[k - 1] >> 31 : 0u;
+      const uint32_t hi = k < ZREG - 1 ? c[k + 1] << 31 : 0u;
+      t[k] = c[k] | (c[k] << 1) | (c[k] >> 1) | lo | hi;
+    }
+#pragma unroll
+    for (int k = 0; k < ZREG; ++k) {
+      // x: the lanes beside (lanes 0 and 31 get their own word back,
+      // which changes nothing)
+      t[k] |= __shfl_up_sync(0xffffffffu, t[k], 1) |
+              __shfl_down_sync(0xffffffffu, t[k], 1);
+    }
+    __syncthreads();  // the last round's reads of ex are done
+#pragma unroll
+    for (int k = 0; k < ZREG; ++k) ex[row][k][lane] = t[k];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < ZREG; ++k) {
+      // y: the rows beside
+      const uint32_t up = row > 0 ? ex[row - 1][k][lane] : 0u;
+      const uint32_t dn = row < BT - 1 ? ex[row + 1][k][lane] : 0u;
+      c[k] = t[k] | up | dn;
+      // bit-sliced increment of the counters by the missed voxels
+      uint32_t carry = ~c[k];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const uint32_t s = cnt[p][k];
+        cnt[p][k] = s ^ carry;
+        carry &= s;
+      }
+    }
+  }
+
+  // the core columns write their counters
+  if (!inside || lane < K || lane >= K + core || row < K ||
+      row >= K + core)
+    return;
+  const size_t plane_words = (size_t)ZW * Y * X;
+#pragma unroll
+  for (int k = 0; k < ZREG; ++k) {
+    if (k < k_lo || k >= k_hi) continue;
+    const size_t i = ((size_t)(base + k) * Y + y) * X + x;
+#pragma unroll
+    for (int p = 0; p < P; ++p) planes[p * plane_words + i] = cnt[p][k];
+  }
+}
+
+__device__ __forceinline__ float encode(int fine, float bs, float tsdf) {
   const float field = fmaxf((float)fine, bs);
-  const float val = field > 0.0f ? -(2.0f + field) : vol[i];
-  out[i] = __float2bfloat16_rn(val);
+  return field > 0.0f ? -(2.0f + field) : tsdf;
+}
+
+// floor(n / v) for n, v < 2^16 from m = ceil(2^32 / v)
+__device__ __forceinline__ int div_small(int n, unsigned long long m) {
+  return (int)(((unsigned long long)n * m) >> 32);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* out, size_t i,
+                                       const float (&a)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<uint32_t*>(&lo);
+  w.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out + i) = w;
+}
+
+__device__ __forceinline__ void store4(float* out, size_t i,
+                                       const float (&a)[4]) {
+  *reinterpret_cast<float4*>(out + i) = make_float4(a[0], a[1], a[2], a[3]);
+}
+
+__device__ __forceinline__ void store1(__nv_bfloat16* out, size_t i,
+                                       float a) {
+  out[i] = __float2bfloat16_rn(a);
+}
+
+__device__ __forceinline__ void store1(float* out, size_t i, float a) {
+  out[i] = a;
+}
+
+constexpr int ENC_TY = 8;  // encode block: 32 x 8 threads
+constexpr int ENC_Z = 8;   // voxels along z a thread (divides 32)
+
+// VEC = 4: a thread encodes voxels x .. x+3 (X % 4 == 0) at ENC_Z
+// successive z, reading its plane words once; VEC = 1: one x.
+template <typename OutT, int P, int VEC>
+__global__ void encode_kernel(const float* __restrict__ vol,
+                              const uint32_t* __restrict__ planes,
+                              const float* __restrict__ bs_scaled,
+                              OutT* __restrict__ out, int Z, int Y, int X,
+                              int ZW, unsigned long long inv_v, int By,
+                              int Bx) {
+  const int x = (blockIdx.x * 32 + threadIdx.x) * VEC;
+  const int y = blockIdx.y * ENC_TY + threadIdx.y;
+  const int z0 = blockIdx.z * ENC_Z;
+  if (x >= X || y >= Y) return;
+  const size_t plane = (size_t)Y * X;
+  const size_t plane_words = (size_t)ZW * plane;
+  const size_t w = ((size_t)(z0 >> 5) * Y + y) * X + x;
+  const int by = div_small(y, inv_v);
+  int bx[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) bx[e] = div_small(x + e, inv_v);
+  // the counter words of the VEC columns, one per binary digit
+  uint32_t q[P > 0 ? P : 1][VEC];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (VEC == 4) {
+      const uint4 t =
+          *reinterpret_cast<const uint4*>(planes + p * plane_words + w);
+      q[p][0] = t.x;
+      q[p][VEC > 1 ? 1 : 0] = t.y;
+      q[p][VEC > 2 ? 2 : 0] = t.z;
+      q[p][VEC > 3 ? 3 : 0] = t.w;
+    } else {
+      q[p][0] = planes[p * plane_words + w];
+    }
+  }
+#pragma unroll
+  for (int iz = 0; iz < ENC_Z; ++iz) {
+    const int z = z0 + iz;
+    if (z >= Z) break;
+    const int bit = z & 31;
+    const float* bs_row = bs_scaled + (div_small(z, inv_v) * By + by) * Bx;
+    const size_t i = (size_t)z * plane + (size_t)y * X + x;
+    float a[4];
+    if (VEC == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(vol + i);
+      a[0] = t.x;
+      a[1] = t.y;
+      a[2] = t.z;
+      a[3] = t.w;
+    } else {
+      a[0] = vol[i];
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      int fine = 0;
+#pragma unroll
+      for (int p = 0; p < P; ++p) fine |= (int)((q[p][e] >> bit) & 1u) << p;
+      a[e] = encode(fine, bs_row[bx[e]], a[e]);
+    }
+    if (VEC == 4)
+      store4(out, i, a);
+    else
+      store1(out, i, a[0]);
+  }
+}
+
+int bits_for(int k) {
+  int p = 0;
+  while ((1 << p) <= k) ++p;
+  return p;
+}
+
+template <typename OutT, int P>
+int launch_rounds_encode(const float* vol, const float* bs_scaled, OutT* out,
+                         uint32_t* bits, int Z, int Y, int X, int ZW, int K,
+                         int v, int By, int Bx, cudaStream_t s) {
+  uint32_t* planes = bits + (size_t)ZW * Y * X;
+  if (P > 0) {
+    if (X % 4 == 0) {
+      const dim3 pgrid((X / 4 + 31) / 32, (Y + PACK_TY - 1) / PACK_TY, ZW);
+      pack_positive_kernel<4><<<pgrid, dim3(32, PACK_TY), 0, s>>>(vol, bits,
+                                                                  Z, Y, X);
+    } else {
+      const dim3 pgrid((X + 31) / 32, (Y + PACK_TY - 1) / PACK_TY, ZW);
+      pack_positive_kernel<1><<<pgrid, dim3(32, PACK_TY), 0, s>>>(vol, bits,
+                                                                  Z, Y, X);
+    }
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    const int core = BT - 2 * K;
+    const int chunks = ZW <= ZREG ? 1 : (ZW + ZREG - 3) / (ZREG - 2);
+    const dim3 grid((X + core - 1) / core, (Y + core - 1) / core, chunks);
+    dilate_count_kernel<(P > 0 ? P : 1)><<<grid, dim3(BT, BT), 0, s>>>(
+        bits, planes, Y, X, ZW, K);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const unsigned long long inv_v = ((1ull << 32) + v - 1) / v;
+  const int zblocks = (Z + ENC_Z - 1) / ENC_Z;
+  if (X % 4 == 0) {
+    const dim3 grid((X / 4 + 31) / 32, (Y + ENC_TY - 1) / ENC_TY, zblocks);
+    encode_kernel<OutT, P, 4><<<grid, dim3(32, ENC_TY), 0, s>>>(
+        vol, planes, bs_scaled, out, Z, Y, X, ZW, inv_v, By, Bx);
+  } else {
+    const dim3 grid((X + 31) / 32, (Y + ENC_TY - 1) / ENC_TY, zblocks);
+    encode_kernel<OutT, P, 1><<<grid, dim3(32, ENC_TY), 0, s>>>(
+        vol, planes, bs_scaled, out, Z, Y, X, ZW, inv_v, By, Bx);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_bake(const float* vol, const float* bs_scaled, OutT* out,
+                uint32_t* bits, int Z, int Y, int X, int v, int K, int By,
+                int Bx, cudaStream_t s) {
+  const int ZW = (Z + 31) / 32;
+  switch (bits_for(K)) {
+    case 0:
+      return launch_rounds_encode<OutT, 0>(vol, bs_scaled, out, bits, Z, Y,
+                                           X, ZW, K, v, By, Bx, s);
+    case 1:
+      return launch_rounds_encode<OutT, 1>(vol, bs_scaled, out, bits, Z, Y,
+                                           X, ZW, K, v, By, Bx, s);
+    case 2:
+      return launch_rounds_encode<OutT, 2>(vol, bs_scaled, out, bits, Z, Y,
+                                           X, ZW, K, v, By, Bx, s);
+    case 3:
+      return launch_rounds_encode<OutT, 3>(vol, bs_scaled, out, bits, Z, Y,
+                                           X, ZW, K, v, By, Bx, s);
+    default:
+      return launch_rounds_encode<OutT, 4>(vol, bs_scaled, out, bits, Z, Y,
+                                           X, ZW, K, v, By, Bx, s);
+  }
 }
 
 }  // namespace
@@ -135,29 +393,23 @@ int rgbd_surface_occ(const void* vol, void* out, int Z, int Y, int X,
 }
 
 // (Z, Y, X) f32 volume + (Bz, By, Bx) f32 brick clearance * brick_vox ->
-// (Z, Y, X) bf16 march table. scratch_a/scratch_b are (Z, Y, X) uint8.
+// (Z, Y, X) march table, bf16 (out_f32 = 0) or f32 (out_f32 = 1). bits is
+// (1 + P) * ceil(Z / 32) * Y * X uint32 of scratch, P the number of binary
+// digits of rounds. rounds must be in [0, MAX_ROUNDS]; the volume's sides
+// must be below 2^16.
 int rgbd_sentinel_bake(const void* vol, const void* bs_scaled, void* out,
-                       void* scratch_a, void* scratch_b, int Z, int Y, int X,
-                       int brick_vox, int rounds, int By, int Bx,
+                       void* bits, int Z, int Y, int X, int brick_vox,
+                       int rounds, int By, int Bx, int out_f32,
                        void* stream) {
+  if (rounds < 0 || rounds > MAX_ROUNDS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t n = (size_t)Z * Y * X;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  cheb_x_kernel<<<blocks, threads, 0, s>>>((const float*)vol,
-                                           (uint8_t*)scratch_a, Z, Y, X,
-                                           rounds);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  cheb_y_kernel<<<blocks, threads, 0, s>>>((const uint8_t*)scratch_a,
-                                           (uint8_t*)scratch_b, Z, Y, X,
-                                           rounds);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  cheb_z_encode_kernel<<<blocks, threads, 0, s>>>(
-      (const uint8_t*)scratch_b, (const float*)vol, (const float*)bs_scaled,
-      (__nv_bfloat16*)out, Z, Y, X, rounds, brick_vox, By, Bx);
-  return (int)cudaGetLastError();
+  if (out_f32)
+    return launch_bake<float>((const float*)vol, (const float*)bs_scaled,
+                              (float*)out, (uint32_t*)bits, Z, Y, X,
+                              brick_vox, rounds, By, Bx, s);
+  return launch_bake<__nv_bfloat16>(
+      (const float*)vol, (const float*)bs_scaled, (__nv_bfloat16*)out,
+      (uint32_t*)bits, Z, Y, X, brick_vox, rounds, By, Bx, s);
 }
 
 }  // extern "C"

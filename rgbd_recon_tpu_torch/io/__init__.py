@@ -1,8 +1,28 @@
-"""Port of rgbd_recon_tpu/io: the device frame feed. The stream files,
-wire codecs, network sources and checkpoints are the JAX package's host
-modules (rgbd_recon_tpu.io.stream / .dxt / .native / .network /
-.checkpoint), which import no jax."""
+"""Port of rgbd_recon_tpu/io: .stream files and wire codecs, the native
+replay pump, network sources, checkpoints and the device frame feed."""
 
+from .stream import StreamReader, StreamWriter, frame_wire_size
 from .feed import FrameFeed
+from .network import ZmqFrameSource, FeedbackReceiver, FeedbackState
+from .checkpoint import (
+    CheckpointManager,
+    ReconCheckpoint,
+    config_to_json,
+    save_volume_binary,
+)
+from . import dxt
 
-__all__ = ["FrameFeed"]
+__all__ = [
+    "StreamReader",
+    "StreamWriter",
+    "frame_wire_size",
+    "FrameFeed",
+    "ZmqFrameSource",
+    "FeedbackReceiver",
+    "FeedbackState",
+    "CheckpointManager",
+    "ReconCheckpoint",
+    "config_to_json",
+    "save_volume_binary",
+    "dxt",
+]

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "rgbd_bilateral13": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rgbd_quality13": (_P, _P, _P, _I, _I, _I, _P),
     "rgbd_surface_occ": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "rgbd_sentinel_bake": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "rgbd_sentinel_bake": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P),
 }
 

@@ -43,10 +43,18 @@ def surface_occ_cuda(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
     return out
 
 
+# the most dilation rounds csrc/bake.cu takes (a 32 x 32 tile keeps a core
+# of 32 - 2K columns)
+MAX_ROUNDS = 15
+_OUT_TYPES = (torch.bfloat16, torch.float32)
+
+
 def sentinel_bake_cuda(volume: torch.Tensor, bs_scaled: torch.Tensor,
-                       brick_vox: int, rounds: int) -> torch.Tensor:
+                       brick_vox: int, rounds: int,
+                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(Z, Y, X) f32 volume + (Bz, By, Bx) f32 brick clearance * brick_vox
-    -> (Z, Y, X) bf16 sentinel-coded march table."""
+    -> (Z, Y, X) sentinel-coded march table in ``out_dtype`` (bf16 or
+    f32)."""
     _check_volume(volume, brick_vox)
     grid = _brick_grid(volume.shape, brick_vox)
     if (bs_scaled.device != volume.device
@@ -55,18 +63,25 @@ def sentinel_bake_cuda(volume: torch.Tensor, bs_scaled: torch.Tensor,
             or not bs_scaled.is_contiguous()):
         raise ValueError(f"bs_scaled must be a contiguous {grid} float32 "
                          "tensor on the volume's device")
-    if not 0 <= rounds <= 250:
-        raise ValueError(f"rounds must be in [0, 250], got {rounds}")
+    if not 0 <= rounds <= MAX_ROUNDS:
+        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+    if out_dtype not in _OUT_TYPES:
+        raise ValueError(f"out_dtype must be one of {_OUT_TYPES}, "
+                         f"got {out_dtype}")
     Z, Y, X = volume.shape
-    out = torch.empty(volume.shape, dtype=torch.bfloat16,
-                      device=volume.device)
-    scratch = torch.empty((2, Z, Y, X), dtype=torch.uint8,
-                          device=volume.device)
+    if volume.numel() >= 2 ** 31 or max(Z, Y, X) >= 2 ** 16:
+        raise ValueError("volume must hold fewer than 2^31 voxels and "
+                         "sides below 2^16")
+    out = torch.empty(volume.shape, dtype=out_dtype, device=volume.device)
+    # volume > 0 packed into 32-voxel words along z, then the bit planes
+    # of the missed-round counters (one per binary digit of rounds)
+    bits = torch.empty(((1 + rounds.bit_length()) * -(-Z // 32) * Y * X,),
+                       dtype=torch.int32, device=volume.device)
     lib = library()
     err = lib.rgbd_sentinel_bake(
         volume.data_ptr(), bs_scaled.data_ptr(), out.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), Z, Y, X, brick_vox,
-        rounds, grid[1], grid[2],
+        bits.data_ptr(), Z, Y, X, brick_vox, rounds, grid[1], grid[2],
+        int(out_dtype == torch.float32),
         torch.cuda.current_stream(volume.device).cuda_stream,
     )
     check(err, "sentinel_bake")

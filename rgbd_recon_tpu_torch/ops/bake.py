@@ -49,16 +49,19 @@ def fine_safe_field(pos_mask: torch.Tensor, rounds: int) -> torch.Tensor:
 
 
 def sentinel_bake_plain(volume: torch.Tensor, bs_scaled: torch.Tensor,
-                        brick_vox: int, rounds: int) -> torch.Tensor:
+                        brick_vox: int, rounds: int,
+                        out_dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
     """-(2 + max(fine_safe, bs_scaled broadcast over its brick)) where that
-    field is positive, else the TSDF value; rounded to bf16."""
+    field is positive, else the TSDF value; cast to ``out_dtype`` (bf16,
+    or f32 for an f32 march table)."""
     Z, Y, X = volume.shape
     v = brick_vox
     fine = fine_safe_field(volume > 0.0, rounds)
     bs_vox = (bs_scaled.repeat_interleave(v, 0).repeat_interleave(v, 1)
               .repeat_interleave(v, 2))[:Z, :Y, :X]
     field = torch.maximum(fine, bs_vox)
-    return torch.where(field > 0.0, -(2.0 + field), volume).to(torch.bfloat16)
+    return torch.where(field > 0.0, -(2.0 + field), volume).to(out_dtype)
 
 
 def surface_occ(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
@@ -72,11 +75,14 @@ def surface_occ(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
 
 
 def sentinel_bake(volume: torch.Tensor, bs_scaled: torch.Tensor,
-                  brick_vox: int, rounds: int) -> torch.Tensor:
-    """(Z, Y, X) bf16 sentinel-coded march table; CUDA kernel on a CUDA
-    tensor, plain version on a CPU tensor."""
+                  brick_vox: int, rounds: int,
+                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(Z, Y, X) sentinel-coded march table in ``out_dtype``; CUDA kernel
+    on a CUDA tensor, plain version on a CPU tensor."""
     if volume.device.type == "cpu":
-        return sentinel_bake_plain(volume, bs_scaled, brick_vox, rounds)
+        return sentinel_bake_plain(volume, bs_scaled, brick_vox, rounds,
+                                   out_dtype)
     from ..kernels.bake import sentinel_bake_cuda
 
-    return sentinel_bake_cuda(volume, bs_scaled, brick_vox, rounds)
+    return sentinel_bake_cuda(volume, bs_scaled, brick_vox, rounds,
+                              out_dtype)

@@ -27,8 +27,7 @@ import time
 
 import torch
 
-from rgbd_recon_tpu.core import BoundingBox, PipelineConfig
-
+from .core import BoundingBox, PipelineConfig
 from .calib.sensors import build_synthetic_calibration
 from .ops.raymarch import ViewCamera
 from .recon.tsdf_pipeline import TsdfPipeline

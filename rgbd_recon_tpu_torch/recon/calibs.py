@@ -19,8 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rgbd_recon_tpu.core.grid import VolumeGrid
-
+from ..core.grid import VolumeGrid
 from ..ops import splat
 from ..ops.raymarch import ViewCamera
 from ..ops.tsdf import voxel_centers

@@ -16,8 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rgbd_recon_tpu.core.config import PipelineConfig
-
+from ..core.config import PipelineConfig
 from ..calib.sensors import CalibrationSet
 from ..ops import splat
 from ..ops.preprocess import SensorMaps

@@ -1,7 +1,7 @@
 """Synthetic RGBD scene renderer — the framework's reproducible test source.
 
-A numpy copy of rgbd_recon_tpu/sensors/synthetic.py (that package's
-__init__ imports jax and flax); frames come back as torch tensors.
+A numpy copy of rgbd_recon_tpu/sensors/synthetic.py; frames come back as
+torch tensors.
 
 The reference's reproducibility mechanism is .stream file replay
 (NetKinectArray.cpp:724-764); ours adds an analytic generator: scenes with a
@@ -21,14 +21,14 @@ import numpy as np
 
 import torch
 
-from rgbd_recon_tpu.core.camera import (
+from ..core.camera import (
     PinholeCamera,
     RGBDSensor,
     SensorRig,
     look_at_rotation,
 )
-from rgbd_recon_tpu.core.grid import BoundingBox
-
+from ..core.grid import BoundingBox
+from ..device import DEFAULT, resolve
 from .frames import FrameSet
 
 
@@ -108,10 +108,12 @@ def _render_camera(
 
 
 def render_rig_frames(scene: SyntheticScene, rig: SensorRig,
-                      timestamp: float = 0.0, device="cpu") -> FrameSet:
+                      timestamp: float = 0.0, device=DEFAULT) -> FrameSet:
     """Render one synchronized FrameSet for all sensors of a rig (depth from
     the depth camera, color from the color camera), rendered in numpy and
-    returned as tensors on ``device``."""
+    returned as tensors on ``device`` (the card unless the caller names
+    another)."""
+    device = resolve(device)
     depths, colors = [], []
     for sensor in rig.sensors:
         d, _ = _render_camera(scene, sensor.depth)

@@ -25,11 +25,12 @@ import pytest
 from rgbd_recon_tpu.app import main as jax_main
 from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
 from rgbd_recon_tpu.core import BoundingBox
-from rgbd_recon_tpu.io import CheckpointManager
+from rgbd_recon_tpu.io import CheckpointManager as JaxCheckpoints
 from rgbd_recon_tpu.sensors.synthetic import default_test_rig
 
 from rgbd_recon_tpu_torch import app
 from rgbd_recon_tpu_torch.calib.volume_io import write_calibration_volume
+from rgbd_recon_tpu_torch.io import CheckpointManager
 
 APP_KNIFE_EDGE_PIXELS = 16
 
@@ -155,7 +156,7 @@ def test_resumes_from_jax_checkpoint(scene, jax_runs, tmp_path):
     """A checkpoint directory the JAX app wrote: the port's app resumes
     its frame cursor and goes on writing checkpoints in the same format."""
     _, ck = jax_runs
-    assert CheckpointManager(ck).latest().frame_index == 2
+    assert JaxCheckpoints(ck).latest().frame_index == 2
     app.main(_run_args(scene, "baked.ks", tmp_path / "out", "--device",
                        "cpu", "--checkpoint-dir", str(ck),
                        "--checkpoint-every", "1", "--resume"))

@@ -31,6 +31,8 @@ from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch.calib.sensors import (
     build_synthetic_calibration as port_calibration,
 )
+from rgbd_recon_tpu_torch.core import BoundingBox as PortBox
+from rgbd_recon_tpu_torch.core import PipelineConfig as PortConfig
 from rgbd_recon_tpu_torch.ops import bake as port_bake
 from rgbd_recon_tpu_torch.ops import bricks as port_bricks
 from rgbd_recon_tpu_torch.ops import tsdf as port_tsdf
@@ -40,16 +42,25 @@ from rgbd_recon_tpu_torch.recon.tsdf_pipeline import (
 )
 from rgbd_recon_tpu_torch.sensors import synthetic as port_synthetic
 
+from test_torch_parity import jax_arrays
+
 torch.set_num_threads(2)
 
-BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+# each package builds its own box and config from the same arguments
+BOX = dict(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+BBOX = BoundingBox(**BOX)
+PBBOX = PortBox(**BOX)
 SPHERE = [((0.0, 1.1, 0.0), 0.55)]
 CAM = dict(width=96, height=80, eye=(0.0, 1.3, 2.6), target=(0.0, 1.1, 0.0))
+BASE_CFG = dict(voxel_size=0.05, brick_size=0.2, tsdf_limit=0.02, num_lods=5)
 
 
 def _cfg():
-    return PipelineConfig(voxel_size=0.05, brick_size=0.2, tsdf_limit=0.02,
-                          num_lods=5)
+    return PipelineConfig(**BASE_CFG)
+
+
+def _pcfg():
+    return PortConfig(**BASE_CFG)
 
 
 def _np(x):
@@ -79,12 +90,12 @@ def jax_run():
 
 @pytest.fixture(scope="module")
 def port_run():
-    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=BBOX)
-    calib = port_calibration(rig, BBOX, cv_res=(24, 32, 24),
-                             inv_res=(40, 44, 40))
+    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=PBBOX)
+    calib = port_calibration(rig, PBBOX, cv_res=(24, 32, 24),
+                             inv_res=(40, 44, 40), device="cpu")
     frames = port_synthetic.render_rig_frames(
-        port_synthetic.SyntheticScene(spheres=SPHERE), rig)
-    pipe = PortPipeline(calib, _cfg(), BBOX)
+        port_synthetic.SyntheticScene(spheres=SPHERE), rig, device="cpu")
+    pipe = PortPipeline(calib, _pcfg(), PBBOX)
     volume, maps, counts = pipe.fuse(frames)
     return dict(pipe=pipe, volume=volume, maps=maps, counts=counts)
 
@@ -117,7 +128,7 @@ def test_integrate_from_carried_maps(jax_run, port_run):
     """Integration alone: the JAX maps and counts carried across give the
     JAX volume (same fold in f32; rtol 1e-4 as tests/test_golden.py)."""
     maps = convert.sensor_maps_from_numpy(
-        convert.field_arrays(jax_run["maps"]))
+        jax_arrays(jax_run["maps"]), device="cpu")
     counts = torch.from_numpy(np.array(jax_run["counts"]))
     vol = port_run["pipe"].integrate(maps, counts)
     np.testing.assert_allclose(_np(vol), _np(jax_run["volume"]), rtol=1e-4,
@@ -131,7 +142,7 @@ def test_mark_bricks_matches():
     pts = rng.uniform([-1.1, -0.1, -1.1], [1.1, 2.3, 1.1],
                       (3, 40, 50, 3)).astype(np.float32)
     valid = rng.random((3, 40, 50)) < 0.8
-    bmin = np.array(BBOX.min, np.float32)
+    bmin = np.array(BOX["min"], np.float32)
     want = jax_bricks.mark_bricks(jnp.asarray(pts), jnp.asarray(valid),
                                   jnp.asarray(bmin), 0.2, (10, 11, 10))
     got = port_bricks.mark_bricks(torch.from_numpy(pts),
@@ -146,7 +157,8 @@ def test_mark_bricks_through_volumes(jax_run, port_run):
     maps: exact counts."""
     maps_j = jax_run["maps"]
     want = jax_run["pipe"]._mark_bricks(jax_run["pipe"].calib, None, maps_j)
-    maps = convert.sensor_maps_from_numpy(convert.field_arrays(maps_j))
+    maps = convert.sensor_maps_from_numpy(jax_arrays(maps_j),
+                                          device="cpu")
     got = port_run["pipe"]._mark_bricks(None, maps)
     np.testing.assert_array_equal(_np(got), _np(want))
 
@@ -191,6 +203,23 @@ def test_sentinel_bake_plain_matches_pallas(random_volume):
     got = port_bake.sentinel_bake(torch.from_numpy(vol),
                                   torch.from_numpy(bs), 8, 6)
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("rounds", [1, 6])
+def test_sentinel_bake_f32_matches_pallas(random_volume, rounds):
+    """Kernel 4's plain twin with an f32 table against sentinel_bake_tpu
+    with out_dtype=float32 (interpret, as the JAX pipeline calls it for
+    march_dtype="float32"): bit for bit."""
+    vol, bs = random_volume
+    want = bake_pallas.sentinel_bake_tpu(jnp.asarray(vol), jnp.asarray(bs),
+                                         8, rounds, out_dtype=jnp.float32,
+                                         interpret=True)
+    got = port_bake.sentinel_bake(torch.from_numpy(vol),
+                                  torch.from_numpy(bs), 8, rounds,
+                                  torch.float32)
+    assert got.dtype == torch.float32 and np.asarray(want).dtype == np.float32
+    np.testing.assert_array_equal(_np(got).view(np.uint32),
+                                  np.asarray(want).view(np.uint32))
 
 
 @pytest.mark.parametrize("part", ["occ", "bsafe", "table", "oct_rows",

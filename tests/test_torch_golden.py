@@ -12,9 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from rgbd_recon_tpu.core import BoundingBox, PipelineConfig
-
 from rgbd_recon_tpu_torch.calib.sensors import build_synthetic_calibration
+from rgbd_recon_tpu_torch.core import BoundingBox, PipelineConfig
 from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
 from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 from rgbd_recon_tpu_torch.sensors import synthetic
@@ -41,9 +40,10 @@ def port_run():
         num_sensors=s["num_sensors"], depth_size=s["depth_size"],
         color_size=s["color_size"], bbox=bbox)
     calib = build_synthetic_calibration(rig, bbox, cv_res=s["cv_res"],
-                                        inv_res=s["inv_res"])
+                                        inv_res=s["inv_res"], device="cpu")
     frames = synthetic.render_rig_frames(
-        synthetic.SyntheticScene(spheres=[((0.0, 1.1, 0.0), 0.55)]), rig)
+        synthetic.SyntheticScene(spheres=[((0.0, 1.1, 0.0), 0.55)]), rig,
+        device="cpu")
     cfg = PipelineConfig(
         voxel_size=s["voxel_size"], brick_size=s["brick_size"],
         tsdf_limit=s["tsdf_limit"], num_lods=s["num_lods"],

@@ -76,13 +76,17 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
     bs = torch.from_numpy(rng.integers(0, 3, (4, 6, 5)).astype(np.float32))
     assert torch.equal(bake.sentinel_bake(vol, bs, 4, 3),
                        bake.sentinel_bake_plain(vol, bs, 4, 3))
+    got = bake.sentinel_bake(vol, bs, 4, 3, torch.float32)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, bake.sentinel_bake_plain(vol, bs, 4, 3,
+                                                     torch.float32))
     assert all(n == 0 for n in kernels.launch_counts().values())
 
 
 def test_cpu_pipeline_launches_no_kernel():
     """A whole CPU fuse + render runs every plain twin and no kernel."""
-    from rgbd_recon_tpu.core import BoundingBox, PipelineConfig
     from rgbd_recon_tpu_torch.calib.sensors import build_synthetic_calibration
+    from rgbd_recon_tpu_torch.core import BoundingBox, PipelineConfig
     from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
     from rgbd_recon_tpu_torch.sensors.synthetic import (
@@ -94,9 +98,9 @@ def test_cpu_pipeline_launches_no_kernel():
     bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
     rig = default_test_rig(num_sensors=2, bbox=bbox)
     calib = build_synthetic_calibration(rig, bbox, cv_res=(16, 24, 16),
-                                        inv_res=(20, 22, 20))
+                                        inv_res=(20, 22, 20), device="cpu")
     frames = render_rig_frames(
-        SyntheticScene(spheres=[((0.0, 1.1, 0.0), 0.55)]), rig)
+        SyntheticScene(spheres=[((0.0, 1.1, 0.0), 0.55)]), rig, device="cpu")
     cfg = PipelineConfig(voxel_size=0.1, brick_size=0.2, tsdf_limit=0.04,
                          num_lods=3)
     kernels.reset_launch_counts()
@@ -117,6 +121,39 @@ def test_cuda_wrappers_reject_cpu_tensors():
         quality13_cuda(torch.zeros(1, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         surface_occ_cuda(torch.zeros(8, 8, 8), 4)
+
+
+def test_gauss_space_table_matches_plain():
+    """csrc/stencil13.cu's GAUSS_SPACE literals are the plain fold's f32
+    gauss_space values, bit for bit."""
+    import re
+
+    src = open(os.path.join(REPO, "rgbd_recon_tpu_torch", "csrc",
+                            "stencil13.cu")).read()
+    body = src[src.index("GAUSS_SPACE[2 * KS + 1][2 * KS + 1] = {"):]
+    body = body[body.index("{") + 1: body.index("};")]
+    lits = re.findall(r"-?0x[0-9a-f.]+p[-+]\d+f|-?0\.0f", body)
+    got = np.array([float.fromhex(t[:-1]) if "x" in t else float(t[:-1])
+                    for t in lits], np.float32)
+    want = np.array(stencil13._GAUSS_SPACE, np.float32).reshape(-1)
+    assert got.size == 169
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_sentinel_bake_f32_keeps_values():
+    """The f32 table holds the sentinels -(2 + field) and the TSDF values
+    unrounded; the bf16 table is that table rounded once."""
+    rng = np.random.default_rng(3)
+    vol = torch.from_numpy(_volume(rng, (12, 16, 20)))
+    bs = torch.from_numpy(rng.integers(0, 2, (3, 4, 5)).astype(np.float32)
+                          * 4)
+    f32 = bake.sentinel_bake_plain(vol, bs, 4, 6, torch.float32)
+    keep = f32 > -1.5
+    assert bool(keep.any()) and bool((~keep).any())
+    assert torch.equal(f32[keep], vol[keep])
+    assert torch.equal(f32[~keep], torch.round(f32[~keep]))
+    assert torch.equal(f32.to(torch.bfloat16),
+                       bake.sentinel_bake_plain(vol, bs, 4, 6))
 
 
 def test_port_imports_without_jax():
@@ -184,3 +221,83 @@ def test_bake_kernels_bit_exact(cuda, shape, brick_vox):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("near", ["sensor", "zero"])
+@pytest.mark.parametrize("shape", [(2, 40, 48), (3, 37, 101), (4, 424, 512)])
+def test_bilateral13_kernel_bit_exact(cuda, shape, near):
+    """The redesigned bilateral kernel against the plain fold, bit for bit,
+    on maps whose sides are not tile multiples, with zeros and depths
+    outside [near, far] (per-sensor limits). A near limit of 0 makes the
+    zero depths non-border taps of each other, with a 1e-20 divisor: the
+    kernel's full-division path."""
+    rng = np.random.default_rng(4)
+    d = torch.from_numpy(_depth_maps(rng, *shape)).to(cuda)
+    lim = torch.tensor([[(0.5 + 0.4 * i) * (near == "sensor"), 4.5 - 0.3 * i]
+                        for i in range(shape[0])], device=cuda)
+    assert bool((d > lim[:, 1:, None]).any())
+    if near == "sensor":
+        assert bool((d < lim[:, :1, None]).any())
+    before = kernels.LAUNCHES["bilateral13"]
+    got = stencil13.bilateral13(d, lim)
+    want = stencil13.bilateral13_plain(d, lim)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bilateral13"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rounds", [0, 1, 6, 7])
+@pytest.mark.parametrize("shape,brick_vox", [((24, 32, 40), 8),
+                                             ((17, 23, 45), 5),
+                                             ((33, 19, 300), 7),
+                                             ((300, 21, 33), 7),
+                                             ((200, 220, 200), 10)])
+def test_sentinel_bake_kernel_bit_exact(cuda, shape, brick_vox, rounds,
+                                        out_dtype):
+    """The redesigned sentinel bake against the plain version, bit for bit:
+    sides that are not tile multiples, brick_vox that does not divide the
+    volume, a z side past one register column (300 > 224: chunks of z),
+    K in {0, 1, 6, 7}, both output types."""
+    rng = np.random.default_rng(5)
+    vol = torch.from_numpy(_volume(rng, shape)).to(cuda)
+    grid = tuple(-(-s // brick_vox) for s in shape)
+    bs = torch.from_numpy(
+        rng.integers(0, 3, grid).astype(np.float32) * brick_vox).to(cuda)
+    before = kernels.LAUNCHES["sentinel_bake"]
+    got = bake.sentinel_bake(vol, bs, brick_vox, rounds, out_dtype)
+    want = bake.sentinel_bake_plain(vol, bs, brick_vox, rounds, out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sentinel_bake"] == before + 1
+    assert got.dtype == out_dtype
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_sentinel_bake_kernel_most_rounds(cuda, out_dtype):
+    """K = MAX_ROUNDS, where the tile's core is 2 columns wide."""
+    from rgbd_recon_tpu_torch.kernels.bake import MAX_ROUNDS
+
+    rng = np.random.default_rng(6)
+    vol = torch.from_numpy(_volume(rng, (70, 40, 45))).to(cuda)
+    bs = torch.from_numpy(
+        rng.integers(0, 3, (7, 4, 5)).astype(np.float32) * 10).to(cuda)
+    got = bake.sentinel_bake(vol, bs, 10, MAX_ROUNDS, out_dtype)
+    want = bake.sentinel_bake_plain(vol, bs, 10, MAX_ROUNDS, out_dtype)
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+def test_sentinel_bake_kernel_rejects_too_many_rounds(cuda):
+    from rgbd_recon_tpu_torch.kernels.bake import MAX_ROUNDS
+
+    vol = torch.zeros((8, 8, 8), device=cuda)
+    bs = torch.zeros((2, 2, 2), device=cuda)
+    with pytest.raises(ValueError, match="rounds"):
+        bake.sentinel_bake(vol, bs, 4, MAX_ROUNDS + 1)

@@ -9,6 +9,8 @@ Inputs come from seeds with numpy, or from the port's own small scene (the
 verify scene: 4 sensors at 64x56, 5 cm voxels, a 0.55 m sphere), and are
 fed to both packages as numpy arrays."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,8 @@ from rgbd_recon_tpu_torch.calib.sensors import (
     build_synthetic_calibration as port_calibration,
     derive_projection_models,
 )
+from rgbd_recon_tpu_torch.core import BoundingBox as PortBox
+from rgbd_recon_tpu_torch.core import PipelineConfig as PortConfig
 from rgbd_recon_tpu_torch.ops import bricks as port_bricks
 from rgbd_recon_tpu_torch.ops import holefill as port_holefill
 from rgbd_recon_tpu_torch.ops import raymarch as port_raymarch
@@ -46,7 +50,10 @@ from rgbd_recon_tpu_torch.sensors import synthetic as port_synthetic
 
 torch.set_num_threads(2)
 
-BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+# each package builds its own box and configs from the same arguments
+BOX = dict(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+BBOX = BoundingBox(**BOX)
+PBBOX = PortBox(**BOX)
 SPHERE = [((0.0, 1.1, 0.0), 0.55)]
 CAM = dict(width=96, height=80, eye=(0.0, 1.3, 2.6), target=(0.0, 1.1, 0.0))
 LIMIT = 0.02
@@ -68,12 +75,22 @@ SLICE_CONFIGS = {
     "dense_nearest": dict(ray_compaction=0.0),
     # a brick of 3.2 voxels: dense integrate gated by the occupied bricks
     "brick_frac": dict(voxel_size=0.0625),
+    # the fast path with an f32 sentinel table (and f32 oct table)
+    "sentinel_f32": dict(march_dtype="float32"),
 }
+# the verify scene's config
+BASE_CFG = dict(voxel_size=0.05, brick_size=0.2, tsdf_limit=LIMIT,
+                num_lods=5)
 
 
 def _cfg(**kw):
-    return PipelineConfig(**{**dict(voxel_size=0.05, brick_size=0.2,
-                                    tsdf_limit=LIMIT, num_lods=5), **kw})
+    """The JAX package's config of the verify scene."""
+    return PipelineConfig(**{**BASE_CFG, **kw})
+
+
+def _pcfg(**kw):
+    """The port's config from the same arguments."""
+    return PortConfig(**{**BASE_CFG, **kw})
 
 
 def _np(x):
@@ -88,6 +105,13 @@ def _j(x):
     return jnp.asarray(np.ascontiguousarray(x))
 
 
+def jax_arrays(container):
+    """{field: numpy array} of a JAX-package container: the form in which
+    JAX state crosses to the port (its convert.*_from_numpy)."""
+    return {f.name: np.asarray(getattr(container, f.name))
+            for f in dataclasses.fields(container)}
+
+
 # ---- whole-slice runner (used by tests/test_torch_slice_*.py) -------------
 
 def slice_setup():
@@ -96,11 +120,11 @@ def slice_setup():
     calib = build_synthetic_calibration(rig, BBOX, cv_res=(24, 32, 24),
                                         inv_res=(40, 44, 40))
     frames = render_rig_frames(SyntheticScene(spheres=SPHERE), rig)
-    prig = port_synthetic.default_test_rig(num_sensors=4, bbox=BBOX)
-    pcalib = port_calibration(prig, BBOX, cv_res=(24, 32, 24),
-                              inv_res=(40, 44, 40))
+    prig = port_synthetic.default_test_rig(num_sensors=4, bbox=PBBOX)
+    pcalib = port_calibration(prig, PBBOX, cv_res=(24, 32, 24),
+                              inv_res=(40, 44, 40), device="cpu")
     pframes = port_synthetic.render_rig_frames(
-        port_synthetic.SyntheticScene(spheres=SPHERE), prig)
+        port_synthetic.SyntheticScene(spheres=SPHERE), prig, device="cpu")
     return calib, frames, pcalib, pframes
 
 
@@ -131,6 +155,7 @@ def run_slice(setup, name):
     "prefill": {"jax": planes, "port": planes}}."""
     calib, frames, pcalib, pframes = setup
     cfg = _cfg(**SLICE_CONFIGS[name])
+    pcfg = _pcfg(**SLICE_CONFIGS[name])
     out = {"prefill": {}}
     jfill, pfill = capturing_fills(out["prefill"])
     with pytest.MonkeyPatch.context() as mp:
@@ -141,7 +166,7 @@ def run_slice(setup, name):
         jax_out = pipe.make_renderer(ViewCamera(**CAM))(vol, maps, counts)
         jax.block_until_ready(jax_out)
         jax.effects_barrier()
-        ppipe = port_pipeline.TsdfPipeline(pcalib, cfg, BBOX)
+        ppipe = port_pipeline.TsdfPipeline(pcalib, pcfg, PBBOX)
         pvol, pmaps, pcounts = ppipe.fuse(pframes)
         port_out = ppipe.make_renderer(port_raymarch.ViewCamera(**CAM))(
             pvol, pmaps, pcounts)
@@ -209,18 +234,18 @@ def check_overflow_and_samples(run):
 def scene():
     """The port's calibration and fused maps of the verify scene, and 256
     random points on the sphere's surface (volume-normalized), as numpy."""
-    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=BBOX)
-    calib = port_calibration(rig, BBOX, cv_res=(24, 32, 24),
-                             inv_res=(40, 44, 40))
+    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=PBBOX)
+    calib = port_calibration(rig, PBBOX, cv_res=(24, 32, 24),
+                             inv_res=(40, 44, 40), device="cpu")
     frames = port_synthetic.render_rig_frames(
-        port_synthetic.SyntheticScene(spheres=SPHERE), rig)
-    pipe = port_pipeline.TsdfPipeline(calib, _cfg(), BBOX)
+        port_synthetic.SyntheticScene(spheres=SPHERE), rig, device="cpu")
+    pipe = port_pipeline.TsdfPipeline(calib, _pcfg(), PBBOX)
     volume, maps, counts = pipe.fuse(frames)
     rng = np.random.default_rng(21)
     d = rng.normal(size=(256, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     world = np.asarray(SPHERE[0][0]) + d * SPHERE[0][1]
-    bmin, bsize = np.asarray(BBOX.min), np.asarray(BBOX.size)
+    bmin, bsize = np.asarray(PBBOX.min), np.asarray(PBBOX.size)
     models, residual = derive_projection_models(calib.cv_xyz, calib.cv_uv)
     assert residual < 2e-3
     return dict(
@@ -483,7 +508,7 @@ def test_dense_integrate_matches(scene, gated):
     if gated:
         occ = s["counts"] > 10
         mask = _np(port_bricks.expand_mask_to_voxel_grid(
-            _t(occ), shape, tuple(float(x) for x in BBOX.size), 0.2))
+            _t(occ), shape, tuple(float(x) for x in PBBOX.size), 0.2))
         jproj = jax_tsdf.bake_projections(_j(inv), shape)
         pproj = port_tsdf.bake_projections(_t(inv), shape)
         for a, b in zip(pproj, jproj):
@@ -526,9 +551,9 @@ def test_projection_fit_miss_blends_through_volumes(scene, monkeypatch,
     renders are equal bit for bit."""
     pipe = scene["pipe"]
     calib = pipe.calib
-    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=BBOX)
+    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=PBBOX)
     frames = port_synthetic.render_rig_frames(
-        port_synthetic.SyntheticScene(spheres=SPHERE), rig)
+        port_synthetic.SyntheticScene(spheres=SPHERE), rig, device="cpu")
     volume, maps, counts = pipe.fuse(frames)
     cam = port_raymarch.ViewCamera(**CAM)
 
@@ -537,11 +562,11 @@ def test_projection_fit_miss_blends_through_volumes(scene, monkeypatch,
         return models, 1.0
 
     monkeypatch.setattr(port_pipeline, "derive_projection_models", bad_fit)
-    missed = port_pipeline.TsdfPipeline(calib, _cfg(), BBOX)
+    missed = port_pipeline.TsdfPipeline(calib, _pcfg(), PBBOX)
     out = missed.make_renderer(cam)(volume, maps, counts)
     assert "residual 1.00e+00 too large" in capsys.readouterr().out
-    off = port_pipeline.TsdfPipeline(calib, _cfg(projection_model=False),
-                                     BBOX)
+    off = port_pipeline.TsdfPipeline(calib, _pcfg(projection_model=False),
+                                     PBBOX)
     ref = off.make_renderer(cam)(volume, maps, counts)
     assert int(ref.hit.sum()) > 300
     for f in ("color", "depth", "hit", "num_samples", "overflow"):

@@ -24,6 +24,8 @@ from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch.ops import preprocess as port_pre
 from rgbd_recon_tpu_torch.ops import stencil13
 
+from test_torch_parity import jax_arrays
+
 torch.set_num_threads(2)
 
 BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
@@ -90,7 +92,8 @@ def maps_pair(request, scene):
     m_jax = jax_pre.preprocess_frames(
         frames.depths, frames.colors, **kw, morph=on, bilateral=on,
         refine=on, pixel_models=pm if use_pm else None, use_pallas=True)
-    pm_t = (convert.pixel_models_from_numpy(convert.field_arrays(pm))
+    pm_t = (convert.pixel_models_from_numpy(jax_arrays(pm),
+                                            device="cpu")
             if use_pm else None)
     m_port = port_pre.preprocess_frames(
         _t(frames.depths), _t(frames.colors),

@@ -49,9 +49,14 @@ from rgbd_recon_tpu.sensors.synthetic import (
 
 from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch import recon as port_recon
+from rgbd_recon_tpu_torch.core import BoundingBox as PortBox
+from rgbd_recon_tpu_torch.core import PipelineConfig as PortConfig
+from rgbd_recon_tpu_torch.core import VolumeGrid as PortGrid
 from rgbd_recon_tpu_torch.ops import splat as port_splat
 from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera as PortCamera
 from rgbd_recon_tpu_torch.recon.tsdf_pipeline import CamParams, RenderOutput
+
+from test_torch_parity import jax_arrays
 
 torch.set_num_threads(2)
 
@@ -59,16 +64,31 @@ KNIFE_EDGE_PIXELS = 8
 COLOR_ATOL = 1e-4
 DEPTH_ATOL = 1e-5
 
-BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+# each package builds its own box, grid and configs from the same arguments
+BOX = dict(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+BBOX = BoundingBox(**BOX)
+PBBOX = PortBox(**BOX)
 CAM = dict(width=96, height=80, eye=(0.0, 1.2, 2.5), target=(0.0, 1.1, 0.0))
 # the test grid is ~10x coarser than the reference's 512 px grid, so the
 # triangle cull's min_length scales up (tests/test_recon_modes.py)
 MIN_LENGTH = 0.15
 
 
+BASE_CFG = dict(voxel_size=0.0625, brick_size=0.25, tsdf_limit=0.02)
+
+
 def _cfg(**kw):
-    return PipelineConfig(voxel_size=0.0625, brick_size=0.25,
-                          tsdf_limit=0.02, **kw)
+    return PipelineConfig(**BASE_CFG, **kw)
+
+
+def _pcfg(**kw):
+    return PortConfig(**BASE_CFG, **kw)
+
+
+def _pgrid(grid):
+    """The port's VolumeGrid with the JAX grid's arguments."""
+    return PortGrid(bbox=PortBox(min=grid.bbox.min, max=grid.bbox.max),
+                    voxel_size=grid.voxel_size)
 
 
 def _np(x):
@@ -90,8 +110,10 @@ def setup():
     return dict(
         calib=calib, frames=frames, pipe=pipe, volume=volume, maps=maps,
         counts=counts,
-        pcalib=convert.calibration_from_numpy(convert.field_arrays(calib)),
-        pmaps=convert.sensor_maps_from_numpy(convert.field_arrays(maps)),
+        pcalib=convert.calibration_from_numpy(jax_arrays(calib),
+                                              device="cpu"),
+        pmaps=convert.sensor_maps_from_numpy(jax_arrays(maps),
+                                             device="cpu"),
         pvolume=torch.from_numpy(np.array(volume)),
         pcounts=torch.from_numpy(np.array(counts)),
     )
@@ -237,7 +259,7 @@ def test_cam_params_from_matrix_matches():
     mat[:3, :3] = q
     mat[:3, 3] = [0.3, 1.4, 2.2]
     want = JaxCamParams.from_matrix(mat, BBOX)
-    got = CamParams.from_matrix(mat, BBOX)
+    got = CamParams.from_matrix(mat, PBBOX, device="cpu")
     for f in ("eye_w", "rot", "eye_vol"):
         np.testing.assert_array_equal(_np(getattr(got, f)),
                                       np.asarray(getattr(want, f)))
@@ -247,10 +269,11 @@ def test_cam_params_from_matrix_matches():
 
 @pytest.mark.parametrize("shade_mode", [0, 1, 2, 3])
 def test_points_matches(setup, shade_mode):
-    cfg = _cfg(shade_mode=shade_mode)
-    want = PointsPipeline(setup["calib"], cfg).make_renderer(
-        ViewCamera(**CAM))(setup["maps"])
-    got = port_recon.PointsPipeline(setup["pcalib"], cfg).make_renderer(
+    want = PointsPipeline(setup["calib"], _cfg(shade_mode=shade_mode)
+                          ).make_renderer(ViewCamera(**CAM))(setup["maps"])
+    got = port_recon.PointsPipeline(setup["pcalib"],
+                                    _pcfg(shade_mode=shade_mode)
+                                    ).make_renderer(
         PortCamera(**CAM))(setup["pmaps"])
     assert_renders_match(want, got)
 
@@ -261,17 +284,18 @@ def test_trigrid_matches(setup, epsilon):
                            epsilon=epsilon).make_renderer(
         ViewCamera(**CAM))(setup["maps"])
     got = port_recon.TrigridPipeline(
-        setup["pcalib"], _cfg(), min_length=MIN_LENGTH,
+        setup["pcalib"], _pcfg(), min_length=MIN_LENGTH,
         epsilon=epsilon).make_renderer(PortCamera(**CAM))(setup["pmaps"])
     assert_renders_match(want, got)
 
 
 @pytest.mark.parametrize("bilateral", [True, False])
 def test_mvt_matches(setup, bilateral):
-    cfg = _cfg(bilateral=bilateral)
-    want = MvtPipeline(setup["calib"], cfg, min_length=MIN_LENGTH
+    want = MvtPipeline(setup["calib"], _cfg(bilateral=bilateral),
+                       min_length=MIN_LENGTH
                        ).make_renderer(ViewCamera(**CAM))(setup["maps"])
-    got = port_recon.MvtPipeline(setup["pcalib"], cfg, min_length=MIN_LENGTH
+    got = port_recon.MvtPipeline(setup["pcalib"], _pcfg(bilateral=bilateral),
+                                 min_length=MIN_LENGTH
                                  ).make_renderer(PortCamera(**CAM))(
         setup["pmaps"])
     assert_renders_match(want, got)
@@ -282,7 +306,8 @@ def test_calibvis_matches(setup, max_points, stride):
     grid = setup["pipe"].volume_grid
     want = CalibVisPipeline(grid, 0.02, max_points=max_points).make_renderer(
         ViewCamera(**CAM))(setup["volume"])
-    pipe = port_recon.CalibVisPipeline(grid, 0.02, max_points=max_points)
+    pipe = port_recon.CalibVisPipeline(_pgrid(grid), 0.02,
+                                       max_points=max_points)
     # ceil((32 * 36 * 32 / max_points)^(1/3))
     assert pipe.stride == stride
     got = pipe.make_renderer(PortCamera(**CAM))(setup["pvolume"])
@@ -301,7 +326,7 @@ def test_calibvis_color_classes_match(setup):
     vol[rng.random(grid.shape) < 0.7] = -0.02      # mostly discarded
     want = CalibVisPipeline(grid, 0.02).make_renderer(ViewCamera(**CAM))(
         jnp.asarray(vol))
-    got = port_recon.CalibVisPipeline(grid, 0.02).make_renderer(
+    got = port_recon.CalibVisPipeline(_pgrid(grid), 0.02).make_renderer(
         PortCamera(**CAM))(torch.from_numpy(vol))
     assert_renders_match(want, got)
     img = _np(got[0])[_np(got[2])]
@@ -314,13 +339,12 @@ def test_calibvis_color_classes_match(setup):
 def test_recon_mode_0_fuses_same_volume(setup):
     """A TsdfPipeline built with recon_mode=0 fuses (the app fuses in every
     mode) the JAX volume at tests/test_torch_fuse.py's tolerance."""
-    cfg = _cfg(recon_mode=0)
-    jvol, _, jcounts = TsdfPipeline(setup["calib"], cfg, BBOX).fuse(
-        setup["frames"])
+    jvol, _, jcounts = TsdfPipeline(setup["calib"], _cfg(recon_mode=0),
+                                    BBOX).fuse(setup["frames"])
     pframes = convert.frames_from_numpy(
-        convert.field_arrays(setup["frames"]))
-    pvol, _, pcounts = port_recon.TsdfPipeline(setup["pcalib"], cfg,
-                                               BBOX).fuse(pframes)
+        jax_arrays(setup["frames"]), device="cpu")
+    pvol, _, pcounts = port_recon.TsdfPipeline(
+        setup["pcalib"], _pcfg(recon_mode=0), PBBOX).fuse(pframes)
     np.testing.assert_array_equal(_np(pcounts), np.asarray(jcounts))
     np.testing.assert_allclose(_np(pvol), np.asarray(jvol), rtol=1e-4,
                                atol=1e-6)
@@ -329,13 +353,13 @@ def test_recon_mode_0_fuses_same_volume(setup):
 @pytest.mark.parametrize("overflow", [None, (3, 0, 7, 1)])
 def test_diagnostics_match(setup, overflow):
     jpipe = setup["pipe"]
-    ppipe = port_recon.TsdfPipeline(setup["pcalib"], _cfg(), BBOX)
+    ppipe = port_recon.TsdfPipeline(setup["pcalib"], _pcfg(), PBBOX)
     # a brick capacity below the occupancy, so bricks_dropped is nonzero
     occ = int((np.asarray(setup["counts"]) > _cfg().min_voxels_per_brick
                ).sum())
     cap = dict(brick_capacity=max(occ - 5, 1))
     jpipe_c = TsdfPipeline(setup["calib"], _cfg(**cap), BBOX)
-    ppipe_c = port_recon.TsdfPipeline(setup["pcalib"], _cfg(**cap), BBOX)
+    ppipe_c = port_recon.TsdfPipeline(setup["pcalib"], _pcfg(**cap), PBBOX)
     jout = pout = None
     if overflow is not None:
         z = np.zeros((4, 4), np.float32)
@@ -358,7 +382,7 @@ def test_diagnostics_match(setup, overflow):
 def test_shade_mode_3_still_raises_in_the_pipeline(setup):
     """blend_cameras is not ported: a TsdfPipeline (and so the app, in every
     mode) rejects shade_mode=3 naming it; PointsPipeline takes it."""
-    cfg = dataclasses.replace(_cfg(), shade_mode=3)
+    cfg = dataclasses.replace(_pcfg(), shade_mode=3)
     with pytest.raises(NotImplementedError, match="shade_mode"):
-        port_recon.TsdfPipeline(setup["pcalib"], cfg, BBOX)
+        port_recon.TsdfPipeline(setup["pcalib"], cfg, PBBOX)
     port_recon.PointsPipeline(setup["pcalib"], cfg)

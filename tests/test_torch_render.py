@@ -30,6 +30,8 @@ from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch.calib.sensors import (
     build_synthetic_calibration as port_calibration,
 )
+from rgbd_recon_tpu_torch.core import BoundingBox as PortBox
+from rgbd_recon_tpu_torch.core import PipelineConfig as PortConfig
 from rgbd_recon_tpu_torch.ops import holefill as port_holefill
 from rgbd_recon_tpu_torch.ops import raymarch as port_raymarch
 from rgbd_recon_tpu_torch.recon.tsdf_pipeline import (
@@ -37,18 +39,25 @@ from rgbd_recon_tpu_torch.recon.tsdf_pipeline import (
 )
 from rgbd_recon_tpu_torch.sensors import synthetic as port_synthetic
 
-from test_torch_parity import capturing_fills, shared_hits
+from test_torch_parity import capturing_fills, jax_arrays, shared_hits
 
 torch.set_num_threads(2)
 
-BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+# each package builds its own box and configs from the same arguments
+BOX = dict(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+BBOX = BoundingBox(**BOX)
+PBBOX = PortBox(**BOX)
 SPHERE = [((0.0, 1.1, 0.0), 0.55)]
 CAM = dict(width=96, height=80, eye=(0.0, 1.3, 2.6), target=(0.0, 1.1, 0.0))
+BASE_CFG = dict(voxel_size=0.05, brick_size=0.2, tsdf_limit=0.02, num_lods=5)
 
 
 def _cfg(**kw):
-    return PipelineConfig(voxel_size=0.05, brick_size=0.2, tsdf_limit=0.02,
-                          num_lods=5, **kw)
+    return PipelineConfig(**BASE_CFG, **kw)
+
+
+def _pcfg(**kw):
+    return PortConfig(**BASE_CFG, **kw)
 
 
 def _np(x):
@@ -57,11 +66,11 @@ def _np(x):
 
 @pytest.fixture(scope="module")
 def port_setup():
-    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=BBOX)
-    calib = port_calibration(rig, BBOX, cv_res=(24, 32, 24),
-                             inv_res=(40, 44, 40))
+    rig = port_synthetic.default_test_rig(num_sensors=4, bbox=PBBOX)
+    calib = port_calibration(rig, PBBOX, cv_res=(24, 32, 24),
+                             inv_res=(40, 44, 40), device="cpu")
     frames = port_synthetic.render_rig_frames(
-        port_synthetic.SyntheticScene(spheres=SPHERE), rig)
+        port_synthetic.SyntheticScene(spheres=SPHERE), rig, device="cpu")
     return calib, frames
 
 
@@ -85,7 +94,7 @@ def runs(port_setup):
             jax_out = pipe.make_renderer(ViewCamera(**CAM))(vol, maps, counts)
             jax.block_until_ready(jax_out)
             jax.effects_barrier()
-            ppipe = PortPipeline(pcalib, _cfg(**kw), BBOX)
+            ppipe = PortPipeline(pcalib, _pcfg(**kw), PBBOX)
             pvol, pmaps, pcounts = ppipe.fuse(pframes)
             port_out = ppipe.make_renderer(port_raymarch.ViewCamera(**CAM))(
                 pvol, pmaps, pcounts)
@@ -178,11 +187,13 @@ def test_render_from_carried_state(runs):
     render alone, at the whole-slice tolerances."""
     pipe, vol, maps, counts = runs["jax_state"]
     jax_out, _ = runs["default"]
-    ccal = convert.calibration_from_numpy(convert.field_arrays(pipe.calib))
-    ppipe = PortPipeline(ccal, _cfg(), BBOX)
+    ccal = convert.calibration_from_numpy(jax_arrays(pipe.calib),
+                                          device="cpu")
+    ppipe = PortPipeline(ccal, _pcfg(), PBBOX)
     out = ppipe.make_renderer(port_raymarch.ViewCamera(**CAM))(
         torch.from_numpy(np.array(vol)),
-        convert.sensor_maps_from_numpy(convert.field_arrays(maps)),
+        convert.sensor_maps_from_numpy(jax_arrays(maps),
+                                       device="cpu"),
         torch.from_numpy(np.array(counts)))
     hj, hp = _np(jax_out.hit), _np(out.hit)
     assert (hj != hp).sum() <= 0.005 * hj.size
@@ -266,12 +277,12 @@ def test_shade_matches(mode):
     ("bracket_per_block", True),
     ("blend_mode", "best_two"),
     ("blend_mode", "normal_deviation"),
-    ("march_dtype", "float32"),     # with the default skip sentinels
+    ("debug_skip", "blend,refine"),
     ("shade_mode", 3),
     ("debug_skip", "grad"),
 ])
 def test_unported_config_raises(port_setup, field, value):
     calib, _ = port_setup
-    cfg = dataclasses.replace(_cfg(), **{field: value})
+    cfg = dataclasses.replace(_pcfg(), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
-        PortPipeline(calib, cfg, BBOX)
+        PortPipeline(calib, cfg, PBBOX)

@@ -25,13 +25,19 @@ from rgbd_recon_tpu.sensors import render_rig_frames as jax_frames
 
 from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch.calib import sensors as port_sensors
+from rgbd_recon_tpu_torch.core import BoundingBox as PortBox
 from rgbd_recon_tpu_torch.ops import color as port_color
 from rgbd_recon_tpu_torch.ops import sampling as port_sampling
 from rgbd_recon_tpu_torch.sensors import synthetic as port_synthetic
 
+from test_torch_parity import jax_arrays
+
 torch.set_num_threads(2)
 
-BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+# each package builds its own box from the same arguments
+BOX = dict(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+BBOX = BoundingBox(**BOX)
+PBBOX = PortBox(**BOX)
 SPHERE = [((0.0, 1.1, 0.0), 0.55)]
 CV_RES, INV_RES = (24, 32, 24), (40, 44, 40)
 
@@ -43,15 +49,16 @@ def _np(x):
 @pytest.fixture(scope="module")
 def both():
     rig_j = jax_rig(num_sensors=4, bbox=BBOX)
-    rig_p = port_synthetic.default_test_rig(num_sensors=4, bbox=BBOX)
+    rig_p = port_synthetic.default_test_rig(num_sensors=4, bbox=PBBOX)
     return dict(
         rig_j=rig_j, rig_p=rig_p,
         calib_j=jax_calib(rig_j, BBOX, cv_res=CV_RES, inv_res=INV_RES),
         calib_p=port_sensors.build_synthetic_calibration(
-            rig_p, BBOX, cv_res=CV_RES, inv_res=INV_RES),
+            rig_p, PBBOX, cv_res=CV_RES, inv_res=INV_RES, device="cpu"),
         frames_j=jax_frames(JaxScene(spheres=SPHERE), rig_j),
         frames_p=port_synthetic.render_rig_frames(
-            port_synthetic.SyntheticScene(spheres=SPHERE), rig_p),
+            port_synthetic.SyntheticScene(spheres=SPHERE), rig_p,
+            device="cpu"),
     )
 
 
@@ -72,7 +79,11 @@ def test_synthetic_frames_equal(both, field):
 
 
 def test_rig_equal(both):
-    assert both["rig_p"] == both["rig_j"]
+    """The port's rig (its own copy of core/camera.py) holds the JAX
+    package's values field for field."""
+    assert type(both["rig_p"]) is not type(both["rig_j"])
+    assert (dataclasses.asdict(both["rig_p"])
+            == dataclasses.asdict(both["rig_j"]))
 
 
 def test_pixel_models_match(both):
@@ -118,13 +129,14 @@ def test_projection_models_equal(both):
 def test_convert_carries_state(both):
     """JAX containers carried across as numpy equal the port's own."""
     calib = convert.calibration_from_numpy(
-        convert.field_arrays(both["calib_j"]))
-    frames = convert.frames_from_numpy(convert.field_arrays(both["frames_j"]))
+        jax_arrays(both["calib_j"]), device="cpu")
+    frames = convert.frames_from_numpy(jax_arrays(both["frames_j"]),
+                                       device="cpu")
     for src, dst in ((calib, both["calib_p"]), (frames, both["frames_p"])):
         for f in dataclasses.fields(dst):
             assert torch.equal(getattr(src, f.name), getattr(dst, f.name))
     with pytest.raises(KeyError):
-        convert.frames_from_numpy({"colors": np.zeros(1)})
+        convert.frames_from_numpy({"colors": np.zeros(1)}, device="cpu")
 
 
 def _coords(rng, shape, k):

@@ -1,8 +1,9 @@
 """Whole-slice parity of the PyTorch port against the JAX package, fuse +
 render on the verify scene (4 sensors at 64x56, 5 cm voxels,
 brick_size=0.2, a 96x80 camera), for the sentinel-table variants
-without the oct hit table (oct_hit_table=False, surface_skip=False) and
-the full-screen nearest render (ray_compaction=0). The configurations and
+without the oct hit table (oct_hit_table=False, surface_skip=False), the
+full-screen nearest render (ray_compaction=0) and the f32 sentinel and
+oct tables (march_dtype="float32"). The configurations and
 checks are in tests/test_torch_parity.py."""
 
 import pytest
@@ -24,7 +25,8 @@ def setup():
 
 
 @pytest.fixture(scope="module",
-                params=["no_oct", "no_surface_skip", "dense_nearest"])
+                params=["no_oct", "no_surface_skip", "dense_nearest",
+                        "sentinel_f32"])
 def run(request, setup):
     return run_slice(setup, request.param)
 

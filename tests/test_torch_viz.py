@@ -9,6 +9,8 @@ calibration fields exact; the inverter (the same numpy and scipy calls)
 exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,7 @@ from rgbd_recon_tpu_torch.calib.volume_io import (
     read_calibration_volume,
     write_calibration_volume,
 )
+from rgbd_recon_tpu_torch.core import BoundingBox as PortBox
 from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera as PortCamera
 from rgbd_recon_tpu_torch.viz import render as port_render
 from rgbd_recon_tpu_torch.viz import stereo as port_stereo
@@ -44,7 +47,10 @@ from test_app import YML
 
 torch.set_num_threads(2)
 
-BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+# each package builds its own box from the same arguments
+BOX = dict(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+BBOX = BoundingBox(**BOX)
+PBBOX = PortBox(**BOX)
 CAM = dict(width=32, height=24, eye=(0.3, 1.3, 2.6), target=(0.0, 1.1, 0.0))
 
 
@@ -208,7 +214,8 @@ def test_kinect_yml_matches(tmp_path):
             assert a == b, name
     assert got.compressed_rgb == 5 and got.serial == "012345678947"
     assert got.neg_max is not None
-    assert got.to_rgbd_sensor() == want.to_rgbd_sensor()
+    assert (dataclasses.asdict(got.to_rgbd_sensor())
+            == dataclasses.asdict(want.to_rgbd_sensor()))
 
 
 def test_volume_io_round_trip(tmp_path):
@@ -233,7 +240,7 @@ def test_invert_matches():
     rig = default_test_rig(num_sensors=1, bbox=BBOX)
     cv = np.asarray(bake_cv_xyz(rig.sensors[0], res=(16, 20, 16)))
     want = jax_invert(cv, BBOX, (8, 9, 8))
-    got = invert_calibration_knn(cv, BBOX, (8, 9, 8))
+    got = invert_calibration_knn(cv, PBBOX, (8, 9, 8))
     assert got.shape == (8, 9, 8, 4)
     assert (got[..., 3] > 0).any() and (got[..., 3] < 0).any()
     np.testing.assert_array_equal(got, want)
