@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``rgbd_recon_tpu_torch/csrc``
-(nvcc, sm_90a), holds each kernel against its plain PyTorch twin at the
-shapes the main path gives it (bit for bit where the kernel folds in the
-plain version's order), times each kernel beside its bound (bytes or
-operations of this run's inputs at the H100's peak rates) and, where one
-PyTorch call computes the same function, that call; then drives four paths
+(nvcc, sm_90a, one process per source), holds each kernel against its plain
+PyTorch twin at the shapes the main path gives it, bit for bit, times each
+kernel (CUDA events around the wrapper, and its own device time under
+``torch.profiler`` with the L2 flushed before each call and without)
+beside its bound (bytes or operations of this run's inputs at the H100's
+peak rates) and, where one PyTorch call computes the same function, that
+call; then drives four paths
 at reference scale through the entry points a user calls: 4 synthetic
 sensors at 512x424 depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm
 voxels (200x220x200), ``TsdfPipeline.fuse`` then ``make_renderer(camera)``
@@ -43,8 +45,9 @@ Then, at the same scale:
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with the
 per-kernel results (launches on the fast path, and per path; max |kernel -
-plain|; kernel, plain and library ms; the bound, what sets it and the
-share of it the kernel reaches), and as the last line
+plain|; kernel, plain and library ms; device ms with a cold and a warm L2
+and its split by device activity; the bound, what sets it and the share of
+it the kernel's cold device time reaches), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and the script exits non-zero; without CUDA it
 exits non-zero before printing any result.
@@ -84,11 +87,13 @@ SIDE_LAUNCHES = {
     "fast_f32": (("bilateral13", "quality13", "surface_occ",
                   "sentinel_bake"), ()),
 }
-# quality13 against the plain fold: |kernel - plain| <= 1e-5 * max|plain|
-# (the library is built without FMA contraction or fast math, and folds in
-# the plain version's order, so the expected difference is 0); every other
-# kernel is held bit for bit
-STENCIL_REL_BOUND = 1e-5
+# device time of a kernel (phase 3): torch.profiler over DEVICE_ITERS calls,
+# each after a write of FLUSH_BYTES that evicts the 50 MB L2 and a read of
+# FLUSH_BYTES more that evicts the written lines (cold: the call's inputs
+# come from HBM, and it pays no write-back of the flush's dirty lines), and
+# back to back (warm)
+DEVICE_ITERS = 20
+FLUSH_BYTES = 128 * 2 ** 20
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
 # and f32 operations/s outside the tensor cores, at the 700 W power limit
 PEAK_BYTES_S = 3.35e12
@@ -138,10 +143,11 @@ def _bound(tensors, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _stencil_ops(torch, d, non_border, per_tap, per_kept):
+def _stencil_ops(torch, d, non_border, per_tap, per_kept, centres=None):
     """Operations of a 13x13 fold over the (N, H, W) map ``d`` with edge
-    padding: ``per_tap`` on every tap, ``per_kept`` more on each tap for
-    which ``non_border(s)`` holds (the data decides how many)."""
+    padding: ``per_tap`` on every tap of the pixels where the bool map
+    ``centres`` holds (all pixels without it), ``per_kept`` more on each
+    tap for which ``non_border(s)`` holds (the data decides how many)."""
     from rgbd_recon_tpu_torch.ops.stencil13 import KS, _edge_pad
 
     H, W = d.shape[1:]
@@ -150,8 +156,71 @@ def _stencil_ops(torch, d, non_border, per_tap, per_kept):
     for dy in range(2 * KS + 1):
         for dx in range(2 * KS + 1):
             kept += non_border(pad[:, dy: dy + H, dx: dx + W]).sum()
-    taps = d.numel() * (2 * KS + 1) ** 2
-    return per_tap * taps + per_kept * int(kept)
+    pixels = d.numel() if centres is None else int(centres.sum())
+    return per_tap * pixels * (2 * KS + 1) ** 2 + per_kept * int(kept)
+
+
+def _short_name(name: str) -> str:
+    """A device activity's name without its return type, namespace and
+    argument list."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(", 1)[0].removeprefix("void ").strip()
+
+
+def _device_ms(torch, fn, flush):
+    """``fn``'s own device time per call under torch.profiler: (cold ms,
+    warm ms, {activity: cold ms}). Cold: ``flush`` (which evicts the L2)
+    before each of DEVICE_ITERS calls, its own activities left out;
+    warm: the calls back to back. Raises if the profiler records no device
+    activity: there is no fallback to CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbd_recon_tpu_torch.profile_slice import _device_us, _on_device
+
+    def trace(body):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if _on_device(e)]
+
+    fn()
+    own, flushing = trace(fn), trace(flush)
+    if not own or not flushing:
+        raise AssertionError(
+            "torch.profiler recorded no device activity, so the kernels' "
+            "device time cannot be measured (this script does not fall back "
+            "to CUDA events)")
+    names = {e.name for e in own}
+    if names & {e.name for e in flushing}:
+        raise AssertionError(f"the L2 flush runs a kernel of the timed call: "
+                             f"{names}")
+
+    def per_call(cold):
+        def body():
+            for _ in range(DEVICE_ITERS):
+                if cold:
+                    flush()
+                fn()
+        acts = [e for e in trace(body) if e.name in names]
+        if len(acts) != DEVICE_ITERS * len(own):
+            raise AssertionError(
+                f"the profiler recorded {len(acts)} device activities of "
+                f"{DEVICE_ITERS} calls making {len(own)} each")
+        split = {}
+        for e in acts:
+            key = _short_name(e.name)
+            split[key] = split.get(key, 0.0) + _device_us(e) / 1e3
+        split = {k: v / DEVICE_ITERS for k, v in split.items()}
+        total = sum(split.values())
+        if not total > 0.0:
+            raise AssertionError(f"the profiler reads no device time: {split}")
+        return total, split
+
+    cold, split = per_call(True)
+    warm, _ = per_call(False)
+    return cold, warm, split
 
 
 def _surface_rmse_mm(np, out, cam, center, radius):
@@ -442,6 +511,10 @@ def main() -> int:
     _build.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds} s)", flush=True)
+    for src in _build.SOURCES:
+        report = _build.BUILD_DIR / f"{src.stem}.ptxas.txt"
+        print(f"ptxas -v, {src.name}:\n{report.read_text().strip()}",
+              flush=True)
 
     # ---- 2. reference-scale setup ------------------------------------------
     t0 = time.perf_counter()
@@ -477,7 +550,9 @@ def main() -> int:
     # operations per tap (every tap: the range and its three border tests,
     # plus the border count in quality13; each non-border tap: the range
     # weight's division and subtraction and the sums) and per voxel (the
-    # positive test, K rounds of three separable 2-max passes, the encode)
+    # positive test, K rounds of three separable 2-max passes, the encode).
+    # A quality13 centre d <= 0 needs no tap (all 169 are border taps, its
+    # result is (169, 0)), so only the taps of the other centres count.
     near = limits[:, :1, None]
     far = limits[:, 1:, None]
     drm_b = d_m * stencil13._DRM_SCALE
@@ -488,7 +563,8 @@ def main() -> int:
             & ((s - d_m).abs() <= drm_b), per_tap=5, per_kept=7),
         "quality13": _stencil_ops(
             torch, d_norm, lambda s: (s > 0.0) & (s < 1.0)
-            & ((s - d_norm).abs() <= drm_q), per_tap=6, per_kept=3),
+            & ((s - d_norm).abs() <= drm_q), per_tap=6, per_kept=3,
+            centres=~(d_norm <= 0.0)),
         "surface_occ": 2 * vol.numel(),
         "sentinel_bake": (5 + 6 * K) * vol.numel(),
     }
@@ -520,37 +596,45 @@ def main() -> int:
          lambda: bake.sentinel_bake_plain(vol, bs_scaled, bv, K), None,
          [vol, bs_scaled]),
     ]
+    flush_write = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                              device=dev)
+    flush_read = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=dev)
+
+    def flush():
+        flush_write.fill_(1.0)
+        flush_read.sum()
+
     results = []
     for name, source, replaces, kern, plain, library, inputs in cases:
         got = kern()
         want = plain()
         torch.cuda.synchronize()
         err = _max_abs_err(torch, got, want)
-        if name == "quality13":
-            scale = max(float(w.abs().max()) for w in want)
-            bound = STENCIL_REL_BOUND * scale
-        else:
-            bound = 0.0       # bit-exact
-        print(f"{name}: max|kernel - plain| = {err!r} (bound {bound!r})",
-              flush=True)
-        if not err <= bound:
+        print(f"{name}: max|kernel - plain| = {err!r} (bound 0)", flush=True)
+        if err != 0.0:
             raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{err} > {bound}")
+                                 f"max abs error {err}")
         ms = event_ms(kern, iters=20, warmup=3)
         plain_ms = event_ms(plain, iters=5, warmup=1)
+        device_ms, device_ms_warm, split = _device_ms(torch, kern, flush)
         outs = list(got) if isinstance(got, tuple) else [got]
         bound_ms, bound_by = _bound(inputs + outs, ops[name])
-        library_ms = None
+        library_ms = library_device_ms = None
         if library is not None:
             if not torch.equal(library(), want):
                 raise AssertionError(f"{name}: the library call computes "
                                      "another function")
             library_ms = event_ms(library, iters=20, warmup=3)
+            library_device_ms = _device_ms(torch, library, flush)[0]
         row = dict(name=name, route="cuda", source=source,
                    replaces=replaces, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   share_of_bound=bound_ms / ms, library_ms=library_ms,
-                   ops=ops[name])
+                   plain_ms=plain_ms, device_ms=device_ms,
+                   device_ms_warm=device_ms_warm, device_split=split,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / device_ms,
+                   library_ms=library_ms,
+                   library_device_ms=library_device_ms, ops=ops[name])
         if name == "sentinel_bake":
             # the f32 table of march_dtype="float32", also bit for bit
             got32 = sentinel_bake_cuda(vol, bs_scaled, bv, K, torch.float32)
@@ -561,14 +645,26 @@ def main() -> int:
             if not (got32.dtype == torch.float32 and err32 == 0.0):
                 raise AssertionError(f"sentinel_bake f32: {got32.dtype}, "
                                      f"max|kernel - plain| = {err32}")
-            ms32 = event_ms(lambda: sentinel_bake_cuda(
-                vol, bs_scaled, bv, K, torch.float32), iters=20, warmup=3)
+            def kern32():
+                return sentinel_bake_cuda(vol, bs_scaled, bv, K,
+                                          torch.float32)
+
+            ms32 = event_ms(kern32, iters=20, warmup=3)
+            dev32, dev32_warm, split32 = _device_ms(torch, kern32, flush)
+            bound32 = _bound([vol, bs_scaled, got32], ops[name])[0]
             row.update(f32_max_abs_err=err32, f32_ms=ms32,
-                       f32_bound_ms=_bound([vol, bs_scaled, got32],
-                                           ops[name])[0])
-        print(f"{name}: {ms!r} ms (plain {plain_ms!r}, library "
-              f"{library_ms!r}), bound {bound_ms!r} ms by {bound_by}, "
-              f"{bound_ms / ms:.1%} of it, on {card}", flush=True)
+                       f32_device_ms=dev32, f32_device_ms_warm=dev32_warm,
+                       f32_device_split=split32, f32_bound_ms=bound32,
+                       f32_share_of_bound=bound32 / dev32)
+            print(f"{name} f32: {ms32!r} ms (events), device {dev32!r} ms "
+                  f"cold L2, {dev32_warm!r} warm {split32}, bound "
+                  f"{bound32!r} ms, {bound32 / dev32:.1%} of it, on {card}",
+                  flush=True)
+        print(f"{name}: {ms!r} ms (events; plain {plain_ms!r}, library "
+              f"{library_ms!r}), device {device_ms!r} ms cold L2, "
+              f"{device_ms_warm!r} warm {split} (library {library_device_ms!r}"
+              f" cold), bound {bound_ms!r} ms by {bound_by}, "
+              f"{bound_ms / device_ms:.1%} of it, on {card}", flush=True)
         results.append(row)
 
     # ---- 4. the main path, counted -----------------------------------------

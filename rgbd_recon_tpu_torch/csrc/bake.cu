@@ -4,12 +4,24 @@
 // Replaces the Pallas TPU kernels surface_occ_tpu and sentinel_bake_tpu of
 // rgbd_recon_tpu/ops/bake_pallas.py.
 //
-// surface_occ: one block per brick. A brick is set iff some voxel of its
-// box, grown by one voxel on each side and clipped to the volume, is > 0
-// (the brick any-pool of the 1-voxel box dilation of volume > 0, with zero
-// padding at the faces). Bound: one read of the volume (35 MB at 200x220x200)
-// plus the 1-voxel halo re-reads (a thread stops at its first positive
-// voxel), so the kernel is a DRAM stream.
+// surface_occ: a brick is set iff some voxel of its box, grown by one voxel
+// on each side and clipped to the volume, is > 0 (the brick any-pool of the
+// 1-voxel box dilation of volume > 0, with zero padding at the faces).
+// Bound: bytes, one read of the volume (35.2 MB at 200x220x200, 10.5 us at
+// 3.35 TB/s). Design, two launches that read the volume once:
+//  1. pack_positive (below, shared with sentinel_bake): volume > 0 as
+//     32-voxel bit words along z (1.2 MB of words at reference scale). A
+//     variant with four lanes a word, each with its 8 loads in flight at
+//     once (4x the threads, one round trip each), ran slower on the H100
+//     with a cold and with a warm L2 (PERF.md §6);
+//  2. brick_occ: one block per (by, bx) column of bricks. Its warps OR,
+//     word by word along z, the words of the columns of the bricks'
+//     footprint grown by one voxel (lanes over the columns, then a warp
+//     OR-reduction) into shared memory; then one thread per brick of the
+//     column tests the bits of its grown z range. Each word is read by the
+//     1-4 brick columns whose grown footprints hold it, from L2.
+// The first port's one-block-per-brick kernel walked each grown box with
+// three divisions a voxel and re-read the halos (1.73x the volume).
 //
 // sentinel_bake: for every voxel
 //   fine  = clamp(cheb - 1, 0, K)      (cheb: Chebyshev distance to the
@@ -53,29 +65,6 @@
 #include <stdint.h>
 
 namespace {
-
-__global__ void surface_occ_kernel(const float* __restrict__ vol,
-                                   unsigned char* __restrict__ out, int Z,
-                                   int Y, int X, int v, int By, int Bx) {
-  const int b = blockIdx.x;
-  const int bz = b / (By * Bx);
-  const int by = (b / Bx) % By;
-  const int bx = b % Bx;
-  const int z0 = max(bz * v - 1, 0), z1 = min(bz * v + v, Z - 1);
-  const int y0 = max(by * v - 1, 0), y1 = min(by * v + v, Y - 1);
-  const int x0 = max(bx * v - 1, 0), x1 = min(bx * v + v, X - 1);
-  const int nz = z1 - z0 + 1, ny = y1 - y0 + 1, nx = x1 - x0 + 1;
-  const int total = nz * ny * nx;
-  int found = 0;
-  for (int i = threadIdx.x; i < total && !found; i += blockDim.x) {
-    const int lz = i / (ny * nx);
-    const int ly = (i / nx) % ny;
-    const int lx = i % nx;
-    found = vol[((size_t)(z0 + lz) * Y + (y0 + ly)) * X + (x0 + lx)] > 0.0f;
-  }
-  found = __syncthreads_or(found);
-  if (threadIdx.x == 0) out[b] = found ? 1 : 0;
-}
 
 constexpr int BT = 32;       // bake block: BT x BT threads, one column each
 constexpr int ZREG = 7;      // words of a column in registers
@@ -122,6 +111,62 @@ __global__ void pack_positive_kernel(const float* __restrict__ vol,
     uint32_t w = 0;
     for (int i = 0; i < nz; ++i) w |= (p[i * plane] > 0.0f ? 1u : 0u) << i;
     bits[o] = w;
+  }
+}
+
+// pack_positive over the whole volume: ZW = ceil(Z / 32) words a column
+int launch_pack(const float* vol, uint32_t* bits, int Z, int Y, int X,
+                cudaStream_t s) {
+  const int ZW = (Z + 31) / 32;
+  if (X % 4 == 0) {
+    const dim3 grid((X / 4 + 31) / 32, (Y + PACK_TY - 1) / PACK_TY, ZW);
+    pack_positive_kernel<4><<<grid, dim3(32, PACK_TY), 0, s>>>(vol, bits, Z,
+                                                               Y, X);
+  } else {
+    const dim3 grid((X + 31) / 32, (Y + PACK_TY - 1) / PACK_TY, ZW);
+    pack_positive_kernel<1><<<grid, dim3(32, PACK_TY), 0, s>>>(vol, bits, Z,
+                                                               Y, X);
+  }
+  return (int)cudaGetLastError();
+}
+
+constexpr int OCC_WARPS = 8;  // brick_occ block: 8 warps
+
+// out[bz][by][bx] for the column of bricks (by, bx) = (blockIdx.y,
+// blockIdx.x): 1 iff a bit of bits is set in the brick's box grown by one
+// voxel and clipped to the volume. Dynamic shared memory: ZW words.
+__global__ void __launch_bounds__(32 * OCC_WARPS)
+brick_occ_kernel(const uint32_t* __restrict__ bits,
+                 unsigned char* __restrict__ out, int Z, int Y, int X,
+                 int ZW, int v, int Bz, int By, int Bx) {
+  extern __shared__ uint32_t grown[];  // [zw]: OR over the grown footprint
+  const int by = blockIdx.y, bx = blockIdx.x;
+  const int y0 = max(by * v - 1, 0), y1 = min(by * v + v, Y - 1);
+  const int x0 = max(bx * v - 1, 0), x1 = min(bx * v + v, X - 1);
+  const int nx = x1 - x0 + 1;
+  const int cols = (y1 - y0 + 1) * nx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int zw = warp; zw < ZW; zw += OCC_WARPS) {
+    const uint32_t* plane = bits + ((size_t)zw * Y + y0) * X + x0;
+    uint32_t acc = 0u;
+    for (int c = lane; c < cols; c += 32) {
+      const int cy = c / nx;
+      acc |= plane[(size_t)cy * X + (c - cy * nx)];
+    }
+    acc = __reduce_or_sync(0xffffffffu, acc);
+    if (lane == 0) grown[zw] = acc;
+  }
+  __syncthreads();
+  for (int bz = threadIdx.x; bz < Bz; bz += 32 * OCC_WARPS) {
+    const int z0 = max(bz * v - 1, 0), z1 = min(bz * v + v, Z - 1);
+    bool found = false;
+    for (int zw = z0 >> 5; zw <= z1 >> 5; ++zw) {
+      // bits z0 - 32 zw .. z1 - 32 zw of the word, clipped to 0 .. 31
+      const int lo = max(z0 - 32 * zw, 0), hi = min(z1 - 32 * zw, 31);
+      const uint32_t mask = (0xffffffffu >> (31 - hi)) & (0xffffffffu << lo);
+      found |= (grown[zw] & mask) != 0u;
+    }
+    out[((size_t)bz * By + by) * Bx + bx] = found ? 1 : 0;
   }
 }
 
@@ -323,16 +368,7 @@ int launch_rounds_encode(const float* vol, const float* bs_scaled, OutT* out,
                          int v, int By, int Bx, cudaStream_t s) {
   uint32_t* planes = bits + (size_t)ZW * Y * X;
   if (P > 0) {
-    if (X % 4 == 0) {
-      const dim3 pgrid((X / 4 + 31) / 32, (Y + PACK_TY - 1) / PACK_TY, ZW);
-      pack_positive_kernel<4><<<pgrid, dim3(32, PACK_TY), 0, s>>>(vol, bits,
-                                                                  Z, Y, X);
-    } else {
-      const dim3 pgrid((X + 31) / 32, (Y + PACK_TY - 1) / PACK_TY, ZW);
-      pack_positive_kernel<1><<<pgrid, dim3(32, PACK_TY), 0, s>>>(vol, bits,
-                                                                  Z, Y, X);
-    }
-    int err = (int)cudaGetLastError();
+    int err = launch_pack(vol, bits, Z, Y, X, s);
     if (err) return err;
     const int core = BT - 2 * K;
     const int chunks = ZW <= ZREG ? 1 : (ZW + ZREG - 3) / (ZREG - 2);
@@ -384,11 +420,19 @@ int launch_bake(const float* vol, const float* bs_scaled, OutT* out,
 
 extern "C" {
 
-// (Z, Y, X) f32 volume -> (Bz, By, Bx) bool surface-brick mask.
-int rgbd_surface_occ(const void* vol, void* out, int Z, int Y, int X,
-                     int brick_vox, int Bz, int By, int Bx, void* stream) {
-  surface_occ_kernel<<<Bz * By * Bx, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)vol, (unsigned char*)out, Z, Y, X, brick_vox, By, Bx);
+// (Z, Y, X) f32 volume -> (Bz, By, Bx) bool surface-brick mask. bits is
+// ceil(Z / 32) * Y * X uint32 of scratch; the volume's sides must be below
+// 2^16.
+int rgbd_surface_occ(const void* vol, void* bits, void* out, int Z, int Y,
+                     int X, int brick_vox, int Bz, int By, int Bx,
+                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_pack((const float*)vol, (uint32_t*)bits, Z, Y, X, s);
+  if (err) return err;
+  const int ZW = (Z + 31) / 32;
+  brick_occ_kernel<<<dim3(Bx, By), 32 * OCC_WARPS, ZW * sizeof(uint32_t),
+                     s>>>((const uint32_t*)bits, (unsigned char*)out, Z, Y,
+                          X, ZW, brick_vox, Bz, By, Bx);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,12 @@
 
 The sources under ``rgbd_recon_tpu_torch/csrc/`` have a plain C interface
 (pointers, ints and a stream; each entry point returns ``cudaGetLastError()``)
-and compile into one shared library under ``build/kernels/`` at the root of
-the checkout. The build runs at the first kernel launch of a process, never
-at import: the CPU tests import every module on machines without nvcc.
+and compile, one nvcc process per source, all started together, into objects
+linked as one shared library under ``build/kernels/`` at the root of the
+checkout. Each source's ``ptxas -v`` report (registers, shared memory, spills
+per kernel) is kept beside it as ``<source>.ptxas.txt``. The build runs at
+the first kernel launch of a process, never at import: the CPU tests import
+every module on machines without nvcc.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -24,9 +28,10 @@ LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
 # No fast math (IEEE division and square roots) and no FMA contraction:
 # the kernels then round every operation like the plain PyTorch versions.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,7 +39,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rgbd_bilateral13": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rgbd_quality13": (_P, _P, _P, _I, _I, _I, _P),
-    "rgbd_surface_occ": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rgbd_surface_occ": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rgbd_sentinel_bake": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P),
 }
@@ -67,20 +72,35 @@ def _stale() -> bool:
     return any(s.stat().st_mtime > built for s in SOURCES)
 
 
+def _run(cmd, what: str) -> subprocess.CompletedProcess:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stderr}")
+    return res
+
+
 def build() -> Path:
     """Compile the library if it is missing or older than its sources."""
     global build_seconds
     if not _stale():
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = find_nvcc()
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
-        )
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        jobs = [pool.submit(_run, [nvcc, *COMPILE_FLAGS, "-c", "-o", str(o),
+                                   str(s)], s.name)
+                for s, o in zip(SOURCES, objs)]
+    for s, job in zip(SOURCES, jobs):
+        (BUILD_DIR / f"{s.stem}.ptxas.txt").write_text(job.result().stderr)
+    tmp = LIBRARY.with_suffix(f".{tag}.tmp")
+    _run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+         "the link")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, LIBRARY)
     build_seconds = time.perf_counter() - t0
     return LIBRARY

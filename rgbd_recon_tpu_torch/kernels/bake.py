@@ -25,6 +25,17 @@ def _check_volume(volume: torch.Tensor, brick_vox: int) -> None:
         raise ValueError("volume must be contiguous")
     if brick_vox < 1:
         raise ValueError(f"brick_vox must be >= 1, got {brick_vox}")
+    if volume.numel() >= 2 ** 31 or max(volume.shape) >= 2 ** 16:
+        raise ValueError("volume must hold fewer than 2^31 voxels and "
+                         "sides below 2^16")
+
+
+def _positive_words(volume: torch.Tensor, planes: int = 0) -> torch.Tensor:
+    """Scratch for volume > 0 packed into 32-voxel words along z, plus
+    ``planes`` more arrays of the same size."""
+    Z, Y, X = volume.shape
+    return torch.empty(((1 + planes) * -(-Z // 32) * Y * X,),
+                       dtype=torch.int32, device=volume.device)
 
 
 def surface_occ_cuda(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
@@ -33,9 +44,11 @@ def surface_occ_cuda(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
     Z, Y, X = volume.shape
     Bz, By, Bx = _brick_grid(volume.shape, brick_vox)
     out = torch.empty((Bz, By, Bx), dtype=torch.bool, device=volume.device)
+    bits = _positive_words(volume)
     lib = library()
     err = lib.rgbd_surface_occ(
-        volume.data_ptr(), out.data_ptr(), Z, Y, X, brick_vox, Bz, By, Bx,
+        volume.data_ptr(), bits.data_ptr(), out.data_ptr(), Z, Y, X,
+        brick_vox, Bz, By, Bx,
         torch.cuda.current_stream(volume.device).cuda_stream,
     )
     check(err, "surface_occ")
@@ -69,14 +82,10 @@ def sentinel_bake_cuda(volume: torch.Tensor, bs_scaled: torch.Tensor,
         raise ValueError(f"out_dtype must be one of {_OUT_TYPES}, "
                          f"got {out_dtype}")
     Z, Y, X = volume.shape
-    if volume.numel() >= 2 ** 31 or max(Z, Y, X) >= 2 ** 16:
-        raise ValueError("volume must hold fewer than 2^31 voxels and "
-                         "sides below 2^16")
     out = torch.empty(volume.shape, dtype=out_dtype, device=volume.device)
-    # volume > 0 packed into 32-voxel words along z, then the bit planes
-    # of the missed-round counters (one per binary digit of rounds)
-    bits = torch.empty(((1 + rounds.bit_length()) * -(-Z // 32) * Y * X,),
-                       dtype=torch.int32, device=volume.device)
+    # the words, then the bit planes of the missed-round counters (one per
+    # binary digit of rounds)
+    bits = _positive_words(volume, rounds.bit_length())
     lib = library()
     err = lib.rgbd_sentinel_bake(
         volume.data_ptr(), bs_scaled.data_ptr(), out.data_ptr(),

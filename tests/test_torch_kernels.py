@@ -44,6 +44,29 @@ def _depth_maps(rng, n, h, w):
     return d.astype(np.float32)
 
 
+# tiny normalized depths of the quality census: below the kernel's 2^-40
+# guard (full division), across it (2^-40 x 0.8..1.2), inside it (2^-39),
+# the smallest normal and a subnormal
+_TINY = (2.0 ** -45, 2.0 ** -40, 2.0 ** -39, 2.0 ** -126, 2.0 ** -140)
+
+
+def _quality_maps(rng, n, h, w):
+    """Normalized depth for the quality census: _depth_maps normalized to
+    [0.5, 4.5] (the zeros become negative, 4.8 becomes > 1), exact 0s and
+    1s, and one 9 x 9 patch of each _TINY value t, t x (1 +- 20%): centres
+    whose neighbours are non-border taps."""
+    d = (_depth_maps(rng, n, h, w) - 0.5) / 4.0
+    d[rng.random(d.shape) < 0.02] = 0.0
+    d[rng.random(d.shape) < 0.02] = 1.0
+    ph, pw = min(9, h), min(9, w)
+    for i, t in enumerate(_TINY):
+        y = rng.integers(0, h - ph + 1)
+        x = rng.integers(0, w - pw + 1)
+        d[i % n, y: y + ph, x: x + pw] = t * (1.0 + rng.uniform(
+            -0.2, 0.2, (ph, pw)))
+    return d.astype(np.float32)
+
+
 def _volume(rng, shape, limit=0.01):
     """TSDF-like volume: a sphere band at +-limit plus sparse noise."""
     Z, Y, X = shape
@@ -111,6 +134,27 @@ def test_cpu_pipeline_launches_no_kernel():
     assert out.color.shape == (24, 32, 3)
     assert bool(torch.isfinite(out.color).all())
     assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quality13_plain_nonpositive_centres(seed):
+    """Every centre d <= 0 (-0.0 too) gives (169, +0.0) exactly in the plain
+    fold: drm = 0.35 d <= 0 <= range, and range = drm = 0 needs s = d <= 0,
+    a border tap. The CUDA kernel writes that result without a tap for a
+    thread whose centres are all <= 0."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(-0.5, 1.5, (2, 30, 34)).astype(np.float32)
+    d[rng.random(d.shape) < 0.2] = 0.0
+    d[rng.random(d.shape) < 0.1] = -0.0
+    d[0, 5:12, 5:12] = -(2.0 ** -140)
+    d[1, 5:12, 5:12] = 2.0 ** -140
+    d = torch.from_numpy(d)
+    border, wr = stencil13.quality13_plain(d)
+    low = d <= 0.0
+    assert int(low.sum()) > 400
+    assert bool((border[low] == 169.0).all())
+    assert bool((wr[low].view(torch.int32) == 0).all())
+    assert bool((border[~low] < 169.0).any())
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -183,9 +227,8 @@ def test_port_imports_without_jax():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 40, 48), (4, 424, 512)])
 def test_stencil13_kernels_match_plain(cuda, shape):
-    """Kernels 1-2 against the plain fold. Built without FMA contraction or
-    fast math and folded in the same order, they agree to 1e-5 x max|out|
-    (bit-exact expected)."""
+    """Kernels 1-2 against the plain fold on one map, bit for bit: built
+    without FMA contraction or fast math and folded in the same order."""
     rng = np.random.default_rng(1)
     d = torch.from_numpy(_depth_maps(rng, *shape)).to(cuda)
     lim = torch.tensor([[0.5, 4.5]] * shape[0], device=cuda)
@@ -199,8 +242,32 @@ def test_stencil13_kernels_match_plain(cuda, shape):
     assert kernels.LAUNCHES["bilateral13"] == before["bilateral13"] + 1
     assert kernels.LAUNCHES["quality13"] == before["quality13"] + 1
     for g, w in zip(got + got_q, want + want_q):
-        bound = 1e-5 * float(w.abs().max())
-        assert float((g - w).abs().max()) <= bound
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "zero"])
+@pytest.mark.parametrize("shape", [(2, 40, 48), (3, 37, 101), (4, 424, 512)])
+def test_quality13_kernel_bit_exact(cuda, shape, kind):
+    """The redesigned quality census against the plain fold, bit for bit,
+    on maps whose sides are not tile multiples: zeros, values >= 1,
+    negative values and patches of tiny centres on both sides of the
+    kernel's 2^-40 guard, a subnormal among them (_quality_maps); and an
+    all-zero map (every thread takes the d <= 0 shortcut)."""
+    rng = np.random.default_rng(7)
+    if kind == "zero":
+        d = torch.zeros(shape, device=cuda)
+    else:
+        d = torch.from_numpy(_quality_maps(rng, *shape)).to(cuda)
+        assert bool((d < 0).any() and (d >= 1).any() and (d == 0).any())
+        assert bool(((d > 0) & (d < 2.0 ** -126)).any())
+    before = kernels.LAUNCHES["quality13"]
+    got = stencil13.quality13(d)
+    want = stencil13.quality13_plain(d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quality13"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -221,6 +288,58 @@ def test_bake_kernels_bit_exact(cuda, shape, brick_vox):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["volume", "negative"])
+@pytest.mark.parametrize("shape,brick_vox", [((40, 36, 44), 4),
+                                             ((70, 48, 40), 8),
+                                             ((200, 220, 200), 10),
+                                             ((45, 50, 33), 16),
+                                             ((37, 29, 53), 7),
+                                             ((100, 50, 60), 40)])
+def test_surface_occ_kernel_bit_exact(cuda, shape, brick_vox, fill):
+    """The redesigned surface-brick mask against the plain version, bit for
+    bit: Z not a multiple of 32, X not a multiple of 4 (the scalar pack),
+    brick_vox in {4, 8, 10, 16}, 7 not dividing the sides, 40 (a grown z
+    range over three words); a TSDF-like volume, and an all-negative one."""
+    rng = np.random.default_rng(8)
+    if fill == "volume":
+        vol = torch.from_numpy(_volume(rng, shape)).to(cuda)
+    else:
+        vol = torch.full(shape, -0.01, device=cuda)
+    before = kernels.LAUNCHES["surface_occ"]
+    got = bake.surface_occ(vol, brick_vox)
+    want = bake.surface_occ_plain(vol, brick_vox)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["surface_occ"] == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert bool(want.any()) == (fill == "volume")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brick_vox", [4, 7, 10])
+def test_surface_occ_kernel_single_voxels(cuda, brick_vox):
+    """One positive voxel at a time, bit for bit against the plain version:
+    on each face, edge and corner of brick (1, 1, 1)'s box grown by one
+    voxel, just inside it (offsets -1 and v) and just outside (-2 and
+    v + 1), and in its middle; then on each face, edge and corner of the
+    volume, and next to them."""
+    v = brick_vox
+    shape = (3 * v + 5, 3 * v + 3, 3 * v + 2)
+    offsets = (-2, -1, v // 2, v, v + 1)
+    spots = [(v + oz, v + oy, v + ox)
+             for oz in offsets for oy in offsets for ox in offsets]
+    faces = [(0, 1, s // 2, s - 2, s - 1) for s in shape]
+    spots += [(z, y, x) for z in faces[0] for y in faces[1] for x in faces[2]]
+    vol = torch.full(shape, -0.01, device=cuda)
+    for z, y, x in spots:
+        vol[z, y, x] = 0.005
+        got = bake.surface_occ(vol, v)
+        want = bake.surface_occ_plain(vol, v)
+        assert int(want.sum()) >= 1
+        assert torch.equal(got, want), (z, y, x)
+        vol[z, y, x] = -0.01
 
 
 @pytest.mark.cuda

@@ -75,6 +75,51 @@ def test_stencil13_plain_matches_pallas(scene):
                                    atol=1e-5)
 
 
+def _tiny_patch_map(tiny):
+    """(2, 40, 48) normalized depth in [-0.2, 1.2) with a 6 x 8 patch of
+    tiny * (1 +- 20%) in each map: centres whose neighbours are non-border
+    taps."""
+    rng = np.random.default_rng(0)
+    d = rng.uniform(-0.2, 1.2, (2, 40, 48))
+    d[:, 10:16, 12:20] = tiny * (1.0 + rng.uniform(-0.2, 0.2, (2, 6, 8)))
+    return d.astype(np.float32)
+
+
+@pytest.mark.parametrize("tiny", [2.0 ** -45, 2.0 ** -70, 2.0 ** -100,
+                                  2.0 ** -120])
+def test_quality13_plain_matches_pallas_tiny(tiny):
+    """Normalized depths below 2^-40, where the CUDA kernel leaves its
+    hoisted reciprocal for the full division: the plain fold (which the
+    kernel matches bit for bit on the card) against quality13_tpu in
+    interpret mode, bit for bit."""
+    d = _tiny_patch_map(tiny)
+    want = stencil_pallas.quality13_tpu(jnp.asarray(d), interpret=True)
+    got = stencil13.quality13_plain(_t(d))
+    assert float(got[1][:, 10:16, 12:20].min()) > 0.0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      np.asarray(w).view(np.int32))
+
+
+@pytest.mark.parametrize("tiny", [2.0 ** -126, 2.0 ** -140])
+def test_quality13_plain_matches_pallas_subnormal(tiny):
+    """Subnormal normalized depths (or a subnormal 0.35 d). XLA's CPU
+    backend flushes subnormal operands to zero, as a TPU does; PyTorch and
+    the CUDA kernel keep them (IEEE). So the two agree bit for bit on every
+    pixel whose centre is not in (0, 2^-100) (a tiny neighbour is a border
+    tap of any other centre), and differ at the tiny centres themselves
+    (ROADMAP, port divergences)."""
+    d = _tiny_patch_map(tiny)
+    want = stencil_pallas.quality13_tpu(jnp.asarray(d), interpret=True)
+    got = stencil13.quality13_plain(_t(d))
+    tiny_centre = (d > 0.0) & (d < 2.0 ** -100)
+    assert tiny_centre.sum() == 96
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(
+            g.numpy().view(np.int32)[~tiny_centre],
+            np.asarray(w).view(np.int32)[~tiny_centre])
+
+
 @pytest.fixture(scope="module",
                 params=["pixel_models", "volumes", "passes_off"])
 def maps_pair(request, scene):
