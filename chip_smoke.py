@@ -41,7 +41,25 @@ Then, at the same scale:
   ``record`` 2 frames, then ``run`` in each mode 0-4 and once in mode 1
   with anaglyph stereo and checkpoints, from calibration volumes written
   under ``build/``; it checks the PNGs, ``timings.csv``, the checkpoint's
-  frame index and each run's kernel launch counts.
+  frame index and each run's kernel launch counts; one more mode-1 run
+  refines the sensor poses after every frame (``--refine-every 1``) and
+  must print its corrections;
+- phase 9 drives the fast config's variants (the camera-influence view,
+  the two normal-weighted blends, the profiling switches, per-block
+  brackets, the chunked march alone and with per-block brackets, 16
+  dilation rounds in 10-voxel bricks, 20 in 20-voxel bricks): launch
+  counts, the color variants' hit mask and depth bit-equal to the fast
+  path's, the others held to the sphere, fuse + render times;
+- phase 10 reconfigures one pipeline under one renderer handle: limit
+  0.02 and back, 2 cm voxels (100x110x100) and back, the flip-backs
+  bit-equal to the first render;
+- phase 11 reproduces scripts/validate_pose_ba.py: sensor 1 of a 4-sensor
+  512x424 rig drifted by 1 degree about y plus (18, 0, 8) mm, four
+  refine -> apply -> re-fuse rounds of 24 LM iterations, the mean lookup
+  error of each sensor's cv_xyz against the true rig's before and after
+  (sensor 1 at most half its start, the others moved by at most 0.5 mm),
+  each round's gates, ms per round and per LM iteration, and the device's
+  busy share over one round.
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with the
 per-kernel results (launches on the fast path, and per path; max |kernel -
@@ -55,7 +73,9 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import sys
 import time
@@ -122,7 +142,56 @@ APP_RUNS = {
     "app_mode1_anaglyph": (["--mode", "1", "--stereo", "anaglyph"],
                            dict(bilateral13=1, quality13=1, surface_occ=2,
                                 sentinel_bake=2)),
+    "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
+                         dict(bilateral13=1, quality13=1, surface_occ=1,
+                              sentinel_bake=1)),
 }
+# the line the app prints after each refinement
+REFINE_LINE = "refined sensor poses; translation corrections (mm):"
+# phase 9: the fast config's variants; the color variants must leave the
+# hit mask and the depth of the fast path's render bit-equal. 16 rounds
+# past 10-voxel bricks take the plain bake (the JAX package's rule: its
+# Pallas bake only when brick_vox >= skip_fine_rounds); 20 rounds in
+# 20-voxel bricks take the kernel, in two dilation launches
+VARIANTS = {
+    "shade_mode_3": dict(shade_mode=3),
+    "best_two": dict(blend_mode="best_two"),
+    "normal_deviation": dict(blend_mode="normal_deviation"),
+    "debug_skip": dict(debug_skip="blend,grad,refine"),
+    "bracket_per_block": dict(bracket_per_block=True),
+    "march_chunk": dict(march_chunk=8),
+    "march_chunk_per_block": dict(march_chunk=8, bracket_per_block=True),
+    "skip_fine_rounds_16": dict(skip_fine_rounds=16),
+    "bricks_20_rounds_20": dict(brick_size=0.2, skip_fine_rounds=20),
+}
+COLOR_VARIANTS = ("shade_mode_3", "best_two", "normal_deviation")
+# phase 11 (scripts/validate_pose_ba.py): the drift of sensor 1, and what
+# the refinement must reach: sensor 1's mean lookup error at most half its
+# start, each other sensor's lookup moved by at most 0.5 mm. The JAX
+# package recorded 18.4 -> 5.8 mm for sensor 1 and 0.0 for the others
+# (pose_ba_validation.md).
+POSE_DRIFT_DEG = 1.0
+POSE_DRIFT_T = (0.018, 0.0, 0.008)
+POSE_RECOVERY = 0.5
+POSE_OTHERS_MM = 0.5
+POSE_ITERS = 24
+POSE_ROUNDS = 4
+
+
+class _Tee:
+    """A text stream that writes to several."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
 
 
 def _max_abs_err(torch, got, want) -> float:
@@ -456,7 +525,9 @@ def _phase8_app(torch, pipe, frames, card, by_path):
             argv += ["--checkpoint-dir", str(ck), "--checkpoint-every", "1"]
         t0 = time.perf_counter()
         kernels.reset_launch_counts()
-        app.main(argv)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(_Tee(sys.stderr, err)):
+            app.main(argv)
         torch.cuda.synchronize()
         launched = kernels.launch_counts()
         print(f"{name}: launches {launched}, "
@@ -476,12 +547,285 @@ def _phase8_app(torch, pipe, frames, card, by_path):
             raise AssertionError(f"{name}: timings.csv stages {means}")
         print(f"{name}: stage means in ms (host clock, device synchronized; "
               f"{APP_FRAMES} frames) {means} on {card}", flush=True)
+        if "--refine-every" in extra:
+            lines = [ln for ln in err.getvalue().splitlines()
+                     if ln.startswith(REFINE_LINE)]
+            if len(lines) != APP_FRAMES:
+                raise AssertionError(f"{name}: {len(lines)} refinement "
+                                     f"lines, expected {APP_FRAMES}")
         if stereo:
             latest = CheckpointManager(ck).latest()
             if latest is None or latest.frame_index != APP_FRAMES:
                 raise AssertionError(f"{name}: checkpoint {latest}")
             print(f"{name}: checkpoint at frame {latest.frame_index}, "
                   f"volume {latest.volume.shape}", flush=True)
+
+
+def _timed(fn, samples=3, iters=10):
+    """CUDA-event ms per call of ``fn``: ``samples`` means of ``iters``."""
+    from rgbd_recon_tpu_torch.profile_slice import event_ms
+
+    return [event_ms(fn, iters=iters, warmup=2 if i == 0 else 0)
+            for i in range(samples)]
+
+
+def _frame_fn(pipe, renderer, frames):
+    def full():
+        v, m, c = pipe.fuse(frames)
+        return renderer(v, m, c)
+    return full
+
+
+def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
+    """Fuse + render of the fast config with each of VARIANTS: launch
+    counts (reset just before the counted frame), the color variants' hit
+    mask and window depth bit-equal to the fast path's render ``fast``,
+    the others held to the sphere like the fast path; fuse + render ms.
+    Adds each variant's launches to ``by_path``."""
+    from rgbd_recon_tpu_torch import kernels
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    fast_hit, fast_depth = fast
+    for name, overrides in VARIANTS.items():
+        t0 = time.perf_counter()
+        vpipe = TsdfPipeline(pipe.calib,
+                             dataclasses.replace(pipe.config, **overrides),
+                             pipe.bbox)
+        vrender = vpipe.make_renderer(camera)
+        _frame_fn(vpipe, vrender, frames)()       # warm-up: fits the models
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        volume, maps, counts = vpipe.fuse(frames)
+        out = vrender(volume, maps, counts)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        print(f"{name}: setup + 2 frames {time.perf_counter() - t0:.1f} s; "
+              f"launches {launched}", flush=True)
+        want = dict.fromkeys(launched, 1)
+        if vpipe.config.skip_fine_rounds > vpipe.brick_vox:
+            want["sentinel_bake"] = 0        # the plain bake, as in JAX
+        if launched != want:
+            raise AssertionError(f"{name}: launched {launched}, expected "
+                                 f"{want}")
+        by_path[name] = launched
+        for field in ("color", "depth"):
+            if not bool(torch.isfinite(getattr(out, field)).all()):
+                raise AssertionError(f"{name}: non-finite {field}")
+        if name in COLOR_VARIANTS:
+            same = (torch.equal(out.hit, fast_hit)
+                    and torch.equal(out.depth, fast_depth))
+            print(f"{name}: hit mask and depth bit-equal to the fast path's: "
+                  f"{same} ({int(out.hit.sum())} hits), overflow "
+                  f"{out.overflow.tolist()}", flush=True)
+            if not same:
+                raise AssertionError(f"{name}: hits or depth differ from the "
+                                     "fast path's")
+        else:
+            _check_render(np, torch, name, volume, out, counts, vpipe.config,
+                          camera, HITS_REF)
+        del volume, maps, counts, out
+        frame_ms = _timed(_frame_fn(vpipe, vrender, frames), samples=2,
+                          iters=3)
+        print(f"{name}: fuse+render ms {frame_ms} on {card}", flush=True)
+        del vpipe, vrender
+        torch.cuda.empty_cache()
+
+
+def _phase10_reconfig(np, torch, pipe, frames, camera, card):
+    """One pipeline and one renderer handle through set_tsdf_limit(0.02)
+    and back, set_voxel_size(0.02) (a 100x110x100 volume) and back: every
+    render finite, the flip-backs' hit masks (and after the voxel size,
+    depth) bit-equal to the first render."""
+    from rgbd_recon_tpu_torch import profile_slice
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    rpipe = TsdfPipeline(pipe.calib, dataclasses.replace(pipe.config),
+                         pipe.bbox)
+    handle = rpipe.make_renderer(camera)
+
+    def frame(label):
+        volume, maps, counts = rpipe.fuse(frames)
+        out = handle(volume, maps, counts)
+        torch.cuda.synchronize()
+        for field in ("color", "depth"):
+            if not bool(torch.isfinite(getattr(out, field)).all()):
+                raise AssertionError(f"{label}: non-finite {field}")
+        rmse, n_hit = _surface_rmse_mm(np, out, camera, profile_slice.SPHERE_C,
+                                       profile_slice.SPHERE_R)
+        print(f"{label}: volume {tuple(volume.shape)}, {n_hit} hits, surface "
+              f"RMSE {rmse!r} mm, overflow {out.overflow.tolist()}",
+              flush=True)
+        if n_hit <= 0:
+            raise AssertionError(f"{label}: no hit")
+        return volume, out
+
+    def timed_call(label, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        print(f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms (host "
+              f"clock) on {card}", flush=True)
+
+    _, first = frame("reconfig first")
+    timed_call("set_tsdf_limit(0.02)", lambda: rpipe.set_tsdf_limit(0.02))
+    frame("reconfig limit 0.02")
+    rpipe.set_tsdf_limit(0.01)
+    _, back = frame("reconfig limit back to 0.01")
+    if not torch.equal(back.hit, first.hit):
+        raise AssertionError("limit flip-back: hit mask differs")
+    timed_call("set_voxel_size(0.02)", lambda: rpipe.set_voxel_size(0.02))
+    coarse, _ = frame("reconfig 2 cm voxels")
+    if tuple(coarse.shape) != (100, 110, 100):
+        raise AssertionError(f"2 cm voxels: volume {tuple(coarse.shape)}")
+    timed_call("set_voxel_size(0.01)", lambda: rpipe.set_voxel_size(0.01))
+    _, back = frame("reconfig voxels back to 1 cm")
+    if not (torch.equal(back.hit, first.hit)
+            and torch.equal(back.depth, first.depth)):
+        raise AssertionError("voxel-size flip-back: hit mask or depth differ")
+    print("reconfig: flip-backs bit-equal to the first render", flush=True)
+    del rpipe, handle
+    torch.cuda.empty_cache()
+
+
+def _phase11_pose(np, torch, card):
+    """scripts/validate_pose_ba.py on the card: the drifted rig's
+    calibration baked in numpy, the true rig's forward volumes for the
+    error, four refine -> apply -> re-fuse rounds. Checks the recovery,
+    prints each round's gates, ms per round and per LM iteration, and the
+    device's busy share over one more (estimate-only) round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbd_recon_tpu_torch.calib.sensors import (
+        build_synthetic_calibration,
+    )
+    from rgbd_recon_tpu_torch.core import BoundingBox, PipelineConfig
+    from rgbd_recon_tpu_torch.core.camera import RGBDSensor, SensorRig
+    from rgbd_recon_tpu_torch.profile_slice import _device_us, _on_device
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+    from rgbd_recon_tpu_torch.refine import pose_ba
+    from rgbd_recon_tpu_torch.sensors.synthetic import (
+        SyntheticScene,
+        default_test_rig,
+        render_rig_frames,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+    rig = default_test_rig(num_sensors=4, depth_size=(512, 424),
+                           color_size=(640, 540), bbox=bbox)
+    th = np.radians(POSE_DRIFT_DEG)
+    E_rot = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                      [-np.sin(th), 0, np.cos(th)]], np.float32)
+    E_t = np.array(POSE_DRIFT_T, np.float32)
+    s1 = rig.sensors[1]
+    bad_depth = dataclasses.replace(
+        s1.depth,
+        r_cw=tuple(map(tuple, (E_rot @ np.asarray(s1.depth.R)).tolist())),
+        t_cw=tuple((E_rot @ np.asarray(s1.depth.t_cw) + E_t).tolist()))
+    bad_rig = SensorRig(sensors=(
+        rig.sensors[0],
+        RGBDSensor(depth=bad_depth, color=s1.color, serial=s1.serial),
+        rig.sensors[2], rig.sensors[3]))
+    scene = SyntheticScene(spheres=[((0.0, 1.25, 0.0), 0.45),
+                                    ((0.45, 0.55, 0.25), 0.28),
+                                    ((-0.5, 0.75, -0.2), 0.22)])
+    frames = render_rig_frames(scene, rig, device=dev)
+    calib = build_synthetic_calibration(bad_rig, bbox, cv_res=(64, 128, 64),
+                                        inv_res=(200, 220, 200), device=dev)
+    truth = build_synthetic_calibration(rig, bbox, cv_res=(64, 128, 64),
+                                        inv_res=(8, 8, 8), device=dev)
+    pipe = TsdfPipeline(calib, PipelineConfig(
+        voxel_size=0.01, brick_size=0.1, tsdf_limit=0.01), bbox)
+    volume, maps, counts = pipe.fuse(frames)
+    torch.cuda.synchronize()
+    print(f"pose: drifted rig baked (numpy), frames, first fuse "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def lookup_error_mm(c):
+        """Mean |cv_xyz - cv_xyz_true| per sensor over mid-frustum
+        depths (validate_pose_ba.py's calib_error_mm)."""
+        d = c.cv_xyz[:, 16:112] - truth.cv_xyz[:, 16:112]
+        return (torch.linalg.norm(d, dim=-1).mean(dim=(1, 2, 3))
+                * 1000.0).cpu().numpy()
+
+    cv_before = pipe.calib.cv_xyz.clone()
+    err0 = lookup_error_mm(pipe.calib)
+    t0 = time.perf_counter()
+    pipe.refine_sensor_poses(maps, counts, iters=POSE_ITERS,
+                             rounds=POSE_ROUNDS, frames=frames,
+                             band_schedule=(1.0,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err1 = lookup_error_mm(pipe.calib)
+    moved = (torch.linalg.norm(pipe.calib.cv_xyz - cv_before, dim=-1)
+             .mean(dim=(1, 2, 3)) * 1000.0).cpu().numpy()
+    for r in pipe.refine_report:
+        print(f"pose round {r['round']}: worst sensor {r['worst']}, "
+              f"residuals {r['residuals']}, margin {r['margin']}, improve "
+              f"{r['improve']} ({r['residual_after']!r} after), applied "
+              f"{r['applied']}", flush=True)
+    print(f"pose: mean lookup error per sensor (mm) before {err0.tolist()}, "
+          f"after {err1.tolist()}; cv_xyz moved (mm) {moved.tolist()}",
+          flush=True)
+    print(f"pose: {POSE_ROUNDS} rounds x {POSE_ITERS} LM iterations in "
+          f"{wall:.2f} s: {wall / POSE_ROUNDS * 1e3:.1f} ms a round (host "
+          f"clock, synchronized) on {card}", flush=True)
+    if not err1[1] <= POSE_RECOVERY * err0[1]:
+        raise AssertionError(f"pose: sensor 1 lookup error {err1[1]} mm, "
+                             f"more than {POSE_RECOVERY} of {err0[1]}")
+    others = [i for i in range(4) if i != 1]
+    if not (moved[others] <= POSE_OTHERS_MM).all():
+        raise AssertionError(f"pose: undrifted sensors moved {moved} mm")
+
+    # the parts of one round, on the refined rig: leave-one-out volumes,
+    # then the LM iterations alone
+    volume, maps, counts = pipe.fuse(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vols, obs = pose_ba.leave_one_out_volumes(pipe, maps, counts,
+                                              limit=0.01,
+                                              return_observers=True)
+    torch.cuda.synchronize()
+    loo_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pose_ba.refine_poses(pipe.calib, maps, None, 0.01, iters=POSE_ITERS,
+                         volumes=vols, mask_floor=-0.01 * 0.999,
+                         observers=obs, min_observers=2.0)
+    torch.cuda.synchronize()
+    lm_ms = (time.perf_counter() - t0) * 1e3 / POSE_ITERS
+    print(f"pose: leave-one-out volumes with observers {loo_ms:.1f} ms, "
+          f"{lm_ms:.2f} ms per LM iteration (4 sensors; host clock, "
+          f"synchronized) on {card}", flush=True)
+    del vols, obs
+
+    # device busy share over one estimate-only round: its device time under
+    # the profiler against the wall time of the same round unprofiled
+    def estimate_round():
+        pipe.refine_sensor_poses(maps, counts, iters=POSE_ITERS, apply=False,
+                                 band_schedule=(1.0,))
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    estimate_round()
+    round_wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        estimate_round()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
+    acts = [e for e in prof.events() if _on_device(e)]
+    device_ms = sum(_device_us(e) for e in acts) / 1e3
+    if not device_ms > 0.0:
+        raise AssertionError("pose: the profiler recorded no device time")
+    print(f"pose: one estimate-only round {round_wall:.1f} ms wall "
+          f"({profiled_wall:.1f} under the profiler), device "
+          f"{device_ms:.1f} ms over {len(acts)} activities, busy share "
+          f"{device_ms / round_wall!r} of the unprofiled wall on {card}",
+          flush=True)
+    del pipe, volume, maps, counts, frames, calib, truth
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -529,6 +873,7 @@ def main() -> int:
           flush=True)
 
     # ---- 3. each kernel against its plain twin, main-path shapes -----------
+    t_phase = time.perf_counter()
     d_m = maps.raw_depth.contiguous()
     limits = calib.depth_limits.contiguous()
     d_norm = maps.depth[..., 0].contiguous()
@@ -660,6 +1005,30 @@ def main() -> int:
                   f"cold L2, {dev32_warm!r} warm {split32}, bound "
                   f"{bound32!r} ms, {bound32 / dev32:.1%} of it, on {card}",
                   flush=True)
+            # 20 rounds in 20-voxel bricks (phase 9's bricks_20_rounds_20):
+            # two dilation launches of 10 rounds, also bit for bit
+            occ20 = bake.surface_occ_plain(vol, 20)
+            bs20 = (bake.fine_safe_field(occ20, cfg.skip_brick_rounds)
+                    * 20.0).contiguous()
+
+            def kern20():
+                return sentinel_bake_cuda(vol, bs20, 20, 20)
+
+            def plain20():
+                return bake.sentinel_bake_plain(vol, bs20, 20, 20)
+
+            err20 = _max_abs_err(torch, kern20(), plain20())
+            if err20 != 0.0:
+                raise AssertionError(f"sentinel_bake K = 20: max|kernel - "
+                                     f"plain| = {err20}")
+            ms20 = event_ms(kern20, iters=20, warmup=3)
+            plain_ms20 = event_ms(plain20, iters=3, warmup=1)
+            dev20 = _device_ms(torch, kern20, flush)[0]
+            row.update(k20_max_abs_err=err20, k20_ms=ms20,
+                       k20_plain_ms=plain_ms20, k20_device_ms=dev20)
+            print(f"{name} K = 20, 20-voxel bricks: max|kernel - plain| = "
+                  f"{err20!r}, {ms20!r} ms (events; plain {plain_ms20!r}), "
+                  f"device {dev20!r} ms cold L2, on {card}", flush=True)
         print(f"{name}: {ms!r} ms (events; plain {plain_ms!r}, library "
               f"{library_ms!r}), device {device_ms!r} ms cold L2, "
               f"{device_ms_warm!r} warm {split} (library {library_device_ms!r}"
@@ -667,7 +1036,10 @@ def main() -> int:
               f"{bound_ms / device_ms:.1%} of it, on {card}", flush=True)
         results.append(row)
 
+    print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 4. the main path, counted -----------------------------------------
+    t_phase = time.perf_counter()
     kernels.reset_launch_counts()
     volume, maps, counts = pipe.fuse(frames)
     out = renderer(volume, maps, counts)
@@ -681,30 +1053,26 @@ def main() -> int:
     _, fast_hits = _check_render(np, torch, "fast", volume, out, counts, cfg,
                                  camera, HITS_REF)
 
+    # the colour variants of phase 9 must leave these bit-equal
+    fast = (out.hit.clone(), out.depth.clone())
+
     # ---- 5. timings (informative) ------------------------------------------
-    def timed(fn, samples=3, iters=10):
-        return [event_ms(fn, iters=iters, warmup=2 if i == 0 else 0)
-                for i in range(samples)]
-
-    def frame_fn(p, r):
-        def full():
-            v, m, c = p.fuse(frames)
-            return r(v, m, c)
-        return full
-
-    fuse_ms = timed(lambda: pipe.fuse(frames))
-    frame_ms = timed(frame_fn(pipe, renderer))
+    fuse_ms = _timed(lambda: pipe.fuse(frames))
+    frame_ms = _timed(_frame_fn(pipe, renderer, frames))
     print(f"fast: fuse ms {fuse_ms}, fuse+render ms {frame_ms} on {card}",
           flush=True)
     del volume, maps, counts, out
 
+    print(f"phases 4-5: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 6. the side paths, counted and checked ----------------------------
+    t_phase = time.perf_counter()
     for name, overrides in SIDE_PATHS.items():
         t0 = time.perf_counter()
         ppipe = TsdfPipeline(calib, dataclasses.replace(cfg, **overrides),
                              pipe.bbox)
         prender = ppipe.make_renderer(camera)
-        frame_fn(ppipe, prender)()           # warm-up: fits the models
+        _frame_fn(ppipe, prender, frames)()  # warm-up: fits the models
         torch.cuda.synchronize()
         print(f"{name}: setup + first fuse+render "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -734,18 +1102,42 @@ def main() -> int:
             if table.dtype != torch.float32:
                 raise AssertionError(f"{name}: march table {table.dtype}")
             del render_fn, table
-        fuse_ms = timed(lambda: ppipe.fuse(frames), samples=2, iters=3)
-        frame_ms = timed(frame_fn(ppipe, prender), samples=2, iters=3)
+        fuse_ms = _timed(lambda: ppipe.fuse(frames), samples=2, iters=3)
+        frame_ms = _timed(_frame_fn(ppipe, prender, frames), samples=2,
+                          iters=3)
         print(f"{name}: fuse ms {fuse_ms}, fuse+render ms {frame_ms} on "
               f"{card}", flush=True)
         del ppipe, prender, volume, maps, counts, out
         torch.cuda.empty_cache()
 
+    print(f"phase 6: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 7. the other reconstruction modes on the fast path's state -------
+    t_phase = time.perf_counter()
     _phase7_modes(np, torch, pipe, frames, camera, card, fast_hits, by_path)
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 8. the application shell, every mode -----------------------------
+    t_phase = time.perf_counter()
     _phase8_app(torch, pipe, frames, card, by_path)
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- 9. the fast config's variants ------------------------------------
+    t_phase = time.perf_counter()
+    _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- 10. runtime reconfiguration under one renderer handle -----------
+    t_phase = time.perf_counter()
+    _phase10_reconfig(np, torch, pipe, frames, camera, card)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del pipe, frames, renderer
+    torch.cuda.empty_cache()
+
+    # ---- 11. sensor-pose refinement at reference scale --------------------
+    t_phase = time.perf_counter()
+    _phase11_pose(np, torch, card)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     for r in results:

@@ -31,8 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# the queue items of ROADMAP.md that the app's unported options wait on
-_REFINE_ITEM = "ROADMAP.md §1.3, pose refinement"
+# the queue item of ROADMAP.md that the app's unported option waits on
 _PREVIEW_ITEM = "ROADMAP.md §1.4, viz/preview"
 
 
@@ -248,10 +247,6 @@ def cmd_run(args):
     from .viz import save_image
     from .viz.stereo import StereoCamera, make_stereo_renderer
 
-    if args.refine_every:
-        raise NotImplementedError(
-            f"--refine-every: sensor-pose refinement is not ported yet "
-            f"({_REFINE_ITEM})")
     if args.preview_port:
         raise NotImplementedError(
             f"--preview-port: the live preview is not ported yet "
@@ -394,6 +389,14 @@ def cmd_run(args):
                     timestamp=ts,
                     config_json=config_to_json(config),
                 ))
+            if (args.refine_every and config.recon_mode == 1
+                    and n_done % args.refine_every == args.refine_every - 1):
+                # sensor-pose drift correction against the leave-one-out
+                # consensus, folded into the calibration for later frames
+                poses, _ = pipe.refine_sensor_poses(maps, counts)
+                norms = torch.linalg.norm(poses[:, 3:], dim=1).cpu().numpy()
+                print(f"refined sensor poses; translation corrections (mm): "
+                      f"{np.round(norms * 1000, 2)}", file=sys.stderr)
             if n_done % 10 == 1 and config.recon_mode == 1:
                 _warn_overflow(pipe.diagnostics(counts, render_out))
             print(f"frame {n_done} t={ts:.2f}", file=sys.stderr)
@@ -518,8 +521,8 @@ def main(argv=None):
     pr.add_argument("--stream-depth-u8", action="store_true",
                     help="wire depth is uint8 sqrt-compressed")
     pr.add_argument("--refine-every", type=int, default=0,
-                    help="sensor-pose refinement every N frames (not "
-                         f"ported: any N > 0 raises; {_REFINE_ITEM})")
+                    help="sensor-pose refinement every N frames in mode 1 "
+                         "(0: never)")
     pr.add_argument("--frames", type=int, default=10)
     pr.add_argument("--mode", type=int, default=None,
                     help="recon mode override (0 points, 1 tsdf, 2 trigrid, "

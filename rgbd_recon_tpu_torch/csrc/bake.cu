@@ -47,7 +47,16 @@
 //     exchange through shared memory with the rows beside it (y); a
 //     bit-sliced counter in registers adds the voxels each round missed.
 //     The core columns write the counters' P bit planes (P = bits of K;
-//     3.7 MB at K = 6).
+//     3.7 MB at K = 6). One launch takes at most PASS_ROUNDS = 15 rounds
+//     (a core of 2 columns); K > 15 runs ceil(K / 15) launches of about
+//     K / passes rounds each: every launch but the last also writes the
+//     dilated words of its core columns, which the next one dilates
+//     further, and adds its counts to the planes (a bit-sliced ripple
+//     add). Rounds compose: a voxel at distance d misses clamp(d - 1, 0,
+//     Ka) of the first Ka rounds and clamp(d - 1 - Ka, 0, Kb) of the next
+//     Kb, clamp(d - 1, 0, Ka + Kb) in all. Dilated words past the volume
+//     (bits past Z, columns outside) only ever hold voxels within the
+//     rounds' reach of a positive one, so they change no count.
 //  3. encode: one thread per 4 voxels along x (1 where X is not a multiple
 //     of 4) at 8 successive z, neighbouring threads on neighbouring x: its
 //     plane words read once, then per z one float4 read of the volume and
@@ -68,9 +77,13 @@ namespace {
 
 constexpr int BT = 32;       // bake block: BT x BT threads, one column each
 constexpr int ZREG = 7;      // words of a column in registers
-// K halo columns each side leave a core of BT - 2K; kernels/bake.py
-// MAX_ROUNDS holds the same limit
-constexpr int MAX_ROUNDS = 15;
+// the rounds of one dilate_count launch: K halo columns each side leave a
+// core of BT - 2K
+constexpr int PASS_ROUNDS = 15;
+// the most rounds in all (8 bit planes); kernels/bake.py MAX_ROUNDS holds
+// the same limit
+constexpr int MAX_PLANES = 8;
+constexpr int MAX_ROUNDS = (1 << MAX_PLANES) - 1;
 constexpr int PACK_TY = 8;   // pack block: 32 x 8 threads
 
 // bits[zw][y][x]: bit i is volume[32 zw + i, y, x] > 0; bits past Z are 0.
@@ -170,14 +183,18 @@ brick_occ_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
-// P: bit planes of the per-voxel counters (enough for K, P >= 1).
-// planes[p][zw][y][x]: bit i counts, in binary digit p, the rounds that
-// missed voxel (32 zw + i, y, x).
+// K <= PASS_ROUNDS rounds of src. P: bit planes of this launch's
+// per-voxel counters (enough for K, P >= 1). planes[p][zw][y][x], p <
+// ptot: bit i counts, in binary digit p, the rounds that missed voxel
+// (32 zw + i, y, x); this launch's counts are written there (accumulate
+// = 0) or added to what is there (accumulate = 1). dst, unless null,
+// gets the words of src dilated by the K rounds.
 template <int P>
 __global__ void __launch_bounds__(BT * BT, 1)
-dilate_count_kernel(const uint32_t* __restrict__ bits,
+dilate_count_kernel(const uint32_t* __restrict__ src,
+                    uint32_t* __restrict__ dst,
                     uint32_t* __restrict__ planes, int Y, int X, int ZW,
-                    int K) {
+                    int K, int ptot, int accumulate) {
   __shared__ uint32_t ex[BT][ZREG][BT];  // the y exchange: [row][word][lane]
   const int lane = threadIdx.x, row = threadIdx.y;
   const int core = BT - 2 * K;
@@ -194,7 +211,7 @@ dilate_count_kernel(const uint32_t* __restrict__ bits,
 #pragma unroll
   for (int k = 0; k < ZREG; ++k) {
     const int wz = base + k;
-    c[k] = (inside && wz >= 0 && wz < ZW) ? bits[(wz * Y + y) * X + x] : 0u;
+    c[k] = (inside && wz >= 0 && wz < ZW) ? src[(wz * Y + y) * X + x] : 0u;
   }
   uint32_t cnt[P][ZREG];
 #pragma unroll
@@ -239,7 +256,7 @@ dilate_count_kernel(const uint32_t* __restrict__ bits,
     }
   }
 
-  // the core columns write their counters
+  // the core columns write their counters (and dilated words)
   if (!inside || lane < K || lane >= K + core || row < K ||
       row >= K + core)
     return;
@@ -248,8 +265,18 @@ dilate_count_kernel(const uint32_t* __restrict__ bits,
   for (int k = 0; k < ZREG; ++k) {
     if (k < k_lo || k >= k_hi) continue;
     const size_t i = ((size_t)(base + k) * Y + y) * X + x;
+    if (dst != nullptr) dst[i] = c[k];
+    // planes += cnt, bit-sliced with a ripple carry (planes = cnt on the
+    // first launch)
+    uint32_t carry = 0u;
 #pragma unroll
-    for (int p = 0; p < P; ++p) planes[p * plane_words + i] = cnt[p][k];
+    for (int p = 0; p < MAX_PLANES; ++p) {
+      if (p >= ptot) break;
+      const uint32_t b = p < P ? cnt[p < P ? p : 0][k] : 0u;
+      const uint32_t a = accumulate ? planes[p * plane_words + i] : 0u;
+      planes[p * plane_words + i] = a ^ b ^ carry;
+      carry = (a & b) | (carry & (a ^ b));
+    }
   }
 }
 
@@ -362,22 +389,60 @@ int bits_for(int k) {
   return p;
 }
 
-template <typename OutT, int P>
-int launch_rounds_encode(const float* vol, const float* bs_scaled, OutT* out,
-                         uint32_t* bits, int Z, int Y, int X, int ZW, int K,
-                         int v, int By, int Bx, cudaStream_t s) {
-  uint32_t* planes = bits + (size_t)ZW * Y * X;
-  if (P > 0) {
-    int err = launch_pack(vol, bits, Z, Y, X, s);
+// one dilate_count launch of K <= PASS_ROUNDS rounds
+template <int P>
+int launch_dilate(const uint32_t* src, uint32_t* dst, uint32_t* planes,
+                  int Y, int X, int ZW, int K, int ptot, int accumulate,
+                  cudaStream_t s) {
+  const int core = BT - 2 * K;
+  const int chunks = ZW <= ZREG ? 1 : (ZW + ZREG - 3) / (ZREG - 2);
+  const dim3 grid((X + core - 1) / core, (Y + core - 1) / core, chunks);
+  dilate_count_kernel<P><<<grid, dim3(BT, BT), 0, s>>>(
+      src, dst, planes, Y, X, ZW, K, ptot, accumulate);
+  return (int)cudaGetLastError();
+}
+
+// pack, then the K >= 1 rounds into the ptot bit planes after the words in
+// bits: ceil(K / PASS_ROUNDS) launches, their rounds as equal as they can
+// be; the dilated words go back and forth between bits and the spare
+// words after the planes
+int launch_rounds(const float* vol, uint32_t* bits, int Z, int Y, int X,
+                  int ZW, int K, int ptot, cudaStream_t s) {
+  int err = launch_pack(vol, bits, Z, Y, X, s);
+  if (err) return err;
+  const size_t words = (size_t)ZW * Y * X;
+  uint32_t* planes = bits + words;
+  uint32_t* src = bits;
+  uint32_t* spare = planes + (size_t)ptot * words;
+  const int passes = (K + PASS_ROUNDS - 1) / PASS_ROUNDS;
+  for (int j = 0; j < passes; ++j) {
+    const int k = K / passes + (j < K % passes ? 1 : 0);
+    uint32_t* dst = j + 1 < passes ? spare : nullptr;
+    const int acc = j > 0 ? 1 : 0;
+    switch (bits_for(k)) {
+      case 1:
+        err = launch_dilate<1>(src, dst, planes, Y, X, ZW, k, ptot, acc, s);
+        break;
+      case 2:
+        err = launch_dilate<2>(src, dst, planes, Y, X, ZW, k, ptot, acc, s);
+        break;
+      case 3:
+        err = launch_dilate<3>(src, dst, planes, Y, X, ZW, k, ptot, acc, s);
+        break;
+      default:
+        err = launch_dilate<4>(src, dst, planes, Y, X, ZW, k, ptot, acc, s);
+    }
     if (err) return err;
-    const int core = BT - 2 * K;
-    const int chunks = ZW <= ZREG ? 1 : (ZW + ZREG - 3) / (ZREG - 2);
-    const dim3 grid((X + core - 1) / core, (Y + core - 1) / core, chunks);
-    dilate_count_kernel<(P > 0 ? P : 1)><<<grid, dim3(BT, BT), 0, s>>>(
-        bits, planes, Y, X, ZW, K);
-    err = (int)cudaGetLastError();
-    if (err) return err;
+    spare = src;
+    src = dst;
   }
+  return 0;
+}
+
+template <typename OutT, int P>
+int launch_encode(const float* vol, const float* bs_scaled, OutT* out,
+                  const uint32_t* planes, int Z, int Y, int X, int ZW, int v,
+                  int By, int Bx, cudaStream_t s) {
   const unsigned long long inv_v = ((1ull << 32) + v - 1) / v;
   const int zblocks = (Z + ENC_Z - 1) / ENC_Z;
   if (X % 4 == 0) {
@@ -397,23 +462,27 @@ int launch_bake(const float* vol, const float* bs_scaled, OutT* out,
                 uint32_t* bits, int Z, int Y, int X, int v, int K, int By,
                 int Bx, cudaStream_t s) {
   const int ZW = (Z + 31) / 32;
-  switch (bits_for(K)) {
-    case 0:
-      return launch_rounds_encode<OutT, 0>(vol, bs_scaled, out, bits, Z, Y,
-                                           X, ZW, K, v, By, Bx, s);
-    case 1:
-      return launch_rounds_encode<OutT, 1>(vol, bs_scaled, out, bits, Z, Y,
-                                           X, ZW, K, v, By, Bx, s);
-    case 2:
-      return launch_rounds_encode<OutT, 2>(vol, bs_scaled, out, bits, Z, Y,
-                                           X, ZW, K, v, By, Bx, s);
-    case 3:
-      return launch_rounds_encode<OutT, 3>(vol, bs_scaled, out, bits, Z, Y,
-                                           X, ZW, K, v, By, Bx, s);
-    default:
-      return launch_rounds_encode<OutT, 4>(vol, bs_scaled, out, bits, Z, Y,
-                                           X, ZW, K, v, By, Bx, s);
+  const int ptot = bits_for(K);
+  if (K > 0) {
+    const int err = launch_rounds(vol, bits, Z, Y, X, ZW, K, ptot, s);
+    if (err) return err;
   }
+  const uint32_t* planes = bits + (size_t)ZW * Y * X;
+#define RGBD_ENCODE(P)                                                      \
+  return launch_encode<OutT, P>(vol, bs_scaled, out, planes, Z, Y, X, ZW, v, \
+                                By, Bx, s)
+  switch (ptot) {
+    case 0: RGBD_ENCODE(0);
+    case 1: RGBD_ENCODE(1);
+    case 2: RGBD_ENCODE(2);
+    case 3: RGBD_ENCODE(3);
+    case 4: RGBD_ENCODE(4);
+    case 5: RGBD_ENCODE(5);
+    case 6: RGBD_ENCODE(6);
+    case 7: RGBD_ENCODE(7);
+    default: RGBD_ENCODE(8);
+  }
+#undef RGBD_ENCODE
 }
 
 }  // namespace
@@ -438,9 +507,10 @@ int rgbd_surface_occ(const void* vol, void* bits, void* out, int Z, int Y,
 
 // (Z, Y, X) f32 volume + (Bz, By, Bx) f32 brick clearance * brick_vox ->
 // (Z, Y, X) march table, bf16 (out_f32 = 0) or f32 (out_f32 = 1). bits is
-// (1 + P) * ceil(Z / 32) * Y * X uint32 of scratch, P the number of binary
-// digits of rounds. rounds must be in [0, MAX_ROUNDS]; the volume's sides
-// must be below 2^16.
+// (1 + P + S) * ceil(Z / 32) * Y * X uint32 of scratch, P the number of
+// binary digits of rounds, S = 1 when rounds > PASS_ROUNDS (the dilated
+// words between launches), else 0. rounds must be in [0, MAX_ROUNDS]; the
+// volume's sides must be below 2^16.
 int rgbd_sentinel_bake(const void* vol, const void* bs_scaled, void* out,
                        void* bits, int Z, int Y, int X, int brick_vox,
                        int rounds, int By, int Bx, int out_f32,

@@ -56,9 +56,11 @@ def surface_occ_cuda(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
     return out
 
 
-# the most dilation rounds csrc/bake.cu takes (a 32 x 32 tile keeps a core
-# of 32 - 2K columns)
-MAX_ROUNDS = 15
+# the dilation rounds of one csrc/bake.cu dilate_count launch (a 32 x 32
+# tile keeps a core of 32 - 2K columns), and the most in all (8 bit planes
+# of counters): more rounds than one launch takes run in several
+_PASS_ROUNDS = 15
+MAX_ROUNDS = 255
 _OUT_TYPES = (torch.bfloat16, torch.float32)
 
 
@@ -84,8 +86,9 @@ def sentinel_bake_cuda(volume: torch.Tensor, bs_scaled: torch.Tensor,
     Z, Y, X = volume.shape
     out = torch.empty(volume.shape, dtype=out_dtype, device=volume.device)
     # the words, then the bit planes of the missed-round counters (one per
-    # binary digit of rounds)
-    bits = _positive_words(volume, rounds.bit_length())
+    # binary digit of rounds), then the dilated words between launches
+    bits = _positive_words(volume,
+                           rounds.bit_length() + int(rounds > _PASS_ROUNDS))
     lib = library()
     err = lib.rgbd_sentinel_bake(
         volume.data_ptr(), bs_scaled.data_ptr(), out.data_ptr(),

@@ -64,6 +64,18 @@ def sentinel_bake_plain(volume: torch.Tensor, bs_scaled: torch.Tensor,
     return torch.where(field > 0.0, -(2.0 + field), volume).to(out_dtype)
 
 
+def uses_kernel_bake(brick_vox: int, rounds: int) -> bool:
+    """Whether a render's march table comes from ``sentinel_bake`` (the
+    kernel, on the card) or from ``sentinel_bake_plain``: a choice by
+    configuration, as the JAX package makes it. Its Pallas bake runs only
+    when brick_vox >= skip_fine_rounds (rgbd_recon_tpu/recon/
+    tsdf_pipeline.py:1114-1118), its jnp bake otherwise (:1151-1166). The
+    JAX rule's other terms are the Pallas kernel's layout limits (a
+    brick-aligned half-pair table, its fused surface mask); the CUDA kernel
+    takes any layout."""
+    return rounds <= brick_vox
+
+
 def surface_occ(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
     """(Bz, By, Bx) bool surface-brick mask; CUDA kernel on a CUDA tensor,
     plain version on a CPU tensor."""

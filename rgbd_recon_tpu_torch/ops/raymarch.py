@@ -1,10 +1,11 @@
 """TSDF raymarching pieces of the render (counterpart of
 rgbd_recon_tpu/ops/raymarch.py): the view camera, the march (nearest or
-trilinear taps, with or without skip sentinels), the oct cell-corner hit
-table with its secant refine and gradient, the table-based secant refine
-and central-difference gradient, the color blends (calibration volumes,
-their nearest-lookup variant, analytic projection models) and Blinn-Phong
-shading.
+trilinear taps, with or without skip sentinels) and its chunked nearest
+form, the oct cell-corner hit table with its secant refine and gradient,
+the table-based secant refine and central-difference gradient, the color
+blends (calibration volumes, their nearest-lookup variant, analytic
+projection models, the normal-weighted blends, the camera-influence view)
+and Blinn-Phong shading.
 
 Marching happens in volume-normalized coordinates [0, 1]^3 with step
 tsdf_limit / 2 (glsl/tsdf_raymarch.fs:34). A march table is a (Z, Y, X)
@@ -399,6 +400,82 @@ def march(table: torch.Tensor, limit: float, max_steps: int,
     return hit, num, (t, prev_t, prev, lo_t, hi_t, hit_t)
 
 
+def march_chunked(table: torch.Tensor, limit: float, max_steps: int,
+                  start_end, dirs, chunk: int, sentinel_skip: bool = True,
+                  sentinel_scale: float = 1.0, resume=None):
+    """The chunked nearest march (raymarch.march_chunked of the JAX
+    package): each iteration samples ``chunk`` points per ray one step
+    (tsdf_limit / 2) apart from its position in one gather, takes the first
+    positive sample in range, and records the secant zero of its bracket
+    with the sample before it (the previous chunk's last sample when it is
+    the chunk's first). A ray that finds none moves on one step past the
+    chunk's last sample, or with ``sentinel_skip`` to the furthest point a
+    skip sentinel in the chunk certifies (sample position + its clearance).
+    Arguments as :func:`march`; runs at most ceil(max_steps / chunk)
+    iterations and returns the same (hit, num, state) as :func:`march`, so
+    the pipeline's stages can mix the two."""
+    sd = float(np.float32(limit) * np.float32(0.5))
+    C = int(chunk)
+    (p0x, p0y, p0z), ray_len = start_end
+    dnx, dny, dnz = dirs
+    shape, dev = dnx.shape, dnx.device
+    ks = torch.arange(C, dtype=torch.float32, device=dev)
+    if resume is not None:
+        t, prev_t, prev = (x.clone() for x in resume)
+    else:
+        t = torch.zeros(shape, dtype=torch.float32, device=dev)
+        prev_t = torch.zeros_like(t)
+        prev = torch.full(shape, -limit, dtype=torch.float32, device=dev)
+    hit = torch.zeros(shape, dtype=torch.bool, device=dev)
+    hit_t = torch.zeros_like(t)
+    lo_t = torch.zeros_like(t)
+    hi_t = torch.zeros_like(t)
+    num = torch.zeros(shape, dtype=torch.int32, device=dev)
+    marchable = ray_len > 0.0
+    last_off = float(np.float32(C - 1) * np.float32(sd))
+
+    for k in range(-(-int(max_steps) // C)):
+        active = (~hit) & (t <= ray_len) & marchable
+        if k % _EXIT_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        tk = t[..., None] + ks * sd                              # (..., C)
+        raw = sample_nearest_p(table, p0x[..., None] + dnx[..., None] * tk,
+                               p0y[..., None] + dny[..., None] * tk,
+                               p0z[..., None] + dnz[..., None] * tk)
+        density = torch.clamp_min(raw, -limit)
+        in_len = tk <= ray_len[..., None]
+        pos = (density > 0.0) & in_len
+        found = active & pos.any(dim=-1)
+        kstar = pos.to(torch.uint8).argmax(dim=-1)               # first True
+        d_hi = torch.gather(density, -1, kstar[..., None])[..., 0]
+        d_lo_in = torch.gather(density, -1,
+                               torch.clamp_min(kstar - 1, 0)[..., None])[..., 0]
+        t_hi = t + kstar.to(torch.float32) * sd
+        first = kstar == 0
+        d_lo = torch.where(first, prev, d_lo_in)
+        t_lo = torch.where(first, prev_t, t_hi - sd)
+        tstar = t_hi - (t_hi - t_lo) * (d_hi / _secant_den(d_hi - d_lo))
+        hit_t = torch.where(found, tstar, hit_t)
+        lo_t = torch.where(found, t_lo, lo_t)
+        hi_t = torch.where(found, t_hi, hi_t)
+        n_in = in_len.sum(dim=-1, dtype=torch.int32)
+        num = num + torch.where(active, torch.where(
+            found, kstar.to(torch.int32) + 1, n_in), 0).to(torch.int32)
+        t_last = t + last_off
+        t_next = t_last + sd
+        if sentinel_skip:
+            clr = (-raw - 2.0) * sentinel_scale
+            certified = torch.where(in_len & (raw < -1.5), tk + clr,
+                                    float("-inf")).amax(dim=-1)
+            t_next = torch.maximum(t_next, certified)
+        cont = active & ~found
+        prev_t = torch.where(cont, t_last, prev_t)
+        prev = torch.where(cont, density[..., C - 1], prev)
+        t = torch.where(cont, t_next, t)
+        hit = hit | found
+    return hit, num, (t, prev_t, prev, lo_t, hi_t, hit_t)
+
+
 def _blend_accumulate(col, depth, qual, z, in_frustum, limit, acc):
     """One sensor's term of the blendColors fold (tsdf_raymarch.fs:
     303-338): quality / (dist + 0.01) weights inside the truncation band,
@@ -521,6 +598,92 @@ def blend_colors_analytic(world_pos: torch.Tensor, proj_models, colors,
            for j in range(3)]
     alpha = torch.where(use_primary, 1.0, -1.0)
     return torch.stack(rgb + [alpha], dim=-1)
+
+
+def blend_colors_normal(sample_pos: torch.Tensor, world_pos: torch.Tensor,
+                        surf_normal: torch.Tensor, proj_models, cv_xyz_inv,
+                        cv_uv, colors, depths, normal_maps, limit: float,
+                        variant: str = "deviation") -> torch.Tensor:
+    """The reference's alternative blends (blendColors2, tsdf_raymarch.fs:
+    266-301). Per sensor: its (u, v, depth) and color texcoord from the
+    projection models (nearest calibration-volume lookups without them),
+    then color, depth and the sensor's normal with the x-pair tap rule of
+    sampling.pair_bilinear. The weight is dev / dist with dev =
+    min(dot(-surf_normal, sensor normal), 0) (getNormalDev, :195-204) for
+    ``variant="deviation"``; ``"best_two"`` gives weight 1 / dist to the two
+    sensors of most negative dev (getNormalTwo, :221-244), ties broken by
+    sensor order. As in the JAX package, the denominator holds these
+    weights alone (the shader's also carries its first loop's quality
+    weights, an accumulator left over, :266-301), and alpha is 1 where the
+    weights sum to more than 1e-12 in magnitude, else -1 (the shader's -1
+    everywhere would make the pull-push fill erase every hit).
+    Returns (..., 4) rgba."""
+    N = colors.shape[0]
+    devs, dists, cols = [], [], []
+    px, py, pz = world_pos[..., 0], world_pos[..., 1], world_pos[..., 2]
+    for i in range(N):
+        if proj_models is not None:
+            u, v, d = proj_models.uvd_p(i, px, py, pz)
+            cu, cv_ = proj_models.color_uv_p(i, px, py, pz)
+        else:
+            uvd = nearest_3d(cv_xyz_inv[i], sample_pos)
+            u, v, d = uvd[..., 0], uvd[..., 1], uvd[..., 2]
+            cuv = nearest_3d(cv_uv[i], uvd[..., :3])
+            cu, cv_ = cuv[..., 0], cuv[..., 1]
+        col = pair_bilinear(colors[i], cu, cv_)
+        depth = pair_bilinear(depths[i][..., None], u, v)[..., 0]
+        n_i = pair_bilinear(normal_maps[i], u, v)
+        dists.append(torch.abs(depth - d))
+        devs.append(torch.clamp_max((-surf_normal * n_i).sum(dim=-1), 0.0))
+        cols.append(col)
+    dev = torch.stack(devs)                      # (N, ...)
+    dist = torch.clamp_min(torch.stack(dists), 1e-6)
+    col = torch.stack(cols)
+    if variant == "best_two":
+        # stable, as jnp.argsort: equal deviations keep sensor order
+        order = torch.sort(dev, dim=0, stable=True).indices
+        sensors = torch.arange(N, device=dev.device).view(
+            (N,) + (1,) * (dev.dim() - 1))
+        sel = ((sensors == order[0]).to(torch.float32)
+               + (sensors == order[1]).to(torch.float32))
+        w = sel / dist
+    else:
+        w = dev / dist
+    total_w = w.sum(dim=0)
+    rgb = (col * w[..., None]).sum(dim=0) / torch.where(
+        torch.abs(total_w) < 1e-20, 1e-20, total_w)[..., None]
+    alpha = torch.where(torch.abs(total_w) > 1e-12, 1.0, -1.0)
+    return torch.cat([rgb, alpha[..., None]], dim=-1)
+
+
+# the per-camera palette of the camera-influence view (shading.glsl:24-30)
+_CAMERA_PALETTE = np.array([[228, 26, 28], [55, 126, 184], [77, 175, 74],
+                            [152, 78, 163], [255, 127, 0]],
+                           np.float32) / 255.0
+
+
+def blend_cameras(sample_pos: torch.Tensor, cv_xyz_inv, depths, qualities,
+                  limit: float) -> torch.Tensor:
+    """Camera-influence debug view (blendCameras + getWeights,
+    tsdf_raymarch.fs:159-174, 354-369): each sensor's palette color,
+    weighted by its quality where the hit lies within ``limit`` of its
+    depth (trilinear cv_xyz_inv lookup, bilinear depth and quality);
+    white where no sensor weighs in. Returns (..., 3) rgb."""
+    palette = torch.from_numpy(_CAMERA_PALETTE).to(sample_pos.device)
+    total_c = torch.zeros(sample_pos.shape[:-1] + (3,), dtype=torch.float32,
+                          device=sample_pos.device)
+    total_w = torch.zeros(sample_pos.shape[:-1], dtype=torch.float32,
+                          device=sample_pos.device)
+    dq = torch.stack([depths, qualities], dim=-1)
+    for i in range(depths.shape[0]):
+        pos_calib = trilinear_3d(cv_xyz_inv[i], sample_pos)[..., :3]
+        dqv = bilinear_2d(dq[i], pos_calib[..., :2])
+        dist = torch.abs(dqv[..., 0] - pos_calib[..., 2])
+        qual = torch.where(dist < limit, dqv[..., 1], 0.0)
+        total_c = total_c + palette[i % 5] * qual[..., None]
+        total_w = total_w + qual
+    out = total_c / torch.clamp_min(total_w, 1e-20)[..., None]
+    return torch.where(total_w[..., None] > 0.0, out, 1.0)
 
 
 _LIGHT_POSITION = (1.5, 1.0, 1.0)       # view space (shading.glsl:5)

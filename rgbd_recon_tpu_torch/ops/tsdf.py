@@ -65,11 +65,13 @@ def integrate(vol_shape: Tuple[int, int, int], cv_xyz_inv: torch.Tensor,
               silhouettes: torch.Tensor, limit: float,
               voxel_mask: Optional[torch.Tensor] = None,
               projections=None, carve_sil_threshold: float = 1.0,
-              phantom_hull: bool = False) -> torch.Tensor:
+              phantom_hull: bool = False, return_observers: bool = False):
     """Dense integration of every voxel with bilinear map taps; returns the
     (Z, Y, X) volume, -limit outside ``voxel_mask`` when one is given.
     ``projections`` are :func:`bake_projections`' output; without them the
-    lookups are made here."""
+    lookups are made here. ``return_observers`` also returns the (Z, Y, X)
+    f32 count of sensors that saw each voxel in frustum, within the band
+    (|sdist| < limit) and with positive quality: (volume, observers)."""
     if projections is None:
         projections = bake_projections(cv_xyz_inv, vol_shape)
     pos_calib, in_frustum = projections
@@ -78,6 +80,7 @@ def integrate(vol_shape: Tuple[int, int, int], cv_xyz_inv: torch.Tensor,
     tsd = torch.full(tuple(vol_shape), limit, dtype=torch.float32,
                      device=dev)
     total_w = torch.zeros_like(tsd)
+    observers = torch.zeros_like(tsd) if return_observers else None
     maps = torch.stack([silhouettes, depths, qualities], dim=-1)
     for i in range(N):
         vals = bilinear_2d(maps[i], pos_calib[i, ..., :2])
@@ -85,10 +88,17 @@ def integrate(vol_shape: Tuple[int, int, int], cv_xyz_inv: torch.Tensor,
             tsd, total_w, pos_calib[i, ..., 2], vals[..., 1], vals[..., 2],
             vals[..., 0], in_frustum[i], limit, carve_sil_threshold,
         )
+        if return_observers:
+            sdist = pos_calib[i, ..., 2] - vals[..., 1]
+            observers += (in_frustum[i] & (sdist > -limit) & (sdist < limit)
+                          & (vals[..., 2] > 0.0)).to(torch.float32)
+        del vals
     if not phantom_hull:
         tsd = torch.where((total_w <= 0.0) & (tsd >= limit), -limit, tsd)
     if voxel_mask is not None:
         tsd = torch.where(voxel_mask, tsd, -limit)
+    if return_observers:
+        return tsd, observers
     return tsd
 
 

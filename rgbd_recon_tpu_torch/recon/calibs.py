@@ -9,9 +9,10 @@ voxel center is drawn as a point colored by its TSDF value:
   tsd >= +limit    solid blue                          (:26-28)
   tsd <= -limit    discarded                           (:30)
 
-The points are z-buffer splatted into the view like the points mode. (The
-reference's per-sensor selection, setActiveKinect, does not change the
-coloring, so it has no counterpart here.)
+The points are z-buffer splatted into the view like the points mode.
+``active_kinect`` is kept for the interface of the reference's per-sensor
+selection (ReconCalibs::setActiveKinect); the coloring does not depend on
+it.
 """
 
 from __future__ import annotations
@@ -30,13 +31,22 @@ class CalibVisPipeline:
     """Debug strategy: renders the TSDF volume itself, no sensor data."""
 
     def __init__(self, volume_grid: VolumeGrid, tsdf_limit: float = 0.01,
-                 max_points: int = 1 << 20):
+                 active_kinect: int = 0, max_points: int = 1 << 20):
         self.volume_grid = volume_grid
         self.tsdf_limit = float(tsdf_limit)
+        self.active_kinect = active_kinect
         # voxel stride keeping the splat count bounded (the reference draws
         # every voxel; a debug view does not need 8.8 M points)
         n = volume_grid.num_voxels
         self.stride = max(1, int(np.ceil((n / max_points) ** (1.0 / 3.0))))
+
+    def set_active_kinect(self, num: int) -> None:
+        """The sensor selection of ReconCalibs::setActiveKinect."""
+        self.active_kinect = num
+
+    def set_tsdf_limit(self, limit: float) -> None:
+        """The coloring band of renderers made after this call."""
+        self.tsdf_limit = float(limit)
 
     def make_renderer(self, camera: ViewCamera):
         """Returns ``renderer(volume) -> (image, window depth, covered)``."""

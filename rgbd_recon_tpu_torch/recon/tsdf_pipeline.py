@@ -10,9 +10,9 @@ raymarch (counterpart of rgbd_recon_tpu/recon/tsdf_pipeline.py).
            + secant refine + gradient + blend--> hits
          --pull-push colorfill--> final frame
 
-This port covers the fast configuration and the reference-exact parity
-configuration with their variants; the configuration values it does not
-implement raise NotImplementedError naming the value (check_supported).
+Beside the frame path: dense integration with observer counts, calibration
+swaps, runtime reconfiguration (limit, voxel and brick size, any config
+field) and sensor-pose refinement (refine/pose_ba.py).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from ..ops import bricks as brick_ops
 from ..ops import holefill, raymarch, tsdf
 from ..ops.preprocess import SensorMaps, preprocess_frames
 from ..ops.sampling import trilinear_3d
+from ..refine import pose_ba
 from ..sensors.frames import FrameSet
 
 
@@ -97,24 +98,6 @@ def _uses_sentinels(c: PipelineConfig) -> bool:
     return c.march_empty_skip and c.march_mode == "nearest"
 
 
-def check_supported(c: PipelineConfig) -> None:
-    """Raise NotImplementedError for configuration values this port does not
-    implement yet. ``recon_mode`` is not among them: it picks the renderer
-    (the app's choice), and the pipeline fuses in every mode."""
-    unsupported = {
-        "march_chunk": c.march_chunk > 0,
-        "bracket_per_block": bool(c.bracket_per_block),
-        "blend_mode": c.blend_mode != "quality",
-        "shade_mode": c.shade_mode == 3,
-        "debug_skip": bool(c.debug_skip),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(f"{k}={getattr(c, k)!r}"
-                                           for k in bad))
-
-
 def _pool3(x: torch.Tensor, op) -> torch.Tensor:
     """3x3 min/max pooling with edge padding (tsdf_pipeline pool3)."""
     H, W = x.shape
@@ -155,7 +138,6 @@ class TsdfPipeline:
     def __init__(self, calib: CalibrationSet, config: PipelineConfig = None,
                  bbox: BoundingBox = None):
         self.config = config or PipelineConfig()
-        check_supported(self.config)
         self.bbox = bbox or calib.bbox
         self.calib = calib
         self.device = calib.device
@@ -165,12 +147,18 @@ class TsdfPipeline:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self._limit = float(np.float32(self.config.tsdf_limit))
+        # bumped by every reconfigure(): renderers rebuild on their next call
+        self._generation = 0
         self._pixel_models_cache = {}
         self._projection_models = None   # (models or None,) once fitted
         self._build_grids()
 
     def _build_grids(self):
+        """The grids and the per-voxel projection bakes of the current
+        config and calibration: everything with a shape."""
         c = self.config
+        # integrate_dense's per-voxel projections, baked on first use
+        self._dense_projections = None
         self.volume_grid = VolumeGrid(bbox=self.bbox, voxel_size=c.voxel_size)
         self.brick_grid = BrickGrid(bbox=self.bbox, brick_size=c.brick_size,
                                     min_voxels=c.min_voxels_per_brick)
@@ -182,13 +170,17 @@ class TsdfPipeline:
             and tsdf.brick_layout(self.volume_grid.shape, self.brick_vox)[0]
             == self.brick_grid.shape
         )
-        # frame-invariant per-voxel projections, brick-major for the compact
-        # integration, dense otherwise (None: looked up every frame)
+        self._bake_projections()
+
+    def _bake_projections(self):
+        """Frame-invariant per-voxel projections of the calibration,
+        brick-major for the compact integration, dense otherwise (None:
+        looked up every frame)."""
         if self.compact:
             self.projections = tsdf.bake_projections_bricks(
                 self.calib.cv_xyz_inv, self.volume_grid.shape,
                 self.brick_vox)
-        elif c.precompute_projections:
+        elif self.config.precompute_projections:
             self.projections = tsdf.bake_projections(
                 self.calib.cv_xyz_inv, self.volume_grid.shape)
         else:
@@ -314,11 +306,189 @@ class TsdfPipeline:
             phantom_hull=c.phantom_hull, taps=c.integrate_taps,
         )
 
+    def integrate_dense(self, maps: SensorMaps, limit: Optional[float] = None,
+                        return_observers: bool = False):
+        """Dense integration of every voxel, without brick gating, at the
+        band ``limit`` (the pipeline's limit by default): pose refinement's
+        wide-band volumes, which the brick-compact volume cannot hold
+        (only occupied bricks' voxels exist there). ``return_observers``
+        also returns the per-voxel observer count (ops/tsdf.py integrate).
+        The per-voxel projections are baked once and kept until the
+        calibration or the grid changes."""
+        c = self.config
+        lim = self._limit if limit is None else float(np.float32(limit))
+        if self._dense_projections is None:
+            self._dense_projections = (
+                self.projections
+                if not self.compact and self.projections is not None
+                else tsdf.bake_projections(self.calib.cv_xyz_inv,
+                                           self.volume_grid.shape))
+        return tsdf.integrate(
+            self.volume_grid.shape, self.calib.cv_xyz_inv,
+            maps.depth[..., 0], maps.quality, maps.silhouette, lim,
+            projections=self._dense_projections,
+            carve_sil_threshold=c.carve_sil_threshold,
+            phantom_hull=c.phantom_hull, return_observers=return_observers,
+        )
+
     def fuse(self, frames: FrameSet):
         """One fused frame update: preprocess + mark + integrate. Returns
         (volume, maps, brick_counts)."""
         maps, counts = self.preprocess(frames)
         return self.integrate(maps, counts), maps, counts
+
+    def fuse_single_program(self, frames: FrameSet):
+        """:meth:`fuse`. The JAX package compiles the whole frame update
+        into one XLA program here; PyTorch runs operations as they come,
+        so there is no separate program and this is the same call."""
+        return self.fuse(frames)
+
+    # -- runtime reconfiguration (recon_integration.cpp:341-354, 468-484;
+    #    kinect_client.cpp:362-376) ----------------------------------------
+
+    def set_tsdf_limit(self, limit: float) -> None:
+        """Change the truncation limit: later fuses integrate at the new
+        band and renders march with it. Renderers keep the march step
+        bound sized from the limit they were built with, so a smaller
+        limit may leave grazing rays unfinished (RenderOutput.overflow)."""
+        self.config = dataclasses.replace(self.config,
+                                          tsdf_limit=float(limit))
+        self._limit = float(np.float32(limit))
+
+    def set_voxel_size(self, voxel_size: float) -> None:
+        """Rebuild the volume grid and the projection bakes at a new
+        resolution (the reference rebuilds its volume,
+        recon_integration.cpp:341-354)."""
+        self.reconfigure(voxel_size=float(voxel_size))
+
+    def set_brick_size(self, brick_size: float) -> None:
+        self.reconfigure(brick_size=float(brick_size))
+
+    def reconfigure(self, **updates) -> None:
+        """Apply config updates (voxel_size, brick_size, processing
+        toggles, ...). A change of a field with a shape (voxel_size,
+        brick_size, bricking, min_voxels_per_brick) rebuilds the grids and
+        the projection bakes; every call makes renderers built earlier
+        rebuild on their next call. An unknown field raises
+        AttributeError."""
+        shape_keys = {"voxel_size", "brick_size", "bricking",
+                      "min_voxels_per_brick"}
+        fields = {f.name for f in dataclasses.fields(self.config)}
+        for k in updates:
+            if k not in fields:
+                raise AttributeError(f"unknown config field {k}")
+        reshape = any(k in shape_keys and getattr(self.config, k) != v
+                      for k, v in updates.items())
+        self.config = dataclasses.replace(self.config, **updates)
+        if "tsdf_limit" in updates:
+            self._limit = float(np.float32(self.config.tsdf_limit))
+        if reshape:
+            self._build_grids()
+        self._generation += 1
+
+    def update_calibration(self, calib: CalibrationSet) -> None:
+        """Swap in a new calibration of the same shapes (e.g. pose-refined
+        by refine.pose_ba.apply_pose_corrections): re-bake the projections
+        and drop the fitted models. Renderers made earlier read the
+        calibration and the models at each call, so they take the new one
+        without a rebuild."""
+        self.calib = calib
+        self._bake_projections()
+        self._dense_projections = None
+        self._pixel_models_cache = {}
+        self._projection_models = None
+
+    def refine_sensor_poses(self, maps: SensorMaps, brick_counts,
+                            iters: int = 5, apply: bool = True,
+                            rounds: int = 1, frames: FrameSet = None,
+                            worst_only: bool = True,
+                            band_schedule=(4.0, 2.0, 1.0)):
+        """Per-sensor 6-DoF corrections against the leave-one-out
+        consensus surfaces, applied to the calibration unless ``apply`` is
+        False: the drift-correction loop (the reference trusts its offline
+        calibration; drift shows as doubled surfaces).
+
+        ``rounds`` > 1 alternates refine -> apply -> re-fuse (pass
+        ``frames``): a misaligned sensor contaminates the others'
+        leave-one-out consensus, so one shot is biased. ``band_schedule``
+        sets each round's band in units of the limit, consumed from its
+        end (one round: the last entry; more rounds than entries repeat
+        the first). Each round's consensus is observer-weighted: voxels
+        that fewer than min(2, N - 1) other sensors saw weigh less or
+        nothing.
+
+        ``worst_only`` keeps only the correction of the sensor with the
+        highest consensus residual (ranked at the nominal limit, without
+        the observer mask, which would hide the displaced points that mark
+        it). When applying, three gates: the margin (its residual above
+        1.12 x the rig's median), continuity (the margin is waived for the
+        sensor applied the round before) and the improvement (the
+        correction lowers that residual by at least 5%); a round that
+        fails them applies nothing. Without ``apply`` the estimates
+        accumulate through the schedule.
+
+        Returns (poses of the last round (N, 6), its residual history).
+        ``self.refine_report`` holds one dict per round: band, residuals,
+        worst sensor, gate results and the sensor applied (None if
+        none)."""
+        n_rounds = max(rounds, 1)
+        sched = list(band_schedule) if band_schedule else [1.0]
+        if n_rounds <= len(sched):
+            sched = sched[len(sched) - n_rounds:]
+        else:
+            sched = [sched[0]] * (n_rounds - len(sched)) + sched
+
+        poses = history = total = None
+        applied_sensor = -1
+        self.refine_report = []
+        for r in range(n_rounds):
+            band = self.config.tsdf_limit * float(sched[r])
+            vols, obs = pose_ba.leave_one_out_volumes(
+                self, maps, brick_counts, limit=band, return_observers=True)
+            # a leave-one-out consensus has N - 1 potential witnesses
+            n_obs = min(2.0, float(self.calib.num_sensors - 1))
+            poses, history = pose_ba.refine_poses(
+                self.calib, maps, None, band, iters=iters, volumes=vols,
+                init=None if apply else total,
+                # trim the unknown region's negative tail at half the band,
+                # never tighter than the nominal limit
+                mask_floor=-max(band * 0.5, self.config.tsdf_limit * 0.999),
+                observers=obs, min_observers=n_obs,
+            )
+            report = {"round": r, "band": band, "applied": None}
+            if worst_only:
+                res_h = pose_ba.pose_residual_stats(
+                    self.calib, maps, None, self.config.tsdf_limit,
+                    volumes=vols).cpu().numpy()
+                worst = int(np.argmax(res_h))
+                keep = (torch.arange(poses.shape[0], device=poses.device)
+                        == worst)[:, None]
+                poses = torch.where(keep, poses, 0.0)
+                report.update(residuals=res_h.tolist(), worst=worst)
+                if apply:
+                    margin = bool(res_h[worst] > 1.12 * float(
+                        np.median(res_h)) or worst == applied_sensor)
+                    res_after = pose_ba.pose_residual_stats(
+                        self.calib, maps, None, self.config.tsdf_limit,
+                        poses=poses, volumes=vols).cpu().numpy()
+                    improve = bool(res_after[worst] < 0.95 * res_h[worst])
+                    report.update(margin=margin, improve=improve,
+                                  residual_after=float(res_after[worst]))
+                    if margin and improve:
+                        applied_sensor = report["applied"] = worst
+                    else:
+                        poses = torch.zeros_like(poses)
+            self.refine_report.append(report)
+            if not apply:
+                total = poses
+                continue
+            self.update_calibration(
+                pose_ba.apply_pose_corrections(self.calib, poses))
+            if r + 1 < n_rounds:
+                if frames is None:
+                    break
+                _, maps, brick_counts = self.fuse(frames)
+        return poses, history
 
     def diagnostics(self, brick_counts: torch.Tensor,
                     render_out: Optional[RenderOutput] = None) -> dict:
@@ -354,12 +524,20 @@ class TsdfPipeline:
         is the analytic oct-cell gradient with an oct table, else the
         central-difference gradient of the march table; the blend goes
         through the projection models when they fit, else through the
-        calibration volumes. Returns (rgba, window depth)."""
+        calibration volumes. ``shade_mode=3`` colors by camera influence,
+        unshaded; ``blend_mode`` "normal_deviation" / "best_two" weight the
+        sensors by normal agreement. The profiling switches of
+        ``debug_skip``: "grad" a fixed +z normal, "blend" a constant 0.7
+        rgba, unshaded. Returns (rgba, window depth)."""
         c = self.config
         calib = self.calib
+        dbg = set(filter(None, c.debug_skip.split(",")))
         bbox_sz = torch.from_numpy(np.asarray(self.bbox.size, np.float32)
                                    ).to(hit_pos.device)
-        if oct is not None:
+        if "grad" in dbg:
+            grad = torch.zeros_like(hit_pos)
+            grad[..., 2] = 1.0
+        elif oct is not None:
             g, gvalid = oct.gradient_p(hit_pos[..., 0], hit_pos[..., 1],
                                        hit_pos[..., 2])
             grad = -g / torch.clamp_min(_norm(g), 1e-20)
@@ -379,18 +557,36 @@ class TsdfPipeline:
         world_pos = hit_pos * bbox_sz + calib.bbox_min
         view_pos = (world_pos - cam.eye_w) @ cam.rot
         view_normal = n_world @ cam.rot
-        if proj_models is not None:
-            rgba = raymarch.blend_colors_analytic(
-                world_pos, proj_models, maps.color, maps.depth[..., 0],
-                maps.quality, limit, dq_taps=c.integrate_taps)
+        if "blend" in dbg:
+            rgba = torch.full(hit_pos.shape[:-1] + (4,), 0.7,
+                              dtype=torch.float32, device=hit_pos.device)
+        elif c.shade_mode == 3:
+            rgb = raymarch.blend_cameras(hit_pos, calib.cv_xyz_inv,
+                                         maps.depth[..., 0], maps.quality,
+                                         limit)
+            rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
         else:
-            blend = (raymarch.blend_colors_fast if c.march_mode == "nearest"
-                     else raymarch.blend_colors)
-            rgba = blend(hit_pos, calib.cv_xyz_inv, calib.cv_uv, maps.color,
-                         maps.depth[..., 0], maps.quality, limit)
-        shaded = raymarch.shade(view_pos, view_normal, rgba[..., :3],
-                                shade_mode=c.shade_mode, world_normal=n_world)
-        rgba = torch.cat([shaded, rgba[..., 3:]], dim=-1)
+            if c.blend_mode in ("normal_deviation", "best_two"):
+                rgba = raymarch.blend_colors_normal(
+                    hit_pos, world_pos, grad, proj_models, calib.cv_xyz_inv,
+                    calib.cv_uv, maps.color, maps.depth[..., 0], maps.normal,
+                    limit, variant=("best_two" if c.blend_mode == "best_two"
+                                    else "deviation"))
+            elif proj_models is not None:
+                rgba = raymarch.blend_colors_analytic(
+                    world_pos, proj_models, maps.color, maps.depth[..., 0],
+                    maps.quality, limit, dq_taps=c.integrate_taps)
+            else:
+                blend = (raymarch.blend_colors_fast
+                         if c.march_mode == "nearest"
+                         else raymarch.blend_colors)
+                rgba = blend(hit_pos, calib.cv_xyz_inv, calib.cv_uv,
+                             maps.color, maps.depth[..., 0], maps.quality,
+                             limit)
+            shaded = raymarch.shade(view_pos, view_normal, rgba[..., :3],
+                                    shade_mode=c.shade_mode,
+                                    world_normal=n_world)
+            rgba = torch.cat([shaded, rgba[..., 3:]], dim=-1)
         view_z = torch.clamp_min(-view_pos[..., 2], near * 1.001)
         depth_win = torch.clamp(
             (1.0 / near - 1.0 / view_z) / (1.0 / near - 1.0 / far), 0.0, 1.0)
@@ -459,6 +655,12 @@ class TsdfPipeline:
                        else torch.float32)
         num_lods = c.num_lods
         Z, Y, X = vol_shape
+        # the march table's bake, kernel or plain, by configuration as in
+        # the JAX package (ops/bake.py uses_kernel_bake)
+        kernel_bake = bake_ops.uses_kernel_bake(brick_vox,
+                                                c.skip_fine_rounds)
+        # the chunked march serves the fine stage's first march
+        chunked = c.march_chunk > 0 and c.march_mode == "nearest"
 
         def ray_dirs(cam: CamParams, hh, ww):
             """Planar unit volume-space directions, 3x (hh, ww)."""
@@ -569,7 +771,9 @@ class TsdfPipeline:
             bsafe = bake_ops.fine_safe_field(occ, c.skip_brick_rounds)
             if not skip_:
                 return volume, None, occ, bsafe
-            table = bake_ops.sentinel_bake(
+            bake_table = (bake_ops.sentinel_bake if kernel_bake
+                          else bake_ops.sentinel_bake_plain)
+            table = bake_table(
                 volume, (bsafe * float(brick_vox)).contiguous(), brick_vox,
                 c.skip_fine_rounds, table_dtype)
             oct = (raymarch.build_oct_bricks(volume, occ, brick_vox,
@@ -577,7 +781,15 @@ class TsdfPipeline:
                    if use_oct else None)
             return table, oct, occ, bsafe
 
-        def do_march(table, limit, budget, pos0, dirs, length, resume=None):
+        def do_march(table, limit, budget, pos0, dirs, length, resume=None,
+                     chunk=None):
+            """The chunked march when ``chunk`` is given and the config
+            asks for it, the stepwise march otherwise."""
+            if chunked and chunk:
+                return raymarch.march_chunked(
+                    table, limit, budget, (pos0, length), dirs,
+                    chunk=min(chunk, budget), sentinel_skip=skip_,
+                    sentinel_scale=h_min, resume=resume)
             return raymarch.march(table, limit, budget, (pos0, length), dirs,
                                   mode=c.march_mode, sentinel_skip=skip_,
                                   sentinel_scale=h_min, resume=resume)
@@ -651,8 +863,18 @@ class TsdfPipeline:
                 & ((hi9 - lo9) < c.bracket_max_steps * sd)
                 & ((lo9 - s_start) < 2.0 * brick_norm + pad)
             )
-            b_lo = lo9 - margin
-            b_hi = hi9 + margin
+            if c.bracket_per_block:
+                # each block's own coarse bracket, widened by 1/8 of the
+                # 3x3 spread (the local slope); the guards above keep the
+                # pooled values
+                spread = 0.125 * (hi9 - lo9)
+                b_lo = (torch.where(torch.isfinite(lo_g), lo_g, s_start)
+                        - margin - spread)
+                b_hi = (torch.where(torch.isfinite(hi_g), hi_g, s_end)
+                        + margin + spread)
+            else:
+                b_lo = lo9 - margin
+                b_hi = hi9 + margin
             f_start = torch.where(bracket_ok, torch.maximum(b_lo, s_start),
                                   s_start)
             len_brkt = torch.where(
@@ -696,7 +918,7 @@ class TsdfPipeline:
             p1 = c.march_phase1_steps
             if p1 > 0 and skip_:
                 hit, num, st = do_march(table, limit, p1, pos0_f, dn_f,
-                                        len_brkt_f)
+                                        len_brkt_f, chunk=p1)
                 st8 = state8(hit, num, st)
                 budget_used = p1
                 # narrowing tail stages over the full interval
@@ -742,7 +964,9 @@ class TsdfPipeline:
             dn_h = (rh[:, 3], rh[:, 4], rh[:, 5])
             hit_pos_h = torch.stack([rh[:, i] + rh[:, 3 + i] * sh[:, 5]
                                      for i in range(3)], dim=-1)
-            if oct is not None:
+            if "refine" in c.debug_skip:
+                hp = hit_pos_h        # the march's own secant position
+            elif oct is not None:
                 hp = raymarch.oct_refine_crossing(
                     oct, pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h,
                     hit_pos_h, limit, widen_steps=c.refine_widen_steps,
@@ -784,7 +1008,10 @@ class TsdfPipeline:
                          proj_models, limit):
             """Full-screen march of the raw volume without compaction (the
             parity/debug path): every pixel's ray from its unit-cube entry,
-            a trilinear secant refine after a nearest march, shading."""
+            a trilinear secant refine after a nearest march, shading. Of
+            the ``debug_skip`` switches, "grad" and "blend" act here (in
+            _shade_hits) and "refine" does not, as in the JAX package's
+            render_dense, whose march always refines."""
             dn = ray_dirs(cam, H, W)
             pos0, length = raymarch.unit_cube_entry(cam.eye_vol, dn, limit)
             hit, num, st = raymarch.march(
@@ -820,19 +1047,32 @@ class TsdfPipeline:
         as ``camera_pose`` to move the view (same projection).
         ``brick_counts`` (the fuse's brick occupancy counts) is read only
         with ``surface_skip=False``, whose block march skips around the
-        marked bricks instead of the volume's surface bricks."""
-        render, cam0 = self.make_render_fn(camera, max_steps)
+        marked bricks instead of the volume's surface bricks. The renderer
+        rebuilds itself on its next call after a reconfigure() (a new
+        grid or config), and reads the calibration, the projection models
+        and the limit at every call."""
+        state = {}
+
+        def build():
+            state["render"], state["cam0"] = self.make_render_fn(camera,
+                                                                 max_steps)
+            state["gen"] = self._generation
+
+        build()
 
         def renderer(volume, maps: SensorMaps, brick_counts=None,
                      camera_pose=None):
+            if state["gen"] != self._generation:
+                build()
             if camera_pose is None:
-                cam = cam0
+                cam = state["cam0"]
             elif isinstance(camera_pose, CamParams):
                 cam = camera_pose
             else:
                 cam = CamParams.from_camera(camera_pose, self.bbox,
                                             self.device)
-            return render(volume, maps, brick_counts, cam,
-                          self._get_projection_models(), self._limit)
+            return state["render"](volume, maps, brick_counts, cam,
+                                   self._get_projection_models(),
+                                   self._limit)
 
         return renderer

@@ -1,7 +1,8 @@
 """The port's application shell (``python -m rgbd_recon_tpu_torch.app``) on
 the CPU: ``record`` then ``run`` in all five modes, stereo output with
-checkpoints, resuming from a checkpoint the JAX app wrote, ``invert``, the
-options that are not ported, the CUDA requirement, and one run of both apps
+checkpoints, resuming from a checkpoint the JAX app wrote, ``invert``,
+pose refinement every frame, the option that is not ported, the CUDA
+requirement, and one run of both apps
 on the same recordings and calibration volumes, image for image.
 
 Scene: 2 synthetic sensors at 40x32 depth / 48x40 color recorded into
@@ -184,12 +185,29 @@ def test_invert_matches_jax_app(tmp_path):
     assert inv.shape == (8, 9, 8, 4) and (inv[..., 3] > 0).any()
 
 
-@pytest.mark.parametrize("flag,item", [("--refine-every", "pose refinement"),
-                                       ("--preview-port", "viz/preview")])
+@pytest.mark.parametrize("flag,item", [("--preview-port", "viz/preview")])
 def test_unported_options_raise(scene, tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         app.main(_run_args(scene, "synth.ks", tmp_path, "--device", "cpu",
                            flag, "5"))
+
+
+def test_refine_every_runs_in_mode_1(scene, tmp_path, capsys):
+    """``--refine-every 1`` in mode 1: pose refinement after every frame,
+    its translation corrections (mm, one per sensor) on stderr, and the
+    frames rendered as without it."""
+    out = tmp_path / "out"
+    app.main(_run_args(scene, "synth.ks", out, "--device", "cpu", "--mode",
+                       "1", "--refine-every", "1"))
+    err = capsys.readouterr().err
+    lines = [ln for ln in err.splitlines() if ln.startswith(
+        "refined sensor poses; translation corrections (mm): [")]
+    assert len(lines) == 2, err
+    mm = np.array(lines[-1].split("[", 1)[1].rstrip("]").split(), float)
+    assert mm.shape == (2,) and np.isfinite(mm).all()
+    renders = sorted(out.glob("frame_*.png"))
+    assert len(renders) == 2
+    assert (_png(renders[1]).sum(-1) > 0).sum() > 10
 
 
 def test_run_needs_cuda_unless_cpu_is_asked(scene, tmp_path):

@@ -78,7 +78,7 @@ def test_module_list_is_whole():
     for name in ("core/grid.py", "core/camera.py", "core/config.py",
                  "io/stream.py", "io/dxt.py", "io/network.py",
                  "io/checkpoint.py", "io/native.py", "io/feed.py",
-                 "bench/timing.py"):
+                 "bench/timing.py", "refine/pose_ba.py"):
         assert f"rgbd_recon_tpu_torch/{name}" in PORT_FILES, name
 
 

@@ -136,6 +136,65 @@ def test_cpu_pipeline_launches_no_kernel():
     assert all(n == 0 for n in kernels.launch_counts().values())
 
 
+def _small_scene(device, brick_size=0.4, **cfg):
+    """A 2-sensor sphere scene fused on ``device``: (pipeline, volume,
+    maps, counts, camera), 10 cm voxels in 40 cm bricks (4 voxels) unless
+    ``brick_size`` says otherwise."""
+    from rgbd_recon_tpu_torch.calib.sensors import build_synthetic_calibration
+    from rgbd_recon_tpu_torch.core import BoundingBox, PipelineConfig
+    from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+    from rgbd_recon_tpu_torch.sensors.synthetic import (
+        SyntheticScene,
+        default_test_rig,
+        render_rig_frames,
+    )
+
+    bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+    rig = default_test_rig(num_sensors=2, bbox=bbox)
+    calib = build_synthetic_calibration(rig, bbox, cv_res=(16, 24, 16),
+                                        inv_res=(20, 22, 20), device=device)
+    frames = render_rig_frames(
+        SyntheticScene(spheres=[((0.0, 1.1, 0.0), 0.55)]), rig, device=device)
+    pipe = TsdfPipeline(calib, PipelineConfig(
+        voxel_size=0.1, brick_size=brick_size, tsdf_limit=0.04, num_lods=3,
+        **cfg),
+        bbox)
+    volume, maps, counts = pipe.fuse(frames)
+    return pipe, volume, maps, counts, ViewCamera(width=64, height=48)
+
+
+@pytest.mark.parametrize("brick_size,rounds", [(0.4, 4), (0.4, 5),
+                                               (0.4, 16), (2.0, 16),
+                                               (2.0, 20)])
+def test_bake_dispatch_rule(monkeypatch, brick_size, rounds):
+    """The render's bake calls the sentinel_bake wrapper exactly when
+    skip_fine_rounds <= brick_vox (the JAX package's rule for its Pallas
+    bake), the plain bake otherwise, and the surface_occ wrapper always
+    (surface_skip). 40 cm bricks hold 4 voxels, 2 m bricks 20. Wrappers
+    stubbed to record their calls."""
+    calls = {"surface_occ": 0, "sentinel_bake": 0}
+
+    def recording(name, plain):
+        def stub(*args, **kw):
+            calls[name] += 1
+            return plain(*args, **kw)
+        return stub
+
+    monkeypatch.setattr(bake, "surface_occ",
+                        recording("surface_occ", bake.surface_occ_plain))
+    monkeypatch.setattr(bake, "sentinel_bake",
+                        recording("sentinel_bake", bake.sentinel_bake_plain))
+    pipe, volume, maps, counts, cam = _small_scene(
+        "cpu", brick_size=brick_size, skip_fine_rounds=rounds)
+    out = pipe.make_renderer(cam)(volume, maps, counts)
+    assert int(out.hit.sum()) > 50
+    assert calls == {"surface_occ": 1,
+                     "sentinel_bake": int(rounds <= pipe.brick_vox)}
+    assert bake.uses_kernel_bake(pipe.brick_vox, rounds) == (
+        rounds <= round(brick_size / 0.1))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_quality13_plain_nonpositive_centres(seed):
     """Every centre d <= 0 (-0.0 too) gives (169, +0.0) exactly in the plain
@@ -398,16 +457,26 @@ def test_sentinel_bake_kernel_bit_exact(cuda, shape, brick_vox, rounds,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_sentinel_bake_kernel_most_rounds(cuda, out_dtype):
-    """K = MAX_ROUNDS, where the tile's core is 2 columns wide."""
+@pytest.mark.parametrize("rounds", [15, 16, 20, 31, 46, 255])
+@pytest.mark.parametrize("shape", [(70, 40, 45), (300, 21, 33)])
+def test_sentinel_bake_kernel_most_rounds(cuda, shape, rounds, out_dtype):
+    """K = 15, one launch whose tile's core is 2 columns wide, and K past
+    it up to MAX_ROUNDS (255), in several dilation launches (8 + 8, 10 +
+    10, 11 + 10 + 10, 12 + 12 + 11 + 11, 17 x 15) whose counts add up; a z
+    side past one register column (300 > 224) as well. One call counted."""
     from rgbd_recon_tpu_torch.kernels.bake import MAX_ROUNDS
 
+    assert rounds <= MAX_ROUNDS
     rng = np.random.default_rng(6)
-    vol = torch.from_numpy(_volume(rng, (70, 40, 45))).to(cuda)
+    vol = torch.from_numpy(_volume(rng, shape)).to(cuda)
+    grid = tuple(-(-n // 10) for n in shape)
     bs = torch.from_numpy(
-        rng.integers(0, 3, (7, 4, 5)).astype(np.float32) * 10).to(cuda)
-    got = bake.sentinel_bake(vol, bs, 10, MAX_ROUNDS, out_dtype)
-    want = bake.sentinel_bake_plain(vol, bs, 10, MAX_ROUNDS, out_dtype)
+        rng.integers(0, 3, grid).astype(np.float32) * 10).to(cuda)
+    before = kernels.LAUNCHES["sentinel_bake"]
+    got = bake.sentinel_bake(vol, bs, 10, rounds, out_dtype)
+    want = bake.sentinel_bake_plain(vol, bs, 10, rounds, out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sentinel_bake"] == before + 1
     bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(bits), want.view(bits))
 
@@ -420,3 +489,30 @@ def test_sentinel_bake_kernel_rejects_too_many_rounds(cuda):
     bs = torch.zeros((2, 2, 2), device=cuda)
     with pytest.raises(ValueError, match="rounds"):
         bake.sentinel_bake(vol, bs, 4, MAX_ROUNDS + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brick_size,rounds", [(0.4, 16), (0.4, 20),
+                                               (2.0, 16), (2.0, 20)])
+def test_render_bake_rule_on_the_card(cuda, brick_size, rounds):
+    """skip_fine_rounds past one kernel launch's 15 rounds on the card: the
+    render's bake launches surface_occ, and sentinel_bake exactly when
+    skip_fine_rounds <= brick_vox (4-voxel bricks: the plain bake; 20-voxel
+    bricks: the kernel, in two launches); either table equals the plain
+    bake of the same volume and brick clearance."""
+    pipe, volume, maps, counts, cam = _small_scene(
+        cuda, brick_size=brick_size, skip_fine_rounds=rounds)
+    render_fn, _ = pipe.make_render_fn(cam)
+    kernels.reset_launch_counts()
+    table, _, occ, bsafe = render_fn.bake(volume, counts)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert launched["surface_occ"] == 1
+    assert launched["sentinel_bake"] == int(rounds <= pipe.brick_vox)
+    want = bake.sentinel_bake_plain(
+        volume, (bsafe * float(pipe.brick_vox)).contiguous(),
+        pipe.brick_vox, rounds)
+    assert torch.equal(table.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(occ, bake.surface_occ_plain(volume, pipe.brick_vox))
+    out = pipe.make_renderer(cam)(volume, maps, counts)
+    assert int(out.hit.sum()) > 50

@@ -77,6 +77,19 @@ SLICE_CONFIGS = {
     "brick_frac": dict(voxel_size=0.0625),
     # the fast path with an f32 sentinel table (and f32 oct table)
     "sentinel_f32": dict(march_dtype="float32"),
+    # the variants of tests/test_torch_slice_variants*.py: the camera-
+    # influence view, the normal-weighted blends, the profiling switches
+    "shade_mode_3": dict(shade_mode=3),
+    "best_two": dict(blend_mode="best_two"),
+    "normal_deviation": dict(blend_mode="normal_deviation"),
+    "debug_skip": dict(debug_skip="blend,grad,refine"),
+    # per-block brackets, the chunked fine march, and both (the pairing
+    # core/config.py describes); 16 dilation rounds, past the 4 voxels of
+    # a brick (the plain bake, as the JAX package's jnp bake)
+    "bracket_per_block": dict(bracket_per_block=True),
+    "march_chunk": dict(march_chunk=8),
+    "march_chunk_per_block": dict(march_chunk=8, bracket_per_block=True),
+    "skip_fine_rounds_16": dict(skip_fine_rounds=16),
 }
 # the verify scene's config
 BASE_CFG = dict(voxel_size=0.05, brick_size=0.2, tsdf_limit=LIMIT,

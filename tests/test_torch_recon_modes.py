@@ -379,10 +379,46 @@ def test_diagnostics_match(setup, overflow):
     assert want["bricks_dropped"] == (5 if occ > 5 else 0)
 
 
-def test_shade_mode_3_still_raises_in_the_pipeline(setup):
-    """blend_cameras is not ported: a TsdfPipeline (and so the app, in every
-    mode) rejects shade_mode=3 naming it; PointsPipeline takes it."""
-    cfg = dataclasses.replace(_pcfg(), shade_mode=3)
-    with pytest.raises(NotImplementedError, match="shade_mode"):
-        port_recon.TsdfPipeline(setup["pcalib"], cfg, PBBOX)
-    port_recon.PointsPipeline(setup["pcalib"], cfg)
+def test_shade_mode_3_in_the_pipeline(setup):
+    """shade_mode=3 (the camera-influence view) in a TsdfPipeline: the same
+    hits and window depth as the default render (it changes color only),
+    colors that differ from it, and PointsPipeline takes the value too."""
+    pframes = convert.frames_from_numpy(jax_arrays(setup["frames"]),
+                                        device="cpu")
+    renders = []
+    for kw in ({}, {"shade_mode": 3}):
+        pipe = port_recon.TsdfPipeline(setup["pcalib"], _pcfg(**kw), PBBOX)
+        volume, maps, counts = pipe.fuse(pframes)
+        renders.append(pipe.make_renderer(PortCamera(**CAM))(volume, maps,
+                                                             counts))
+    base, cams = renders
+    assert int(cams.hit.sum()) > 100
+    assert torch.equal(cams.hit, base.hit)
+    assert torch.equal(cams.depth, base.depth)
+    assert not torch.equal(cams.color, base.color)
+    port_recon.PointsPipeline(setup["pcalib"],
+                              dataclasses.replace(_pcfg(), shade_mode=3))
+
+
+def test_calibvis_interface_matches():
+    """CalibVisPipeline's constructor (volume_grid, tsdf_limit,
+    active_kinect, max_points), positionally as by keyword, and its two
+    setters, against the JAX package's."""
+    import inspect
+
+    from rgbd_recon_tpu.core import VolumeGrid
+
+    params = list(inspect.signature(
+        port_recon.CalibVisPipeline.__init__).parameters)
+    assert params == list(inspect.signature(
+        CalibVisPipeline.__init__).parameters)
+    grid = VolumeGrid(bbox=BBOX, voxel_size=0.0625)
+    want = CalibVisPipeline(grid, 0.03, 2, 4096)
+    got = port_recon.CalibVisPipeline(_pgrid(grid), 0.03, 2, 4096)
+    for name in ("tsdf_limit", "active_kinect", "stride"):
+        assert getattr(got, name) == getattr(want, name), name
+    for pipe in (want, got):
+        pipe.set_active_kinect(3)
+        pipe.set_tsdf_limit(0.05)
+    assert (got.active_kinect, got.tsdf_limit) == (
+        want.active_kinect, want.tsdf_limit) == (3, 0.05)

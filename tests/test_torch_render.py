@@ -2,8 +2,10 @@
 staged render (bake, block march, tail stages, oct secant refine,
 analytic-model blend, pull-push fill) on the verify scene with
 brick_size=0.2 and a 96x80 camera (the block path with the oct hit table),
-plus unit parity of the march and the hole fill, and the
-NotImplementedError contract for configuration values not ported yet."""
+plus unit parity of the march and the hole fill, and of each configuration
+value of the variants: the camera-influence and normal-weighted blends and
+the chunked march on seeded inputs, per-block brackets and the profiling
+switches by rendering the JAX package's state in both packages."""
 
 import dataclasses
 
@@ -15,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from rgbd_recon_tpu.calib import build_synthetic_calibration
+from rgbd_recon_tpu.calib import sensors as jax_sensors
 from rgbd_recon_tpu.core import BoundingBox, PipelineConfig
 from rgbd_recon_tpu.ops import holefill as jax_holefill
 from rgbd_recon_tpu.ops import raymarch as jax_raymarch
@@ -29,6 +32,7 @@ from rgbd_recon_tpu.sensors import (
 from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch.calib.sensors import (
     build_synthetic_calibration as port_calibration,
+    derive_projection_models,
 )
 from rgbd_recon_tpu_torch.core import BoundingBox as PortBox
 from rgbd_recon_tpu_torch.core import PipelineConfig as PortConfig
@@ -272,17 +276,174 @@ def test_shade_matches(mode):
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def hit_set(runs):
+    """Seeded hits for the blends: 256 points on the sphere's surface
+    (volume-normalized and world) with the negated, normalized volume
+    gradient the pipeline passes (the inward normal, in volume space), the
+    JAX state's calibration and maps as numpy, and both packages'
+    projection models from the same fit."""
+    pipe, _, maps, _ = runs["jax_state"]
+    rng = np.random.default_rng(31)
+    d = rng.normal(size=(256, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    world = np.asarray(SPHERE[0][0]) + d * SPHERE[0][1]
+    bmin, bsize = np.asarray(PBBOX.min), np.asarray(PBBOX.size)
+    grad = -d * bsize
+    grad /= np.linalg.norm(grad, axis=-1, keepdims=True)
+    calib = jax_arrays(pipe.calib)
+    m = jax_arrays(maps)
+    pcalib = convert.calibration_from_numpy(calib, device="cpu")
+    models, residual = derive_projection_models(pcalib.cv_xyz, pcalib.cv_uv)
+    assert residual < 2e-3
+    jmodels = jax_sensors.ProjectionModels(**{
+        f.name: jnp.asarray(_np(getattr(models, f.name)))
+        for f in dataclasses.fields(models)})
+    return dict(
+        sample_pos=((world - bmin) / bsize).astype(np.float32),
+        world_pos=world.astype(np.float32), grad=grad.astype(np.float32),
+        cv_xyz_inv=calib["cv_xyz_inv"], cv_uv=calib["cv_uv"],
+        color=m["color"], depth=m["depth"][..., 0], quality=m["quality"],
+        normal=m["normal"], models=models, jmodels=jmodels)
+
+
+def _both(fn_jax, fn_port, *arrays, **kw):
+    """(JAX result, port result) as numpy of the same numpy inputs."""
+    want = fn_jax(*(jnp.asarray(a) for a in arrays), **kw)
+    got = fn_port(*(torch.from_numpy(np.ascontiguousarray(a))
+                    for a in arrays), **kw)
+    return np.asarray(want), got
+
+
+def _check_blend(want, got, alpha_mix=True):
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=1e-5)
+    if alpha_mix:
+        assert 0.05 < (want[:, 3] == 1.0).mean() < 0.95
+
+
+def _unit_shade_mode_3(runs, hs):
+    """blend_cameras: palette weights of the sensors within the band,
+    white where none weighs in."""
+    want, got = _both(jax_raymarch.blend_cameras,
+                      port_raymarch.blend_cameras, hs["sample_pos"],
+                      hs["cv_xyz_inv"], hs["depth"], hs["quality"],
+                      limit=0.02)
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=1e-5)
+    white = (want == 1.0).all(-1)
+    assert 0.05 < white.mean() < 0.95
+
+
+def _unit_blend(hs, variant, models):
+    args = (hs["sample_pos"], hs["world_pos"], hs["grad"])
+    maps = (hs["cv_xyz_inv"], hs["cv_uv"], hs["color"], hs["depth"],
+            hs["normal"])
+    want = jax_raymarch.blend_colors_normal(
+        *(jnp.asarray(a) for a in args),
+        hs["jmodels"] if models else None,
+        *(jnp.asarray(a) for a in maps), 0.02, variant=variant)
+    got = port_raymarch.blend_colors_normal(
+        *(torch.from_numpy(a) for a in args),
+        hs["models"] if models else None,
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in maps), 0.02,
+        variant=variant)
+    # best_two's two weights are always positive; the deviation weights
+    # vanish where no sensor's normal opposes the surface's
+    _check_blend(np.asarray(want), got, alpha_mix=variant == "deviation")
+
+
+def _unit_march_chunk(runs, hs):
+    """march_chunked with 8 samples a chunk through a bf16 sentinel table
+    of the JAX state's volume, 60 steps, then resumed for 60 more: hits
+    and step counts equal, states to f32 rounding."""
+    pipe, vol, _, counts = runs["jax_state"]
+    render_fn, _ = pipe.make_render_fn(ViewCamera(**CAM))
+    packed = render_fn.bake(vol, counts, pipe._limit)[0]
+    table = torch.from_numpy(
+        np.asarray(packed.pairs).view(np.uint16).astype(np.int16)
+    ).view(torch.bfloat16).reshape(tuple(vol.shape))
+    rng = np.random.default_rng(32)
+    n = 512
+    pos0 = rng.uniform(0.0, 1.0, (3, n)).astype(np.float32)
+    pos0[2] = 0.02
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d[2] = np.abs(d[2]) + 0.5
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    length = rng.uniform(0.0, 1.2, n).astype(np.float32)
+    limit, h_min = float(pipe._limit), 1.0 / 44
+    jd, jp = tuple(jnp.asarray(x) for x in d), tuple(jnp.asarray(x)
+                                                    for x in pos0)
+    td, tp = tuple(torch.from_numpy(x) for x in d), tuple(
+        torch.from_numpy(x) for x in pos0)
+    resume_j = resume_p = None
+    for steps in (60, 60):
+        hj, nj, sj = jax_raymarch.march_chunked(
+            packed, jp, jd, pipe._limit, steps, jnp.asarray(length), chunk=8,
+            sentinel_skip=True, sentinel_scale=h_min, resume=resume_j)
+        hp, nump, sp = port_raymarch.march_chunked(
+            table, limit, steps, (tp, torch.from_numpy(length)), td, chunk=8,
+            sentinel_skip=True, sentinel_scale=h_min, resume=resume_p)
+        np.testing.assert_array_equal(_np(hp), np.asarray(hj))
+        np.testing.assert_array_equal(_np(nump), np.asarray(nj))
+        for a, b in zip(sp, sj):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-6,
+                                       atol=1e-6)
+        resume_j, resume_p = sj[:3], sp[:3]
+    assert int(np.asarray(hj).sum()) > 20
+
+
+UNIT_CASES = {
+    ("march_chunk", 8): _unit_march_chunk,
+    ("blend_mode", "best_two"):
+        lambda runs, hs: _unit_blend(hs, "best_two", models=True),
+    ("blend_mode", "normal_deviation"):
+        lambda runs, hs: _unit_blend(hs, "deviation", models=False),
+    ("shade_mode", 3): _unit_shade_mode_3,
+}
+
+
+@pytest.mark.parametrize("field,value", list(UNIT_CASES))
+def test_config_value_unit_matches(runs, hit_set, field, value):
+    """The function behind each value against the JAX package's on seeded
+    inputs: march_chunked on rays through the sentinel table,
+    blend_colors_normal (best_two through the projection models,
+    deviation through the calibration volumes) and blend_cameras on hits
+    on the sphere (rgba to 1e-5; both alpha classes present where the
+    weights can vanish)."""
+    UNIT_CASES[(field, value)](runs, hit_set)
+
+
 @pytest.mark.parametrize("field,value", [
-    ("march_chunk", 8),
     ("bracket_per_block", True),
-    ("blend_mode", "best_two"),
-    ("blend_mode", "normal_deviation"),
     ("debug_skip", "blend,refine"),
-    ("shade_mode", 3),
     ("debug_skip", "grad"),
 ])
-def test_unported_config_raises(port_setup, field, value):
-    calib, _ = port_setup
-    cfg = dataclasses.replace(_pcfg(), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        PortPipeline(calib, cfg, PBBOX)
+def test_config_value_render_matches(runs, field, value):
+    """The JAX package's fused state rendered with the value by both
+    packages, without the pull-push fill: hit masks equal except at 0.5%
+    of pixels, depth to 2e-4 and color to 1e-3 on shared hits, overflow
+    and step counts equal."""
+    pipe, vol, maps, counts = runs["jax_state"]
+    kw = {field: value, "colorfill": False}
+    jpipe = TsdfPipeline(pipe.calib, _cfg(**kw), BBOX)
+    want = jpipe.make_renderer(ViewCamera(**CAM))(vol, maps, counts)
+    ccal = convert.calibration_from_numpy(jax_arrays(pipe.calib),
+                                          device="cpu")
+    ppipe = PortPipeline(ccal, _pcfg(**kw), PBBOX)
+    got = ppipe.make_renderer(port_raymarch.ViewCamera(**CAM))(
+        torch.from_numpy(np.array(vol)),
+        convert.sensor_maps_from_numpy(jax_arrays(maps), device="cpu"),
+        torch.from_numpy(np.array(counts)))
+    hj, hp = _np(want.hit), _np(got.hit)
+    assert hj.sum() > 300
+    assert (hj != hp).sum() <= 0.005 * hj.size
+    m = shared_hits(want, got)
+    np.testing.assert_allclose(_np(got.depth)[m], _np(want.depth)[m],
+                               rtol=0, atol=2e-4)
+    np.testing.assert_allclose(_np(got.color)[m], _np(want.color)[m],
+                               rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(_np(got.overflow), _np(want.overflow))
+    np.testing.assert_array_equal(_np(got.num_samples),
+                                  _np(want.num_samples))
+    if "blend" in str(value):
+        np.testing.assert_allclose(_np(got.color)[hp], 0.7, rtol=0,
+                                   atol=1e-6)

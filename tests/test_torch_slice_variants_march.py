@@ -1,0 +1,53 @@
+"""Whole-slice parity of the PyTorch port against the JAX package, fuse +
+render on the verify scene (4 sensors at 64x56, 5 cm voxels,
+brick_size=0.2, a 96x80 camera), for the fast path's march variants:
+bracket_per_block=True (each block's own coarse bracket), march_chunk=8
+(the chunked first fine march), both together, and skip_fine_rounds=16
+(past the 4 voxels of a brick: the plain bake on the card, as the JAX
+package takes its jnp bake). The color variants are in
+tests/test_torch_slice_variants.py; the configurations and checks in
+tests/test_torch_parity.py."""
+
+import pytest
+
+from test_torch_parity import (
+    check_depth,
+    check_hits,
+    check_overflow_and_samples,
+    check_prefill_color,
+    check_volume,
+    run_slice,
+    slice_setup,
+)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return slice_setup()
+
+
+@pytest.fixture(scope="module",
+                params=["bracket_per_block", "march_chunk",
+                        "march_chunk_per_block", "skip_fine_rounds_16"])
+def run(request, setup):
+    return run_slice(setup, request.param)
+
+
+def test_volume_matches(run):
+    check_volume(run)
+
+
+def test_hit_masks_match(run):
+    check_hits(run)
+
+
+def test_depth_matches(run):
+    check_depth(run)
+
+
+def test_color_matches_before_fill(run):
+    check_prefill_color(run)
+
+
+def test_overflow_and_samples_match(run):
+    check_overflow_and_samples(run)
