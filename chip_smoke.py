@@ -59,7 +59,21 @@ Then, at the same scale:
   error of each sensor's cv_xyz against the true rig's before and after
   (sensor 1 at most half its start, the others moved by at most 0.5 mm),
   each round's gates, ms per round and per LM iteration, and the device's
-  busy share over one round.
+  busy share over one round;
+- phase 12 drives the multi-device layer (``rgbd_recon_tpu_torch.dist``)
+  with all its shards on this one card: ``shard_compact_step`` over 8 and 4
+  shards (volume, hit mask and depth bit-equal to the single-device fast
+  path, ``surface_occ`` and ``sentinel_bake`` launched once per shard, the
+  slab bake's tables bit-equal to the single-device bake's, and each
+  shard's two bake kernels bit-equal to their plain twins on its slab grown
+  by one brick), ``_shard_dense_step`` over 4 shards at the
+  ``parity_dense`` config,
+  ``shard_preprocess`` of the 4 sensors over 4 and 2 shards, the mesh form
+  of ``refine_poses`` on phase 11's drifted rig, and
+  ``invert_calibration_bruteforce`` on the card against the kd-tree
+  inverter; with two cards or more also the compact step over them. On one
+  card its CUDA-event times measure the shards' extra launches and copies,
+  not scaling.
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with the
 per-kernel results (launches on the fast path, and per path; max |kernel -
@@ -114,6 +128,7 @@ SIDE_LAUNCHES = {
 # back to back (warm)
 DEVICE_ITERS = 20
 FLUSH_BYTES = 128 * 2 ** 20
+TRACE_TRIES = 3
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
 # and f32 operations/s outside the tensor cores, at the 700 W power limit
 PEAK_BYTES_S = 3.35e12
@@ -176,6 +191,25 @@ POSE_RECOVERY = 0.5
 POSE_OTHERS_MM = 0.5
 POSE_ITERS = 24
 POSE_ROUNDS = 4
+# phase 12: the shard counts of each path on this card; the sharded fast
+# path's colour may differ from the single device's by at most
+# SHARD_COLOR_TOL (its volume, hit mask and depth must be bit-equal); the
+# sensor-sharded maps within tests/test_dist.py's tolerances (atol, with
+# rtol 1e-4); the mesh form of refine_poses over 2 LM iterations within
+# 3e-4 of the single-device poses (tests/test_dist.py); the brute-force
+# inverter at tests/test_calibration.py:113's sizes, held to the kd-tree
+# inverter at :140's tolerances
+COMPACT_SHARDS = (8, 4)
+DENSE_SHARDS = 4
+PREPROCESS_SHARDS = (4, 2)
+SHARD_COLOR_TOL = 1e-5
+MAP_TOLS = {"depth": 1e-6, "quality": 1e-6, "silhouette": 1e-6,
+            "normal": 1e-5, "lab": 2e-4}
+MESH_POSE_SHARDS = 4
+MESH_POSE_ITERS = 2
+MESH_POSE_ATOL = 3e-4
+INV_CV_RES = (40, 48, 40)
+INV_RES = (16, 18, 16)
 
 
 class _Tee:
@@ -238,21 +272,32 @@ def _short_name(name: str) -> str:
 
 def _device_ms(torch, fn, flush):
     """``fn``'s own device time per call under torch.profiler: (cold ms,
-    warm ms, {activity: cold ms}). Cold: ``flush`` (which evicts the L2)
-    before each of DEVICE_ITERS calls, its own activities left out;
-    warm: the calls back to back. Raises if the profiler records no device
-    activity: there is no fallback to CUDA events."""
+    warm ms, {activity: cold ms}, traces retaken). Cold: ``flush`` (which
+    evicts the L2) before each of DEVICE_ITERS calls, its own activities
+    left out; warm: the calls back to back. A trace that comes back with no
+    device activity is taken again, at most TRACE_TRIES times in all, and
+    counted in the fourth value; raises if none of them records any: there
+    is no fallback to CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
     from rgbd_recon_tpu_torch.profile_slice import _device_us, _on_device
 
+    retakes = [0]
+
     def trace(body):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            body()
+        # torch.profiler can hand back a trace with no device activity
+        # although the calls ran
+        for i in range(TRACE_TRIES):
+            retakes[0] += i > 0
             torch.cuda.synchronize()
-        return [e for e in prof.events() if _on_device(e)]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                body()
+                torch.cuda.synchronize()
+            events = [e for e in prof.events() if _on_device(e)]
+            if events:
+                return events
+        return []
 
     fn()
     own, flushing = trace(fn), trace(flush)
@@ -289,7 +334,7 @@ def _device_ms(torch, fn, flush):
 
     cold, split = per_call(True)
     warm, _ = per_call(False)
-    return cold, warm, split
+    return cold, warm, split, retakes[0]
 
 
 def _surface_rmse_mm(np, out, cam, center, radius):
@@ -749,6 +794,8 @@ def _phase11_pose(np, torch, card):
         return (torch.linalg.norm(d, dim=-1).mean(dim=(1, 2, 3))
                 * 1000.0).cpu().numpy()
 
+    # the drifted rig's state, for phase 12's mesh form of refine_poses
+    drifted = (pipe.calib, maps, volume)
     cv_before = pipe.calib.cv_xyz.clone()
     err0 = lookup_error_mm(pipe.calib)
     t0 = time.perf_counter()
@@ -826,6 +873,249 @@ def _phase11_pose(np, torch, card):
           flush=True)
     del pipe, volume, maps, counts, frames, calib, truth
     torch.cuda.empty_cache()
+    return drifted
+
+
+def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
+    """The multi-device layer on this card (see the module docstring):
+    every check raises on failure. Adds each path's launches to
+    ``by_path``. Returns {kernel: {path: (slab shape, max |kernel - plain|)}}
+    of the per-slab bake kernels at the shapes each sharded path gives
+    them."""
+    from rgbd_recon_tpu_torch import dist, kernels
+    from rgbd_recon_tpu_torch.calib.bake import bake_cv_xyz
+    from rgbd_recon_tpu_torch.calib.inverter import (
+        invert_calibration_bruteforce,
+        invert_calibration_knn,
+    )
+    from rgbd_recon_tpu_torch.core import BoundingBox
+    from rgbd_recon_tpu_torch.dist import collectives
+    from rgbd_recon_tpu_torch.dist.mesh import _bake_slabs
+    from rgbd_recon_tpu_torch.kernels.bake import (
+        sentinel_bake_cuda,
+        surface_occ_cuda,
+    )
+    from rgbd_recon_tpu_torch.ops import bake
+    from rgbd_recon_tpu_torch.profile_slice import event_ms
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+    from rgbd_recon_tpu_torch.refine import pose_ba
+    from rgbd_recon_tpu_torch.sensors.synthetic import default_test_rig
+
+    dev = pipe.device
+    note = ("all shards on one card: the times measure the shards' extra "
+            "launches and copies, not scaling")
+
+    def counted(label, fn, want):
+        """One call of ``fn`` with the launch counts and the collectives'
+        byte counts set to 0 just before and read just after; the launches
+        must be ``want``."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        collectives.reset_bytes()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        moved = collectives.bytes_moved()
+        print(f"{label}: launches {launched}; bytes per frame {moved}",
+              flush=True)
+        if launched != dict(want):
+            raise AssertionError(f"{label}: launched {launched}, expected "
+                                 f"{dict(want)}")
+        by_path[label] = launched
+        return out
+
+    slab_checks = {"surface_occ": {}, "sentinel_bake": {}}
+
+    def slab_bake(label, vol_sh, volume, counts):
+        """The slab bake of ``vol_sh`` bit-equal to the single-device bake
+        of ``volume`` (table, oct table, surface bricks, brick clearance),
+        and each shard's kernels against their plain twins on its slab
+        grown by one brick, with ghost bricks at the clear value beyond
+        the z faces and zero brick clearance in them."""
+        v, K = pipe.brick_vox, pipe.config.skip_fine_rounds
+        limit = pipe._limit
+        render, _ = pipe.make_render_fn(camera)
+        want = render.bake(volume, counts)
+        got = _bake_slabs(render, vol_sh.slabs, vol_sh.shape, v, limit, dev)
+
+        def equal(g, w):
+            # a tensor, None, or the oct table (a dataclass of tensors)
+            if isinstance(g, torch.Tensor) and isinstance(w, torch.Tensor):
+                return torch.equal(g, w)
+            if dataclasses.is_dataclass(g) and type(g) is type(w):
+                return all(equal(getattr(g, f.name), getattr(w, f.name))
+                           for f in dataclasses.fields(g))
+            return g == w
+
+        same = {k: equal(g, w) for k, g, w in zip(
+            ("table", "oct", "occ", "bsafe"), got, want)}
+        ext = dist.halo_exchange_z(vol_sh.slabs, v, fill=-limit)
+        bs = want[3] * float(v)
+        Bz, By, Bx = bs.shape
+        Bzl = vol_sh.slabs[0].shape[0] // v
+        bs_pad = torch.cat([bs.new_zeros((1, By, Bx)), bs, bs.new_zeros(
+            (len(ext) * Bzl - Bz + 1, By, Bx))])
+        errs = {"surface_occ": 0.0, "sentinel_bake": 0.0}
+        for s, e in enumerate(ext):
+            bs_e = bs_pad[s * Bzl: (s + 1) * Bzl + 2].contiguous()
+            pairs = {"surface_occ": (surface_occ_cuda(e, v),
+                                     bake.surface_occ_plain(e, v)),
+                     "sentinel_bake": (sentinel_bake_cuda(e, bs_e, v, K),
+                                       bake.sentinel_bake_plain(e, bs_e, v,
+                                                                K))}
+            for k, (g, w) in pairs.items():
+                errs[k] = max(errs[k], _max_abs_err(torch, g, w))
+        shape = tuple(ext[0].shape)
+        for k, err in errs.items():
+            slab_checks[k][label] = {"slab_shape": shape, "max_abs_err": err}
+        print(f"{label}: slab bake bit-equal to the single device's {same}; "
+              f"per shard on its {shape} grown slab, max |kernel - plain| "
+              f"{errs} (bound 0)", flush=True)
+        if not all(same.values()) or any(errs.values()):
+            raise AssertionError(f"{label}: the slab bake differs")
+
+    def compact(label, mesh, ref):
+        volume, counts, out = ref
+        step = dist.shard_compact_step(pipe, camera, mesh)
+        step(frames)                                  # warm-up
+        n = mesh.size
+        want = dict(bilateral13=1, quality13=1, surface_occ=n,
+                    sentinel_bake=n)
+        vol_sh, out_sh = counted(label, lambda: step(frames), want)
+        same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
+                for f in ("hit", "depth")}
+        same["volume"] = torch.equal(vol_sh.gather(), volume)
+        color = float((out_sh.color - out.color).abs().max())
+        print(f"{label}: bit-equal to the single device {same}; max colour "
+              f"difference {color!r} (limit {SHARD_COLOR_TOL}); overflow "
+              f"{out_sh.overflow.tolist()}; per shard "
+              f"{step.diagnostics()}", flush=True)
+        if not all(same.values()) or not color <= SHARD_COLOR_TOL:
+            raise AssertionError(f"{label}: differs from the single device")
+        slab_bake(label, vol_sh, volume, counts)
+        return step
+
+    # ---- the compact step over 8 and 4 shards of this card --------------
+    renderer = pipe.make_renderer(camera)
+    volume, maps, counts = pipe.fuse(frames)
+    ref = (volume, counts, renderer(volume, maps, counts))
+    single_ms = _timed(_frame_fn(pipe, renderer, frames), samples=2, iters=5)
+    for n in COMPACT_SHARDS:
+        step = compact(f"sharded{n}", dist.make_mesh(devices=[dev] * n), ref)
+        ms = _timed(lambda: step(frames), samples=2, iters=5)
+        print(f"sharded{n}: step ms {ms} against the single device's fuse+"
+              f"render {single_ms} (CUDA events, means of 5) on {card}; "
+              f"{note}", flush=True)
+        del step
+    del volume, maps, counts, ref
+
+    # ---- the dense step over 4 shards at the parity_dense config --------
+    dpipe = TsdfPipeline(pipe.calib, dataclasses.replace(
+        pipe.config, **SIDE_PATHS["parity_dense"]), pipe.bbox)
+    drender = dpipe.make_renderer(camera)
+    dvol, dmaps, dcounts = dpipe.fuse(frames)
+    dout = drender(dvol, dmaps, dcounts)
+    dstep = dist.shard_pipeline_step(
+        dpipe, camera, dist.make_mesh(devices=[dev] * DENSE_SHARDS))
+    dstep(frames)                                     # warm-up
+    vol_sh, out_sh = counted(f"dense{DENSE_SHARDS}", lambda: dstep(frames),
+                             dict(bilateral13=1, quality13=1, surface_occ=0,
+                                  sentinel_bake=0))
+    same = {f: torch.equal(getattr(out_sh, f), getattr(dout, f))
+            for f in ("hit", "depth")}
+    same["volume"] = torch.equal(vol_sh.gather(), dvol)
+    color = float((out_sh.color - dout.color).abs().max())
+    print(f"dense{DENSE_SHARDS}: bit-equal to the single device {same}; max "
+          f"colour difference {color!r} (limit {SHARD_COLOR_TOL}), "
+          f"{int(dout.hit.sum())} hits", flush=True)
+    if not all(same.values()) or not color <= SHARD_COLOR_TOL:
+        raise AssertionError("dense step: differs from the single device")
+    ms = _timed(lambda: dstep(frames), samples=2, iters=3)
+    single = _timed(_frame_fn(dpipe, drender, frames), samples=2, iters=3)
+    print(f"dense{DENSE_SHARDS}: step ms {ms} against the single device's "
+          f"fuse+render {single} on {card}; {note}", flush=True)
+    del dpipe, drender, dvol, dmaps, dcounts, dout, dstep, vol_sh, out_sh
+    torch.cuda.empty_cache()
+
+    # ---- the sensor-sharded preprocess ----------------------------------
+    ref_maps, ref_counts = pipe.preprocess(frames)
+    for n in PREPROCESS_SHARDS:
+        run = dist.shard_preprocess(pipe, dist.make_mesh(devices=[dev] * n))
+        run(frames)                                   # warm-up
+        smaps, scounts = counted(f"preprocess{n}", lambda: run(frames),
+                                 dict(bilateral13=n, quality13=n,
+                                      surface_occ=0, sentinel_bake=0))
+        errs = {k: float((getattr(smaps, k) - getattr(ref_maps, k)).abs()
+                         .max()) for k in MAP_TOLS}
+        print(f"preprocess{n}: counts equal "
+              f"{torch.equal(scounts, ref_counts)}; max |sharded - "
+              f"replicated| per map {errs}", flush=True)
+        if not torch.equal(scounts, ref_counts):
+            raise AssertionError(f"preprocess{n}: brick counts differ")
+        for k, atol in MAP_TOLS.items():
+            want = getattr(ref_maps, k)
+            if not torch.allclose(getattr(smaps, k), want, rtol=1e-4,
+                                  atol=atol):
+                raise AssertionError(f"preprocess{n}: map {k} differs")
+        ms = event_ms(lambda: run(frames), iters=5)
+        single = event_ms(lambda: pipe.preprocess(frames), iters=5)
+        print(f"preprocess{n}: {ms!r} ms against {single!r} ms replicated "
+              f"(CUDA events, mean of 5) on {card}; {note}", flush=True)
+    del ref_maps, ref_counts
+
+    # ---- the mesh form of refine_poses on phase 11's drifted rig --------
+    calib, dmaps, dvol = drifted
+    t0 = time.perf_counter()
+    single, _ = pose_ba.refine_poses(calib, dmaps, dvol, 0.01,
+                                     iters=MESH_POSE_ITERS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mesh_poses, _ = pose_ba.refine_poses(
+        calib, dmaps, dvol, 0.01, iters=MESH_POSE_ITERS,
+        mesh=dist.make_mesh(devices=[dev] * MESH_POSE_SHARDS))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err = float((mesh_poses - single).abs().max())
+    print(f"refine_poses over {MESH_POSE_SHARDS} shards, "
+          f"{MESH_POSE_ITERS} LM iterations: max |mesh - single| {err!r} "
+          f"(limit {MESH_POSE_ATOL}), bit-equal "
+          f"{torch.equal(mesh_poses, single)}; sensor 1 correction "
+          f"{mesh_poses[1].tolist()}; {(t1 - t0) * 1e3:.1f} ms single, "
+          f"{(t2 - t1) * 1e3:.1f} ms mesh (host clock, synchronized) on "
+          f"{card}", flush=True)
+    if not err <= MESH_POSE_ATOL:
+        raise AssertionError(f"refine_poses mesh form: {err}")
+
+    # ---- the brute-force inverter on the card ---------------------------
+    bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
+    cv = bake_cv_xyz(default_test_rig(num_sensors=2, bbox=bbox).sensors[0],
+                     res=INV_CV_RES)
+    want = invert_calibration_knn(cv, bbox, INV_RES, k=8)
+    got = invert_calibration_bruteforce(cv, bbox, INV_RES, k=8, device=dev)
+    valid = want[..., 3] > 0
+    same_mask = bool(((got[..., 3] > 0) == valid).all())
+    diff = np.abs(got[valid] - want[valid])
+    over = int((diff > 1e-4 + 1e-3 * np.abs(want[valid])).sum())
+    ms = event_ms(lambda: invert_calibration_bruteforce(
+        cv, bbox, INV_RES, k=8, device=dev), iters=3, warmup=1)
+    print(f"invert_calibration_bruteforce {INV_CV_RES} -> {INV_RES}: valid "
+          f"masks equal {same_mask}, {int(valid.sum())} valid texels, max "
+          f"|brute force - kd-tree| {float(diff.max())!r}, {over} beyond "
+          f"rtol 1e-3 / atol 1e-4; {ms!r} ms a call on {card}", flush=True)
+    if not same_mask or over:
+        raise AssertionError("the brute-force inverter disagrees with the "
+                             "kd-tree inverter")
+
+    # ---- real devices ---------------------------------------------------
+    if torch.cuda.device_count() >= 2:
+        volume, maps, counts = pipe.fuse(frames)
+        compact(f"sharded_devices{torch.cuda.device_count()}",
+                dist.make_mesh(),
+                (volume, counts, renderer(volume, maps, counts)))
+    else:
+        print(f"real devices: {torch.cuda.device_count()} CUDA device, so "
+              "the compact step did not run over several cards", flush=True)
+    return slab_checks
 
 
 def main() -> int:
@@ -962,7 +1252,8 @@ def main() -> int:
                                  f"max abs error {err}")
         ms = event_ms(kern, iters=20, warmup=3)
         plain_ms = event_ms(plain, iters=5, warmup=1)
-        device_ms, device_ms_warm, split = _device_ms(torch, kern, flush)
+        device_ms, device_ms_warm, split, retakes = _device_ms(torch, kern,
+                                                                flush)
         outs = list(got) if isinstance(got, tuple) else [got]
         bound_ms, bound_by = _bound(inputs + outs, ops[name])
         library_ms = library_device_ms = None
@@ -971,7 +1262,8 @@ def main() -> int:
                 raise AssertionError(f"{name}: the library call computes "
                                      "another function")
             library_ms = event_ms(library, iters=20, warmup=3)
-            library_device_ms = _device_ms(torch, library, flush)[0]
+            library_device_ms, _, _, n = _device_ms(torch, library, flush)
+            retakes += n
         row = dict(name=name, route="cuda", source=source,
                    replaces=replaces, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, device_ms=device_ms,
@@ -995,7 +1287,8 @@ def main() -> int:
                                           torch.float32)
 
             ms32 = event_ms(kern32, iters=20, warmup=3)
-            dev32, dev32_warm, split32 = _device_ms(torch, kern32, flush)
+            dev32, dev32_warm, split32, n = _device_ms(torch, kern32, flush)
+            retakes += n
             bound32 = _bound([vol, bs_scaled, got32], ops[name])[0]
             row.update(f32_max_abs_err=err32, f32_ms=ms32,
                        f32_device_ms=dev32, f32_device_ms_warm=dev32_warm,
@@ -1023,7 +1316,8 @@ def main() -> int:
                                      f"plain| = {err20}")
             ms20 = event_ms(kern20, iters=20, warmup=3)
             plain_ms20 = event_ms(plain20, iters=3, warmup=1)
-            dev20 = _device_ms(torch, kern20, flush)[0]
+            dev20, _, _, n = _device_ms(torch, kern20, flush)
+            retakes += n
             row.update(k20_max_abs_err=err20, k20_ms=ms20,
                        k20_plain_ms=plain_ms20, k20_device_ms=dev20)
             print(f"{name} K = 20, 20-voxel bricks: max|kernel - plain| = "
@@ -1034,6 +1328,11 @@ def main() -> int:
               f"{device_ms_warm!r} warm {split} (library {library_device_ms!r}"
               f" cold), bound {bound_ms!r} ms by {bound_by}, "
               f"{bound_ms / device_ms:.1%} of it, on {card}", flush=True)
+        # traces that torch.profiler handed back empty and were taken again
+        row["trace_retakes"] = retakes
+        if retakes:
+            print(f"{name}: {retakes} profiler trace(s) came back with no "
+                  f"device activity and were taken again", flush=True)
         results.append(row)
 
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1131,18 +1430,28 @@ def main() -> int:
     t_phase = time.perf_counter()
     _phase10_reconfig(np, torch, pipe, frames, camera, card)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    del pipe, frames, renderer
+    del renderer
     torch.cuda.empty_cache()
 
     # ---- 11. sensor-pose refinement at reference scale --------------------
     t_phase = time.perf_counter()
-    _phase11_pose(np, torch, card)
+    drifted = _phase11_pose(np, torch, card)
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- 12. the multi-device layer, its shards on this card --------------
+    t_phase = time.perf_counter()
+    slab_checks = _phase12_dist(np, torch, pipe, frames, camera, card,
+                                drifted, by_path)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del pipe, frames, drifted
+    torch.cuda.empty_cache()
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     for r in results:
         r["launches"] = by_path["fast"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}
+        if r["name"] in slab_checks:
+            r["slab_checks"] = slab_checks[r["name"]]
 
     print(json.dumps({"kernels": results}))
     print(card)

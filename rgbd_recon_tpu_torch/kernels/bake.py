@@ -46,11 +46,13 @@ def surface_occ_cuda(volume: torch.Tensor, brick_vox: int) -> torch.Tensor:
     out = torch.empty((Bz, By, Bx), dtype=torch.bool, device=volume.device)
     bits = _positive_words(volume)
     lib = library()
-    err = lib.rgbd_surface_occ(
-        volume.data_ptr(), bits.data_ptr(), out.data_ptr(), Z, Y, X,
-        brick_vox, Bz, By, Bx,
-        torch.cuda.current_stream(volume.device).cuda_stream,
-    )
+    # launch on the tensor's device (the current one may be another)
+    with torch.cuda.device(volume.device):
+        err = lib.rgbd_surface_occ(
+            volume.data_ptr(), bits.data_ptr(), out.data_ptr(), Z, Y, X,
+            brick_vox, Bz, By, Bx,
+            torch.cuda.current_stream(volume.device).cuda_stream,
+        )
     check(err, "surface_occ")
     LAUNCHES["surface_occ"] += 1
     return out
@@ -90,12 +92,14 @@ def sentinel_bake_cuda(volume: torch.Tensor, bs_scaled: torch.Tensor,
     bits = _positive_words(volume,
                            rounds.bit_length() + int(rounds > _PASS_ROUNDS))
     lib = library()
-    err = lib.rgbd_sentinel_bake(
-        volume.data_ptr(), bs_scaled.data_ptr(), out.data_ptr(),
-        bits.data_ptr(), Z, Y, X, brick_vox, rounds, grid[1], grid[2],
-        int(out_dtype == torch.float32),
-        torch.cuda.current_stream(volume.device).cuda_stream,
-    )
+    # launch on the tensor's device (the current one may be another)
+    with torch.cuda.device(volume.device):
+        err = lib.rgbd_sentinel_bake(
+            volume.data_ptr(), bs_scaled.data_ptr(), out.data_ptr(),
+            bits.data_ptr(), Z, Y, X, brick_vox, rounds, grid[1], grid[2],
+            int(out_dtype == torch.float32),
+            torch.cuda.current_stream(volume.device).cuda_stream,
+        )
     check(err, "sentinel_bake")
     LAUNCHES["sentinel_bake"] += 1
     return out

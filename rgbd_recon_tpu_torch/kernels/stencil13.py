@@ -32,11 +32,13 @@ def bilateral13_cuda(depth_m: torch.Tensor, depth_limits: torch.Tensor):
                          "tensor on the depth map's device")
     outs = [torch.empty_like(depth_m) for _ in range(3)]
     lib = library()
-    err = lib.rgbd_bilateral13(
-        depth_m.data_ptr(), depth_limits.data_ptr(),
-        *(o.data_ptr() for o in outs), N, H, W,
-        torch.cuda.current_stream(depth_m.device).cuda_stream,
-    )
+    # launch on the tensor's device (the current one may be another)
+    with torch.cuda.device(depth_m.device):
+        err = lib.rgbd_bilateral13(
+            depth_m.data_ptr(), depth_limits.data_ptr(),
+            *(o.data_ptr() for o in outs), N, H, W,
+            torch.cuda.current_stream(depth_m.device).cuda_stream,
+        )
     check(err, "bilateral13")
     LAUNCHES["bilateral13"] += 1
     return tuple(outs)
@@ -48,10 +50,12 @@ def quality13_cuda(depth_norm: torch.Tensor):
     N, H, W = depth_norm.shape
     outs = [torch.empty_like(depth_norm) for _ in range(2)]
     lib = library()
-    err = lib.rgbd_quality13(
-        depth_norm.data_ptr(), *(o.data_ptr() for o in outs), N, H, W,
-        torch.cuda.current_stream(depth_norm.device).cuda_stream,
-    )
+    # launch on the tensor's device (the current one may be another)
+    with torch.cuda.device(depth_norm.device):
+        err = lib.rgbd_quality13(
+            depth_norm.data_ptr(), *(o.data_ptr() for o in outs), N, H, W,
+            torch.cuda.current_stream(depth_norm.device).cuda_stream,
+        )
     check(err, "quality13")
     LAUNCHES["quality13"] += 1
     return tuple(outs)

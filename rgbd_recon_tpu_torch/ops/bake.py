@@ -55,9 +55,18 @@ def sentinel_bake_plain(volume: torch.Tensor, bs_scaled: torch.Tensor,
     """-(2 + max(fine_safe, bs_scaled broadcast over its brick)) where that
     field is positive, else the TSDF value; cast to ``out_dtype`` (bf16,
     or f32 for an f32 march table)."""
+    return sentinel_encode(volume, fine_safe_field(volume > 0.0, rounds),
+                           bs_scaled, brick_vox, out_dtype)
+
+
+def sentinel_encode(volume: torch.Tensor, fine: torch.Tensor,
+                    bs_scaled: torch.Tensor, brick_vox: int,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The encode of :func:`sentinel_bake_plain` from a given voxel
+    clearance ``fine``: ``bs_scaled``'s first brick row covers the
+    volume's first voxel row (a z-slab passes its own brick rows)."""
     Z, Y, X = volume.shape
     v = brick_vox
-    fine = fine_safe_field(volume > 0.0, rounds)
     bs_vox = (bs_scaled.repeat_interleave(v, 0).repeat_interleave(v, 1)
               .repeat_interleave(v, 2))[:Z, :Y, :X]
     field = torch.maximum(fine, bs_vox)

@@ -30,14 +30,15 @@ def brick_layout(vol_shape: Tuple[int, int, int], brick_vox: int):
 
 def voxel_centers(vol_shape: Tuple[int, int, int],
                   true_shape: Optional[Tuple[int, int, int]] = None,
-                  device=None) -> torch.Tensor:
-    """(Z, Y, X, 3) volume-normalized voxel-center positions (x, y, z);
-    ``true_shape`` normalizes a padded grid by the true resolution so the
-    padding lands outside [0, 1]."""
+                  device=None, z0: int = 0) -> torch.Tensor:
+    """(Z, Y, X, 3) volume-normalized voxel-center positions (x, y, z) of
+    the voxel rows z0 .. z0 + Z; ``true_shape`` normalizes a padded grid
+    (or a z-slab of one) by the true resolution so the padding lands
+    outside [0, 1]."""
     Z, Y, X = vol_shape
     tz, ty, tx = true_shape or vol_shape
     f32 = torch.float32
-    zi = torch.arange(Z, dtype=f32, device=device).view(Z, 1, 1)
+    zi = torch.arange(z0, z0 + Z, dtype=f32, device=device).view(Z, 1, 1)
     yi = torch.arange(Y, dtype=f32, device=device).view(1, Y, 1)
     xi = torch.arange(X, dtype=f32, device=device).view(1, 1, X)
     return torch.stack(torch.broadcast_tensors(
@@ -45,12 +46,15 @@ def voxel_centers(vol_shape: Tuple[int, int, int],
 
 
 def bake_projections(cv_xyz_inv: torch.Tensor,
-                     vol_shape: Tuple[int, int, int]):
+                     vol_shape: Tuple[int, int, int],
+                     true_shape: Optional[Tuple[int, int, int]] = None,
+                     z0: int = 0):
     """Dense per-voxel projections (pos_calib (N, Z, Y, X, 3), in_frustum
     (N, Z, Y, X) bool): each voxel center's trilinear cv_xyz_inv lookup,
-    valid when the interpolated validity channel is > 0.99. One-time setup
-    cost."""
-    pos = voxel_centers(vol_shape, device=cv_xyz_inv.device)
+    valid when the interpolated validity channel is > 0.99. ``true_shape``
+    and ``z0`` place a z-slab of a (padded) grid as in voxel_centers.
+    One-time setup cost."""
+    pos = voxel_centers(vol_shape, true_shape, cv_xyz_inv.device, z0)
     pos_calib, in_frustum = [], []
     for inv in cv_xyz_inv:
         look = trilinear_3d(inv, pos)
@@ -65,15 +69,19 @@ def integrate(vol_shape: Tuple[int, int, int], cv_xyz_inv: torch.Tensor,
               silhouettes: torch.Tensor, limit: float,
               voxel_mask: Optional[torch.Tensor] = None,
               projections=None, carve_sil_threshold: float = 1.0,
-              phantom_hull: bool = False, return_observers: bool = False):
+              phantom_hull: bool = False, return_observers: bool = False,
+              true_shape: Optional[Tuple[int, int, int]] = None,
+              z0: int = 0):
     """Dense integration of every voxel with bilinear map taps; returns the
     (Z, Y, X) volume, -limit outside ``voxel_mask`` when one is given.
     ``projections`` are :func:`bake_projections`' output; without them the
-    lookups are made here. ``return_observers`` also returns the (Z, Y, X)
-    f32 count of sensors that saw each voxel in frustum, within the band
-    (|sdist| < limit) and with positive quality: (volume, observers)."""
+    lookups are made here, at the voxel rows that ``true_shape`` and ``z0``
+    give (a z-slab of a padded grid). ``return_observers`` also returns
+    the (Z, Y, X) f32 count of sensors that saw each voxel in frustum,
+    within the band (|sdist| < limit) and with positive quality:
+    (volume, observers)."""
     if projections is None:
-        projections = bake_projections(cv_xyz_inv, vol_shape)
+        projections = bake_projections(cv_xyz_inv, vol_shape, true_shape, z0)
     pos_calib, in_frustum = projections
     N = depths.shape[0]
     dev = depths.device

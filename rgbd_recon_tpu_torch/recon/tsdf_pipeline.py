@@ -222,10 +222,12 @@ class TsdfPipeline:
 
     # -- fuse -----------------------------------------------------------------
 
-    def _mark_bricks(self, pixel_models, maps: SensorMaps) -> torch.Tensor:
+    def _mark_bricks(self, pixel_models, maps: SensorMaps,
+                     calib: Optional[CalibrationSet] = None) -> torch.Tensor:
         """Brick occupancy from valid depth pixels (pre_normal.fs side
-        effect). With mark_stride s > 1 every s-th pixel scatters s^2
-        counts."""
+        effect) of the sensors of ``calib`` (the pipeline's by default).
+        With mark_stride s > 1 every s-th pixel scatters s^2 counts."""
+        calib = self.calib if calib is None else calib
         N, H, W = maps.depth.shape[:3]
         s = max(int(self.config.mark_stride), 1)
         d_all = maps.depth[..., 0]
@@ -247,20 +249,25 @@ class TsdfPipeline:
                  + 0.5) / H
             vv, uu = torch.meshgrid(v, u, indexing="ij")
             worlds = torch.stack([
-                trilinear_3d(self.calib.cv_xyz[i],
+                trilinear_3d(calib.cv_xyz[i],
                              torch.stack([uu, vv, d_all[i]], dim=-1))
                 for i in range(N)
             ])
         counts = brick_ops.mark_bricks(
-            worlds, valids, self.calib.bbox_min, self.config.brick_size,
+            worlds, valids, calib.bbox_min, self.config.brick_size,
             self.brick_grid.res)
         return counts * (s * s)
 
     def preprocess(self, frames: FrameSet):
         """frames -> (SensorMaps, (Bz, By, Bx) int32 brick counts)."""
+        return self._preprocess_impl(
+            self.calib, self._get_pixel_models(frames.depths.shape[1:3]),
+            frames)
+
+    def _preprocess_impl(self, calib: CalibrationSet, pm, frames: FrameSet):
+        """:meth:`preprocess` of the sensors of ``calib`` with their pixel
+        models ``pm`` (dist/ runs it on each shard's sensors)."""
         c = self.config
-        calib = self.calib
-        pm = self._get_pixel_models(frames.depths.shape[1:3])
         maps = preprocess_frames(
             frames.depths, frames.colors, calib.cv_xyz, calib.cv_uv,
             calib.bbox_min, calib.bbox_max, calib.depth_limits,
@@ -268,7 +275,7 @@ class TsdfPipeline:
             bilateral=c.bilateral and c.processed, refine=c.refine,
             pixel_models=pm,
         )
-        return maps, self._mark_bricks(pm, maps)
+        return maps, self._mark_bricks(pm, maps, calib)
 
     def _voxel_mask(self, brick_counts: torch.Tensor):
         """Per-voxel gate of the dense integration: the occupied bricks'
@@ -753,6 +760,53 @@ class TsdfPipeline:
             return RenderOutput(color=color, depth=depth_out, hit=hit_img,
                                 num_samples=num_img, overflow=overflow)
 
+        def brick_safe_field(occ):
+            """Brick-level clearance to the surface bricks (plain torch)."""
+            return bake_ops.fine_safe_field(occ, c.skip_brick_rounds)
+
+        def sentinel_bake(volume, bs_scaled):
+            """The march table of ``volume`` (the kernel's by configuration,
+            on the card) from the brick clearance times brick_vox of its
+            own bricks."""
+            bake_table = (bake_ops.sentinel_bake if kernel_bake
+                          else bake_ops.sentinel_bake_plain)
+            return bake_table(volume, bs_scaled, brick_vox,
+                              c.skip_fine_rounds, table_dtype)
+
+        # the bake of one z-slab of the volume, for dist/: the slab comes
+        # grown by slab_halo ghost rows on each side (the neighbours' rows,
+        # the clear value beyond the volume's z faces), one brick for the
+        # kernels, the K rows of the plain clearance rounds otherwise
+        slab_halo = (brick_vox if kernel_bake
+                     else max(brick_vox, c.skip_fine_rounds))
+
+        def slab_occ(ext):
+            """The surface-brick rows of the slab inside ``ext``."""
+            g = slab_halo - brick_vox
+            grown = ext[g: ext.shape[0] - g].contiguous()
+            return bake_ops.surface_occ(grown, brick_vox)[1:-1]
+
+        def bake_slab(ext, bs_ext):
+            """The march-table rows of the slab inside ``ext``, from its
+            bricks' clearance times brick_vox with one ghost brick row on
+            each side (``bs_ext``): the kernel bake of the slab grown by one
+            brick, else the plain encode of the clearance of the K-row
+            halo."""
+            h = slab_halo
+            if kernel_bake:
+                return bake_ops.sentinel_bake(
+                    ext.contiguous(), bs_ext.contiguous(), brick_vox,
+                    c.skip_fine_rounds, table_dtype)[h:-h]
+            fine = bake_ops.fine_safe_field(ext > 0.0, c.skip_fine_rounds)
+            return bake_ops.sentinel_encode(ext[h:-h], fine[h:-h],
+                                            bs_ext[1:-1], brick_vox,
+                                            table_dtype)
+
+        def build_oct(volume, occ):
+            """The oct hit table of the RAW volume."""
+            return raymarch.build_oct_bricks(volume, occ, brick_vox,
+                                             oct_capacity, table_dtype)
+
         def bake(volume, brick_counts):
             """volume -> (march table, oct hit table or None, surface-brick
             mask, brick clearance field). The surface-brick mask is the
@@ -767,18 +821,12 @@ class TsdfPipeline:
             else:
                 occ = brick_ops.occupied_mask(brick_counts,
                                               c.min_voxels_per_brick)
-            # brick-level clearance to the surface bricks (plain torch)
-            bsafe = bake_ops.fine_safe_field(occ, c.skip_brick_rounds)
+            bsafe = brick_safe_field(occ)
             if not skip_:
                 return volume, None, occ, bsafe
-            bake_table = (bake_ops.sentinel_bake if kernel_bake
-                          else bake_ops.sentinel_bake_plain)
-            table = bake_table(
-                volume, (bsafe * float(brick_vox)).contiguous(), brick_vox,
-                c.skip_fine_rounds, table_dtype)
-            oct = (raymarch.build_oct_bricks(volume, occ, brick_vox,
-                                             oct_capacity, table_dtype)
-                   if use_oct else None)
+            table = sentinel_bake(volume,
+                                  (bsafe * float(brick_vox)).contiguous())
+            oct = build_oct(volume, occ) if use_oct else None
             return table, oct, occ, bsafe
 
         def do_march(table, limit, budget, pos0, dirs, length, resume=None,
@@ -1038,6 +1086,14 @@ class TsdfPipeline:
         render.use_blocks = use_blocks
         render.bake = bake
         render.render_from_baked = render_from_baked if use_blocks else None
+        # the slab-wise bake of dist/, where the render bakes a march table
+        # of the volume's surface bricks
+        slab_bake = use_blocks and skip_ and c.surface_skip
+        render.slab_halo = slab_halo
+        render.slab_occ = slab_occ
+        render.brick_safe_field = brick_safe_field
+        render.bake_slab = bake_slab if slab_bake else None
+        render.build_oct = build_oct if use_oct else None
         return render, CamParams.from_camera(camera, self.bbox, dev)
 
     def make_renderer(self, camera: raymarch.ViewCamera,

@@ -13,8 +13,10 @@ The 6x6 normal equations per sensor are reductions over the points
 differentiation (torch.func.jacfwd) through the trilinear TSDF sample.
 Every product of points, rotations and the 6x6 systems is written out
 elementwise, so it is full f32 whatever the process's TF32 settings; the
+reductions over the points add in f64 and round once to f32, so that a
+sum split over shards (the mesh form) gives what one device gives; the
 LM step's eigh and solve (LAPACK on the CPU, cuSOLVER on the card) run in
-f32 too, batched over the sensors on their device.
+f32, batched over the sensors on their device.
 """
 
 from __future__ import annotations
@@ -26,9 +28,6 @@ import torch
 
 from ..calib.sensors import CalibrationSet
 from ..ops.sampling import trilinear_3d
-
-# the queue item of ROADMAP.md that the multi-device form waits on
-_MESH_ITEM = "ROADMAP.md §1.6, dist/"
 
 
 def _matvec3(R: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -115,25 +114,51 @@ def _obs_weight(obs, bbox_min, bbox_size, world, min_observers):
     return full + 0.3 * single
 
 
-def _gradient_trim(J, wm, k: float = 2.0):
+def _gradient_trim(J, wm, sums, k: float = 2.0):
     """Zero the weight of points whose TSDF gradient magnitude exceeds k
-    times the weighted mean. The translation block of J is the volume
-    gradient; a clean truncated SDF has |grad| ~ 1 band per band, while
-    the transition zones around unknown (-limit) regions of a leave-one-out
-    consensus jump by a whole band over one voxel, and bias the solve."""
-    gn = torch.sqrt((J[:, 3:] * J[:, 3:]).sum(dim=1))
-    m = (gn * wm).sum() / torch.clamp_min(wm.sum(), 1e-20)
-    return torch.where(gn < k * m, wm, 0.0)
+    times the weighted mean, from ``sums``: the :func:`_trim_sums` of the
+    whole point set, which the points may be a shard of. The translation
+    block of J is the volume gradient; a clean truncated SDF has |grad| ~ 1
+    band per band, while the transition zones around unknown (-limit)
+    regions of a leave-one-out consensus jump by a whole band over one
+    voxel, and bias the solve."""
+    gsum, wsum = sums
+    m = (gsum / torch.clamp_min(wsum, 1e-20)).to(torch.float32)
+    return torch.where(_grad_norm(J) < k * m, wm, 0.0)
+
+
+def _grad_norm(J):
+    return torch.sqrt((J[:, 3:] * J[:, 3:]).sum(dim=1))
+
+
+def _trim_sums(J, wm):
+    """(sum |grad| w, sum w) of the gradient trim's mean, in f64."""
+    wd = wm.to(torch.float64)
+    return (_grad_norm(J).to(torch.float64) * wd).sum(), wd.sum()
 
 
 def _normal_equations(params, pts, w, volume, bbox_min, bbox_size, limit,
                       center=0.0, mask_floor=None, observers=None,
                       min_observers: float = 2.0):
-    """(J^T W J (6, 6), J^T W r (6,), mean |r|) for one sensor. J is the
-    forward-mode Jacobian (torch.func.jacfwd, six JVPs) of the residual
-    through apply_pose and the trilinear sample. The active set is
-    asymmetric: residuals above ``mask_floor`` (default -0.999 limit) and
-    below 0.999 limit; ``observers`` weighs each point by _obs_weight."""
+    """(J^T W J, J^T W r, mean |r| over the active set) for one sensor's
+    points, on their device: :func:`_normal_equations_mesh` over one
+    shard."""
+    from ..dist.mesh import make_mesh
+
+    return _normal_equations_mesh(
+        params, pts, w, volume, bbox_min, bbox_size, limit,
+        make_mesh(device=params.device), center, mask_floor, observers,
+        min_observers)
+
+
+def _normal_terms(params, pts, w, volume, bbox_min, bbox_size, limit,
+                  center=0.0, mask_floor=None, observers=None,
+                  min_observers: float = 2.0):
+    """(J, r, wm): the (P, 6) Jacobian of the TSDF residuals r through
+    apply_pose and the trilinear sample, and the weights of the active set
+    before the gradient trim. The active set is asymmetric: residuals
+    above ``mask_floor`` (default -0.999 limit) and below 0.999 limit;
+    ``observers`` weighs each point by _obs_weight."""
 
     def resid(p):
         return _tsdf_at(volume, bbox_min, bbox_size,
@@ -148,13 +173,66 @@ def _normal_equations(params, pts, w, volume, bbox_min, bbox_size, limit,
         ow = _obs_weight(observers, bbox_min, bbox_size, moved,
                          min_observers)
     J = torch.func.jacfwd(resid)(params)                 # (P, 6)
-    wm = torch.where(mask, w * ow, 0.0)
-    wm = _gradient_trim(J, wm)
-    JtWJ = (J[:, :, None] * (J * wm[:, None])[:, None, :]).sum(dim=0)
-    JtWr = (J * (r * wm)[:, None]).sum(dim=0)
-    active = (wm > 0.0).to(torch.float32)
-    denom = torch.clamp_min(active.sum(), 1.0)
-    return JtWJ, JtWr, (torch.abs(r) * active).sum() / denom
+    return J, r, torch.where(mask, w * ow, 0.0)
+
+
+def _normal_sums(J, r, wm):
+    """(J^T W J, J^T W r, sum |r| over the active points, their count), in
+    f64: these sums reassociate only at f64 rounding when the points are
+    split over shards."""
+    Jd, wd = J.to(torch.float64), wm.to(torch.float64)
+    rd = r.to(torch.float64)
+    JtWJ = (Jd[:, :, None] * (Jd * wd[:, None])[:, None, :]).sum(dim=0)
+    JtWr = (Jd * (rd * wd)[:, None]).sum(dim=0)
+    active = (wm > 0.0).to(torch.float64)
+    return JtWJ, JtWr, (torch.abs(rd) * active).sum(), active.sum()
+
+
+def _normal_result(JtWJ, JtWr, num, den):
+    """:func:`_normal_sums` rounded to f32: (J^T W J, J^T W r, mean |r|)."""
+    f32 = torch.float32
+    return (JtWJ.to(f32), JtWr.to(f32),
+            (num / torch.clamp_min(den, 1.0)).to(f32))
+
+
+def _normal_equations_mesh(params, pts, w, volume, bbox_min, bbox_size,
+                           limit, mesh, center=0.0, mask_floor=None,
+                           observers=None, min_observers: float = 2.0):
+    """(J^T W J, J^T W r, mean |r| over the active set) for one sensor's
+    points, split over the mesh's shards: each shard builds the Jacobian of
+    its contiguous slice of the points on its device; the gradient trim's
+    mean meets in a psum, then each shard reduces its points into J^T W J,
+    J^T W r and the residual sums, and these meet in a psum (added in shard
+    order on the first device). ``pts`` / ``w`` must divide evenly over the
+    shards (pad with w = 0). The trim's mean is the whole point set's and
+    every sum adds in f64 before one rounding to f32, so the result is one
+    shard's but for f64 reassociation; the JAX package's mesh form takes
+    each shard's own mean, sums in f32 and drops ``observers``."""
+    from ..dist.collectives import broadcast, psum, scatter
+
+    devs = mesh.devices
+    n = pts.shape[0] // len(devs)
+    center = torch.as_tensor(center, dtype=torch.float32,
+                             device=params.device)
+    shared = [broadcast(t, devs) for t in (params, volume, bbox_min,
+                                           bbox_size, center)]
+    obs = None if observers is None else broadcast(observers, devs)
+    terms = []
+    for s, dev in enumerate(devs):
+        sl = slice(s * n, (s + 1) * n)
+        p_d, vol_d, lo_d, size_d, c_d = (t[dev] for t in shared)
+        terms.append(_normal_terms(
+            p_d, scatter(pts[sl], s, dev), scatter(w[sl], s, dev), vol_d,
+            lo_d, size_d, limit, c_d, mask_floor,
+            None if obs is None else obs[dev], min_observers))
+    trim = [_trim_sums(J, wm) for J, _, wm in terms]
+    sums = [broadcast(psum([t[k] for t in trim], devs[0]), devs)
+            for k in range(2)]
+    parts = [_normal_sums(J, r, _gradient_trim(
+        J, wm, tuple(t[J.device] for t in sums)))
+        for J, r, wm in terms]
+    return _normal_result(*(psum([q[k] for q in parts], devs[0])
+                            for k in range(4)))
 
 
 def leave_one_out_volumes(pipeline, maps, brick_counts, limit=None,
@@ -242,15 +320,15 @@ def refine_poses(calib, maps, volume, limit: float, iters: int = 5,
     it when its cost over the frozen set, with residuals clamped at the
     band, is lower; the damping then falls by 0.3x, else rises by 10x,
     within [1e-6, 1e3]. ``init`` continues from an earlier estimate;
-    ``anchor`` removes the rig-wide mean motion. ``mesh`` (the point axis
-    sharded over devices) is not ported yet.
+    ``anchor`` removes the rig-wide mean motion. ``mesh`` (a dist.Mesh
+    whose first device holds the maps; by default one shard there) splits
+    each sensor's points over its shards, padded with zero-weight points to
+    a multiple of the shards: the normal equations reduce per shard and
+    meet in a psum (:func:`_normal_equations_mesh`); the accept / reject
+    costs run on the first device.
 
     Returns (poses (N, 6), per-iteration mean |r| at the iteration's start
     (iters, N))."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"refine_poses(mesh=...): the multi-device form is not ported "
-            f"yet ({_MESH_ITEM})")
     bbox_min = calib.bbox_min
     bbox_size = calib.bbox_max - calib.bbox_min
     center = bbox_min + 0.5 * bbox_size
@@ -258,6 +336,13 @@ def refine_poses(calib, maps, volume, limit: float, iters: int = 5,
     dev = maps.depth.device
     pts, ws = zip(*(_surface_points(calib, maps, i, stride)
                     for i in range(N)))
+    from ..dist.mesh import _pad_to_multiple, make_mesh
+
+    if mesh is None:
+        mesh = make_mesh(device=dev)
+    # the point axis must divide over the shards: zero-weight padding
+    pts_m = [_pad_to_multiple(p, 0, mesh.size)[0] for p in pts]
+    ws_m = [_pad_to_multiple(w, 0, mesh.size)[0] for w in ws]
     vols = volumes if volumes is not None else volume.expand(
         (N,) + tuple(volume.shape))
 
@@ -288,9 +373,9 @@ def refine_poses(calib, maps, volume, limit: float, iters: int = 5,
     for _ in range(iters):
         masks = [active_mask(poses[i], i) for i in range(N)]
         JtWJ, JtWr, ress = (torch.stack(t) for t in zip(*(
-            _normal_equations(
-                poses[i], pts[i], ws[i], vols[i], bbox_min, bbox_size,
-                limit, center, mask_floor,
+            _normal_equations_mesh(
+                poses[i], pts_m[i], ws_m[i], vols[i], bbox_min, bbox_size,
+                limit, mesh, center, mask_floor,
                 observers=None if observers is None else observers[i],
                 min_observers=min_observers)
             for i in range(N))))

@@ -1,8 +1,8 @@
 """The port stands alone: no module of rgbd_recon_tpu_torch (nor
 chip_smoke.py) imports the JAX package, jax or flax; its own copies of the
-host modules (core/, io/, bench/) agree with the JAX package's; and the
-entry points that move data to a device default to the card and raise
-without one unless the caller asks for the CPU.
+host modules (core/, io/, bench/, calib/scattered.py) agree with the JAX
+package's; and the entry points that move data to a device default to the
+card and raise without one unless the caller asks for the CPU.
 
 Each package builds its own objects from one set of arguments; files
 (.stream recordings, checkpoints) cross between them on disk."""
@@ -17,12 +17,16 @@ import pytest
 import torch
 
 from rgbd_recon_tpu import core as jax_core
+from rgbd_recon_tpu.calib import scattered as jax_scattered
 from rgbd_recon_tpu.io import checkpoint as jax_checkpoint
 from rgbd_recon_tpu.io import stream as jax_stream
 
 from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch import core as port_core
+from rgbd_recon_tpu_torch import dist
 from rgbd_recon_tpu_torch.bench import TimerDatabase
+from rgbd_recon_tpu_torch.calib import scattered as port_scattered
+from rgbd_recon_tpu_torch.calib.inverter import invert_calibration_bruteforce
 from rgbd_recon_tpu_torch.calib.sensors import build_synthetic_calibration
 from rgbd_recon_tpu_torch.core import camera as port_camera
 from rgbd_recon_tpu_torch.io import checkpoint as port_checkpoint
@@ -78,7 +82,10 @@ def test_module_list_is_whole():
     for name in ("core/grid.py", "core/camera.py", "core/config.py",
                  "io/stream.py", "io/dxt.py", "io/network.py",
                  "io/checkpoint.py", "io/native.py", "io/feed.py",
-                 "bench/timing.py", "refine/pose_ba.py"):
+                 "bench/timing.py", "refine/pose_ba.py",
+                 "calib/scattered.py", "dist/__init__.py",
+                 "dist/collectives.py", "dist/halo.py", "dist/mesh.py",
+                 "dist/preprocess.py"):
         assert f"rgbd_recon_tpu_torch/{name}" in PORT_FILES, name
 
 
@@ -259,6 +266,28 @@ def test_native_reader_matches(tmp_path):
         nat.close()
 
 
+@pytest.mark.parametrize("fn", ["idw", "mls", "mls_degenerate", "lookup"])
+def test_scattered_matches(fn):
+    """calib/scattered.py's copy gives the JAX package's values bit for
+    bit: IDW, MLS (and its IDW fallback on coplanar neighbourhoods) and the
+    lookup-volume builder."""
+    rng = np.random.default_rng(8)
+    pos = rng.uniform(0, 1, (120, 3))
+    val = rng.uniform(-1, 1, (120, 2))
+    q = rng.uniform(0, 1, (40, 3))
+    if fn == "mls_degenerate":
+        pos[:, 2] = 0.5       # every neighbourhood coplanar
+    calls = {
+        "idw": lambda m: m.idw_interpolate(pos, val, q, k=6),
+        "mls": lambda m: m.mls_interpolate(pos, val, q, k=12),
+        "mls_degenerate": lambda m: m.mls_interpolate(pos, val, q, k=12),
+        "lookup": lambda m: m.build_lookup_volume(
+            pos, val, (5, 4, 3), np.zeros(3), np.ones(3)),
+    }
+    np.testing.assert_array_equal(calls[fn](port_scattered),
+                                  calls[fn](jax_scattered))
+
+
 def test_volume_binary_matches(tmp_path):
     vol = np.random.default_rng(4).normal(size=(3, 4, 5)).astype(np.float32)
     port_checkpoint.save_volume_binary(tmp_path / "p.vol", vol, (0.5, 4.5))
@@ -305,6 +334,10 @@ ENTRY_POINTS = {
     "CamParams.from_matrix": lambda: CamParams.from_matrix(
         np.eye(4, dtype=np.float32), port_core.BoundingBox(**BOX)),
     "FrameFeed": lambda: FrameFeed(lambda: None),
+    "make_mesh": lambda: dist.make_mesh(),
+    "invert_calibration_bruteforce": lambda: invert_calibration_bruteforce(
+        np.zeros((2, 2, 2, 3), np.float32), port_core.BoundingBox(**BOX),
+        (2, 2, 2)),
     "calibration_from_numpy": lambda: convert.calibration_from_numpy(
         _container_arrays()),
     "frames_from_numpy": lambda: convert.frames_from_numpy(dict(
@@ -345,7 +378,7 @@ def test_entry_points_default_to_cuda():
            convert.calibration_from_numpy, convert.frames_from_numpy,
            convert.pixel_models_from_numpy,
            convert.projection_models_from_numpy,
-           convert.sensor_maps_from_numpy]
+           convert.sensor_maps_from_numpy, invert_calibration_bruteforce]
     for fn in fns:
         default = inspect.signature(fn).parameters["device"].default
         assert default == torch.device("cuda"), fn.__qualname__

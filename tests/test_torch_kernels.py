@@ -9,6 +9,7 @@ the JAX package's dependencies:
 Without a CUDA device the ``cuda`` tests skip; the CPU tests always run.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -138,8 +139,8 @@ def test_cpu_pipeline_launches_no_kernel():
 
 def _small_scene(device, brick_size=0.4, **cfg):
     """A 2-sensor sphere scene fused on ``device``: (pipeline, volume,
-    maps, counts, camera), 10 cm voxels in 40 cm bricks (4 voxels) unless
-    ``brick_size`` says otherwise."""
+    maps, counts, camera, frames), 10 cm voxels in 40 cm bricks (4 voxels)
+    unless ``brick_size`` says otherwise."""
     from rgbd_recon_tpu_torch.calib.sensors import build_synthetic_calibration
     from rgbd_recon_tpu_torch.core import BoundingBox, PipelineConfig
     from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
@@ -161,7 +162,7 @@ def _small_scene(device, brick_size=0.4, **cfg):
         **cfg),
         bbox)
     volume, maps, counts = pipe.fuse(frames)
-    return pipe, volume, maps, counts, ViewCamera(width=64, height=48)
+    return pipe, volume, maps, counts, ViewCamera(width=64, height=48), frames
 
 
 @pytest.mark.parametrize("brick_size,rounds", [(0.4, 4), (0.4, 5),
@@ -185,7 +186,7 @@ def test_bake_dispatch_rule(monkeypatch, brick_size, rounds):
                         recording("surface_occ", bake.surface_occ_plain))
     monkeypatch.setattr(bake, "sentinel_bake",
                         recording("sentinel_bake", bake.sentinel_bake_plain))
-    pipe, volume, maps, counts, cam = _small_scene(
+    pipe, volume, maps, counts, cam, _ = _small_scene(
         "cpu", brick_size=brick_size, skip_fine_rounds=rounds)
     out = pipe.make_renderer(cam)(volume, maps, counts)
     assert int(out.hit.sum()) > 50
@@ -193,6 +194,86 @@ def test_bake_dispatch_rule(monkeypatch, brick_size, rounds):
                      "sentinel_bake": int(rounds <= pipe.brick_vox)}
     assert bake.uses_kernel_bake(pipe.brick_vox, rounds) == (
         rounds <= round(brick_size / 0.1))
+
+
+def _slabs(pipe, volume, shards, device):
+    """``volume`` as the sharded step holds it over ``shards`` shards on
+    ``device``: brick z-slabs of whole bricks, the rows past Z at the clear
+    value."""
+    v = pipe.brick_vox
+    Z = volume.shape[0]
+    Zl = -(-(-(-Z // v)) // shards) * v
+    pad = torch.full((Zl * shards - Z,) + tuple(volume.shape[1:]),
+                     -pipe._limit, device=volume.device)
+    return [s.to(device) for s in torch.cat([volume, pad]).split(Zl)]
+
+
+@pytest.mark.parametrize("rounds", [3, 4, 6, 16])
+@pytest.mark.parametrize("shards", [8, 3])
+def test_slab_bake_dispatch_rule(monkeypatch, shards, rounds):
+    """The sharded step's slab bake (dist/mesh.py _bake_slabs) calls the
+    surface_occ wrapper once per shard, and the sentinel_bake wrapper once
+    per shard exactly when the render's rule gives the kernel
+    (skip_fine_rounds <= brick_vox = 4); its tables equal the
+    single-device bake's. Wrappers stubbed to record their calls."""
+    from rgbd_recon_tpu_torch.dist.mesh import _bake_slabs
+
+    calls = {"surface_occ": 0, "sentinel_bake": 0}
+
+    def recording(name, plain):
+        def stub(*args, **kw):
+            calls[name] += 1
+            return plain(*args, **kw)
+        return stub
+
+    pipe, volume, maps, counts, cam, _ = _small_scene(
+        "cpu", skip_fine_rounds=rounds)
+    render, _ = pipe.make_render_fn(cam)
+    want = render.bake(volume, counts)
+    monkeypatch.setattr(bake, "surface_occ",
+                        recording("surface_occ", bake.surface_occ_plain))
+    monkeypatch.setattr(bake, "sentinel_bake",
+                        recording("sentinel_bake", bake.sentinel_bake_plain))
+    got = _bake_slabs(render, _slabs(pipe, volume, shards, "cpu"),
+                      tuple(volume.shape), pipe.brick_vox, pipe._limit,
+                      torch.device("cpu"))
+    assert calls == {"surface_occ": shards,
+                     "sentinel_bake": shards * int(rounds <= 4)}
+    for g, w in zip(got[::2], want[::2]):     # table, surface bricks
+        assert torch.equal(g, w)
+    assert torch.equal(got[3], want[3])
+
+
+def _same_bake_part(got, want) -> bool:
+    """A bake output equal bit for bit: a tensor, None, or the oct table (a
+    dataclass of tensors)."""
+    if isinstance(got, torch.Tensor) and isinstance(want, torch.Tensor):
+        return torch.equal(got, want)
+    if dataclasses.is_dataclass(got) and type(got) is type(want):
+        return all(_same_bake_part(getattr(got, f.name),
+                                   getattr(want, f.name))
+                   for f in dataclasses.fields(got))
+    return got == want
+
+
+@pytest.mark.parametrize("shards", [8, 3])
+def test_slab_bake_with_oct_table(shards):
+    """In 2-voxel bricks the (20, 22, 20) volume is brick-aligned, so the
+    render builds an oct hit table: the slab bake's, from the gathered raw
+    volume, equals the single-device bake's field for field, as do its
+    march table, surface bricks and clearance."""
+    from rgbd_recon_tpu_torch.dist.mesh import _bake_slabs
+
+    pipe, volume, maps, counts, cam, _ = _small_scene(
+        "cpu", brick_size=0.2, skip_fine_rounds=2)
+    render, _ = pipe.make_render_fn(cam)
+    want = render.bake(volume, counts)
+    assert want[1] is not None
+    got = _bake_slabs(render, _slabs(pipe, volume, shards, "cpu"),
+                      tuple(volume.shape), pipe.brick_vox, pipe._limit,
+                      torch.device("cpu"))
+    for name, g, w in zip(("table", "oct", "occ", "bsafe"), got, want):
+        assert _same_bake_part(g, w), name
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -500,7 +581,7 @@ def test_render_bake_rule_on_the_card(cuda, brick_size, rounds):
     skip_fine_rounds <= brick_vox (4-voxel bricks: the plain bake; 20-voxel
     bricks: the kernel, in two launches); either table equals the plain
     bake of the same volume and brick clearance."""
-    pipe, volume, maps, counts, cam = _small_scene(
+    pipe, volume, maps, counts, cam, _ = _small_scene(
         cuda, brick_size=brick_size, skip_fine_rounds=rounds)
     render_fn, _ = pipe.make_render_fn(cam)
     kernels.reset_launch_counts()
@@ -516,3 +597,68 @@ def test_render_bake_rule_on_the_card(cuda, brick_size, rounds):
     assert torch.equal(occ, bake.surface_occ_plain(volume, pipe.brick_vox))
     out = pipe.make_renderer(cam)(volume, maps, counts)
     assert int(out.hit.sum()) > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [3, 4, 6])
+@pytest.mark.parametrize("shards", [8, 3])
+def test_slab_bake_on_the_card(cuda, shards, rounds):
+    """The sharded step's slab bake on one card, its shards all on it: the
+    kernels (surface_occ per shard; sentinel_bake per shard where
+    skip_fine_rounds <= brick_vox) give the tables of the plain twins' slab
+    bake on the CPU and of the single-device bake on the card, bit for
+    bit."""
+    from rgbd_recon_tpu_torch.calib.sensors import CalibrationSet
+    from rgbd_recon_tpu_torch.dist.mesh import _bake_slabs
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    pipe, volume, maps, counts, cam, _ = _small_scene(
+        cuda, skip_fine_rounds=rounds)
+    render, _ = pipe.make_render_fn(cam)
+    want = render.bake(volume, counts)
+    kernels.reset_launch_counts()
+    got = _bake_slabs(render, _slabs(pipe, volume, shards, cuda),
+                      tuple(volume.shape), pipe.brick_vox, pipe._limit,
+                      volume.device)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert launched["surface_occ"] == shards
+    assert launched["sentinel_bake"] == shards * int(rounds <= 4)
+    cpu_calib = CalibrationSet(**{
+        f.name: getattr(pipe.calib, f.name).cpu()
+        for f in dataclasses.fields(CalibrationSet)})
+    cpu_render, _ = TsdfPipeline(cpu_calib, pipe.config,
+                                 pipe.bbox).make_render_fn(cam)
+    plain = _bake_slabs(cpu_render, _slabs(pipe, volume, shards, "cpu"),
+                        tuple(volume.shape), pipe.brick_vox, pipe._limit,
+                        torch.device("cpu"))
+    # no oct table: Y = 22 is no whole number of 4-voxel bricks
+    assert got[1] is None and plain[1] is None and want[1] is None
+    for name, g, p, w in zip(("table", "occ", "bsafe"), got[::2] + got[3:],
+                             plain[::2] + plain[3:], want[::2] + want[3:]):
+        assert torch.equal(g, w), name
+        assert torch.equal(g.cpu(), p), name
+
+
+@pytest.mark.cuda
+def test_sharded_step_over_the_cards(cuda):
+    """With two cards or more, the sharded step with one shard on each
+    (the slab bake's kernels launched on each shard's card, the halo,
+    gathers and maps copied between cards) is bit-equal to the single
+    device's step on the first card."""
+    from rgbd_recon_tpu_torch import dist
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    pipe, volume, maps, counts, cam, frames = _small_scene(
+        torch.device("cuda", 0))
+    ref = pipe.make_renderer(cam)(volume, maps, counts)
+    kernels.reset_launch_counts()
+    vol_sh, out = dist.shard_compact_step(pipe, cam, dist.make_mesh())(frames)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["surface_occ"] == n
+    assert [s.device.index for s in vol_sh.slabs] == list(range(n))
+    assert torch.equal(vol_sh.gather(), volume)
+    for field in ("hit", "depth", "color"):
+        assert torch.equal(getattr(out, field), getattr(ref, field)), field

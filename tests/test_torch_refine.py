@@ -287,10 +287,24 @@ def test_refine_poses_match(rig, loo, iters):
                                atol=POSE_ATOL)
 
 
-def test_refine_poses_mesh_is_not_ported(rig):
-    with pytest.raises(NotImplementedError, match="1.6"):
-        port_ba.refine_poses(rig["pcalib"], rig["pmaps"], rig["pvolume"],
-                             LIMIT, iters=1, mesh=object())
+def test_refine_poses_mesh_is_not_ported(rig, loo):
+    """refine_poses(mesh=...) runs: over 7 CPU shards (each sensor's 480
+    points padded with zero-weight points to 483), against the leave-one-out
+    volumes with their observer counts, 2 LM iterations give the
+    single-device poses bit for bit (the shards' sums add in f64 and the
+    gradient trim takes the whole point set's mean)."""
+    from rgbd_recon_tpu_torch.dist import make_mesh
+
+    _, _, pv, po = loo
+    kw = dict(iters=2, volumes=pv, observers=po, mask_floor=-LIMIT * 0.999)
+    single, _ = port_ba.refine_poses(rig["pcalib"], rig["pmaps"], None,
+                                     LIMIT, **kw)
+    mesh, hist = port_ba.refine_poses(rig["pcalib"], rig["pmaps"], None,
+                                      LIMIT, mesh=make_mesh(7, device="cpu"),
+                                      **kw)
+    assert tuple(hist.shape) == (2, 4)
+    assert float(single.abs().max()) > 1e-3
+    assert torch.equal(mesh, single)
 
 
 # ---- residual stats, applying corrections -----------------------------------
