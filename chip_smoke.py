@@ -73,10 +73,34 @@ Then, at the same scale:
   ``invert_calibration_bruteforce`` on the card against the kd-tree
   inverter; with two cards or more also the compact step over them. On one
   card its CUDA-event times measure the shards' extra launches and copies,
-  not scaling.
+  not scaling;
+- phase 13 (run right after phase 3, while torch.profiler still records)
+  runs the gather-rate probe (``rgbd_recon_tpu_torch.bench.gather_probe``)
+  at the TPU probe's shapes: the four gather kernels of ``csrc/gather.cu``
+  against their plain twins bit for bit, timed like the kernels of phase 3
+  beside their bound and the PyTorch call that computes the same gather;
+  the shared-memory gather's table load is timed on its own (a launch with
+  no lookups). They are on no path: launched 0 times in every path's run;
+- phase 14 runs ``python -m rgbd_recon_tpu_torch.dist.worker`` as 2
+  processes of 4 shards each on the worker's scene: gloo, both processes
+  on the first card, bit-equal to the single device and to the 8-shard
+  step of one process; NCCL with the two processes on one card must be
+  refused; with two cards or more, NCCL with a card a process, bit-equal
+  too; with four cards or more, the same again with 4 processes of 2
+  shards. A worker that fails or outlives its limit fails the phase; all
+  are killed;
+- phase 15 runs the app for 2 frames with ``--preview-port`` on a free
+  port, fetches ``/frame`` after each frame the app publishes (a baseline
+  JPEG with SOI, EOI and the frame's size), times what ``update()`` costs
+  the app's frame loop, and times ``viz/jpeg.py`` on the fast path's
+  1280x720 render on this machine's host.
+
+``python3 chip_smoke.py --multiprocess`` builds the kernels and runs phase
+14 alone (on a machine of four cards: gloo and NCCL at 2 x 4 and 4 x 2).
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with the
-per-kernel results (launches on the fast path, and per path; max |kernel -
+per-kernel results, the probe's four gathers too (launches on the fast
+path, and per path; max |kernel -
 plain|; kernel, plain and library ms; device ms with a cold and a warm L2
 and its split by device activity; the bound, what sets it and the share of
 it the kernel's cold device time reaches), and as the last line
@@ -113,6 +137,8 @@ SIDE_PATHS = {
     "parity_dense": dict(PARITY, bricking=False, skip_space=False),
     "fast_f32": dict(march_dtype="float32"),
 }
+# the kernels of the paths (the gather probe's four run on none)
+PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake")
 # kernels each side path must and must not launch
 SIDE_LAUNCHES = {
     "parity": (("bilateral13", "quality13", "surface_occ"),
@@ -206,6 +232,14 @@ SHARD_COLOR_TOL = 1e-5
 MAP_TOLS = {"depth": 1e-6, "quality": 1e-6, "silhouette": 1e-6,
             "normal": 1e-5, "lab": 2e-4}
 MESH_POSE_SHARDS = 4
+# phase 14: the worker's layouts (processes, shards each): the first on
+# any machine, the second where each process can have a card of its own; a
+# worker that runs longer than MP_TIMEOUT_S fails the phase
+MP_LAYOUTS = ((2, 4), (4, 2))
+MP_TIMEOUT_S = 300
+# phase 15: the app's preview run, and the encoder's timing samples
+PREVIEW_ARGS = ["--mode", "1"]
+JPEG_SAMPLES = 5
 MESH_POSE_ITERS = 2
 MESH_POSE_ATOL = 3e-4
 INV_CV_RES = (40, 48, 40)
@@ -523,7 +557,8 @@ def _phase8_app(torch, pipe, frames, card, by_path):
     ``app record`` at the frames' sizes, then ``app run`` for each entry
     of APP_RUNS from the recording. Checks each run's launch counts, PNGs,
     timings.csv and (with stereo) the checkpoint's frame index; prints
-    each run's stage means. Adds each run's launches to ``by_path``."""
+    each run's stage means. Adds each run's launches to ``by_path``.
+    Returns the working directory and the size arguments of the runs."""
     import shutil
     from pathlib import Path
 
@@ -604,6 +639,7 @@ def _phase8_app(torch, pipe, frames, card, by_path):
                 raise AssertionError(f"{name}: checkpoint {latest}")
             print(f"{name}: checkpoint at frame {latest.frame_index}, "
                   f"volume {latest.volume.shape}", flush=True)
+    return work, sizes
 
 
 def _timed(fn, samples=3, iters=10):
@@ -646,7 +682,7 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
         launched = kernels.launch_counts()
         print(f"{name}: setup + 2 frames {time.perf_counter() - t0:.1f} s; "
               f"launches {launched}", flush=True)
-        want = dict.fromkeys(launched, 1)
+        want = {k: int(k in PATH_KERNELS) for k in launched}
         if vpipe.config.skip_fine_rounds > vpipe.brick_vox:
             want["sentinel_bake"] = 0        # the plain bake, as in JAX
         if launched != want:
@@ -918,9 +954,10 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         moved = collectives.bytes_moved()
         print(f"{label}: launches {launched}; bytes per frame {moved}",
               flush=True)
-        if launched != dict(want):
+        want = {k: dict(want).get(k, 0) for k in launched}
+        if launched != want:
             raise AssertionError(f"{label}: launched {launched}, expected "
-                                 f"{dict(want)}")
+                                 f"{want}")
         by_path[label] = launched
         return out
 
@@ -1118,7 +1155,282 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
     return slab_checks
 
 
-def main() -> int:
+def _phase13_gather(np, torch, card, flush):
+    """The gather-rate probe at the TPU probe's shapes (see the module
+    docstring). Returns the four kernels' JSON records."""
+    from rgbd_recon_tpu_torch.bench import gather_probe
+    from rgbd_recon_tpu_torch.kernels.gather import smem_table_entries
+    from rgbd_recon_tpu_torch.ops import gather
+    from rgbd_recon_tpu_torch.profile_slice import event_ms
+
+    dev = torch.device("cuda")
+    n = gather_probe.LOOKUPS
+    table, idx = gather_probe.make_inputs(dev, seed=0)
+    print(f"gather probe: {n} lookups, table {table.numel()} f32 entries; "
+          f"shared memory takes at most {smem_table_entries(dev)} entries "
+          f"a block on this card", flush=True)
+    rows = []
+    for f in gather_probe.formulations(table, idx):
+        got, want, lib = f.kernel(), f.plain(), f.library()
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        print(f"{f.name}: max|kernel - plain| = {err!r} (bound 0)",
+              flush=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{f.name} differs from its plain version")
+        if not torch.equal(lib, want):
+            raise AssertionError(f"{f.name}: {f.library_name} computes "
+                                 "another function")
+        ms = event_ms(f.kernel, iters=20, warmup=3)
+        plain_ms = event_ms(f.plain, iters=20, warmup=3)
+        library_ms = event_ms(f.library, iters=20, warmup=3)
+        device_ms, device_ms_warm, split, retakes = _device_ms(
+            torch, f.kernel, flush)
+        lib_cold, lib_warm, _, r = _device_ms(torch, f.library, flush)
+        retakes += r
+        bound_ms, bound_by = _bound(f.moved, 0)
+        row = dict(name=f.name, route="cuda",
+                   source="rgbd_recon_tpu_torch/csrc/gather.cu",
+                   replaces=f.replaces, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, device_ms=device_ms,
+                   device_ms_warm=device_ms_warm, device_split=split,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / device_ms,
+                   library=f.library_name,
+                   library_ms=library_ms, library_device_ms=lib_cold,
+                   library_device_ms_warm=lib_warm,
+                   mlookups_s_cold=n / device_ms / 1e3,
+                   mlookups_s_warm=n / device_ms_warm / 1e3, ops=0)
+        if f.name == "gather_flat_smem":
+            # the table load alone: a launch of the same grid with no
+            # lookups
+            tab_s = f.moved[0]
+            none = idx[:0]
+
+            def load():
+                return gather.gather_flat_smem(tab_s, none)
+
+            load_ms, load_warm, _, r = _device_ms(torch, load, flush)
+            retakes += r
+            row.update(load_device_ms=load_ms, load_device_ms_warm=load_warm,
+                       mlookups_s_past_load=n / (device_ms - load_ms) / 1e3)
+            print(f"{f.name}: table load alone {load_ms!r} ms cold, "
+                  f"{load_warm!r} warm (device); lookups past the load "
+                  f"{n / (device_ms - load_ms) / 1e3:.1f} M/s", flush=True)
+        row["trace_retakes"] = retakes
+        print(f"{f.name}: {ms!r} ms (events; plain {plain_ms!r}, "
+              f"{f.library_name} {library_ms!r}), device {device_ms!r} ms "
+              f"cold L2, {device_ms_warm!r} warm ({n / device_ms / 1e3:.1f} "
+              f"/ {n / device_ms_warm / 1e3:.1f} M lookups/s; "
+              f"{f.library_name} {lib_cold!r} / {lib_warm!r}), bound "
+              f"{bound_ms!r} ms by {bound_by}, {bound_ms / device_ms:.1%} "
+              f"of it, on {card}",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def _phase14_multiprocess(np, torch, card, processes, shards):
+    """The worker as ``processes`` processes of ``shards`` shards each (see
+    the module docstring); every check raises on failure."""
+    import json as js
+    import os
+    import shutil
+    import socket
+    import subprocess
+    from pathlib import Path
+
+    from rgbd_recon_tpu_torch import dist
+    from rgbd_recon_tpu_torch.dist.worker import scene
+
+    root = Path(__file__).resolve().parent
+    dev = torch.device("cuda", 0)
+    pipe, frames, camera = scene(dev)
+    volume, maps, counts = pipe.fuse(frames)
+    out = pipe.make_renderer(camera)(volume, maps, counts)
+    vol8, out8 = dist.shard_pipeline_step(
+        pipe, camera, dist.make_mesh(devices=[dev] * shards
+                                     * processes))(frames)
+    want = {"volume": volume, "color": out.color, "hit": out.hit}
+    one = {"volume": vol8.gather(), "color": out8.color, "hit": out8.hit}
+    for k in want:
+        if not torch.equal(one[k], want[k]):
+            raise AssertionError(f"the 8-shard step's {k} differs from the "
+                                 "single device's")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        q for q in (str(root), env.get("PYTHONPATH")) if q)
+
+    def workers(backend):
+        """Run the workers; (returncodes, outputs, outdir)."""
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        outdir = root / "build" / "chip_smoke_mp" / backend
+        shutil.rmtree(outdir, ignore_errors=True)
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "rgbd_recon_tpu_torch.dist.worker",
+             "--process-id", str(i), "--num-processes", str(processes),
+             "--coordinator", f"127.0.0.1:{port}", "--outdir", str(outdir),
+             "--devices-per-process", str(shards), "--device", "cuda",
+             "--backend", backend], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for i in range(processes)]
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        outs = []
+        try:
+            for q in procs:
+                o, _ = q.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                outs.append(o.decode(errors="replace"))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{backend} workers ran past "
+                                 f"{MP_TIMEOUT_S} s") from None
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+        return [q.returncode for q in procs], outs, outdir
+
+    def bit_equal(backend):
+        t0 = time.perf_counter()
+        rcs, outs, outdir = workers(backend)
+        wall = time.perf_counter() - t0
+        if any(rcs) or not (outdir / "done").exists():
+            raise AssertionError(f"{backend} workers failed ({rcs}):\n"
+                                 + "\n".join(o[-3000:] for o in outs))
+        meta = js.loads((outdir / "meta.json").read_text())
+        got = {k: np.load(outdir / f"{k}.npy") for k in want}
+        same = {k: bool(np.array_equal(got[k], want[k].cpu().numpy()))
+                for k in want}
+        launched = meta["launches_per_step"]
+        print(f"multiprocess {backend}: {processes} processes x "
+              f"{shards} shards on {meta['devices']}, spans "
+              f"{meta['process_spans']}; bit-equal to the single device and "
+              f"the 8-shard step of one process {same} "
+              f"({int(out.hit.sum())} hits); process 0's launches a step "
+              f"{launched}; bytes a step {meta['bytes_per_step']}; step "
+              f"{meta['step_seconds'] * 1e3!r} ms (host clock, process 0, "
+              f"after a warm-up), {wall:.1f} s for the whole run, on "
+              f"{card}", flush=True)
+        if not all(same.values()) or meta["process_spans"] != list(
+                range(processes)):
+            raise AssertionError(f"multiprocess {backend}: {same}, spans "
+                                 f"{meta['process_spans']}")
+        if (launched["surface_occ"] != shards
+                or launched["sentinel_bake"] != shards):
+            raise AssertionError(f"multiprocess {backend}: process 0 "
+                                 f"launched {launched}, not once a shard "
+                                 f"of its {shards}")
+
+    bit_equal("gloo")
+    if torch.cuda.device_count() >= processes:
+        bit_equal("nccl")
+    else:
+        rcs, outs, _ = workers("nccl")
+        refused = all(rc != 0 for rc in rcs) and any(
+            "NCCL refuses two ranks on one GPU" in o for o in outs)
+        print(f"multiprocess nccl, both processes on the one card: refused "
+              f"{refused} (exit codes {rcs}); NCCL with a card a process is "
+              f"not run: one card", flush=True)
+        if not refused:
+            raise AssertionError("nccl with two ranks on one GPU was not "
+                                 "refused:\n" + "\n".join(
+                                     o[-3000:] for o in outs))
+
+
+def _phase14_layouts(np, torch, card):
+    """Phase 14 at each layout of MP_LAYOUTS this machine's cards allow."""
+    t_phase = time.perf_counter()
+    for processes, shards in MP_LAYOUTS:
+        if processes == MP_LAYOUTS[0][0] or (
+                torch.cuda.device_count() >= processes):
+            _phase14_multiprocess(np, torch, card, processes, shards)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _phase15_preview(np, torch, card, work, sizes, color, by_path):
+    """The app with the live preview, and the encoder's time (see the
+    module docstring)."""
+    import socket
+    import statistics
+    import struct
+    import urllib.request
+
+    from rgbd_recon_tpu_torch import app, kernels
+    from rgbd_recon_tpu_torch.viz import jpeg
+    from rgbd_recon_tpu_torch.viz.preview import PreviewServer
+
+    served, update_ms = [], []
+    publish = PreviewServer.update
+
+    def update_then_fetch(self, image):
+        # what the app's frame loop pays (the copy to the host), then the
+        # viewer's fetch, which encodes on the server's thread
+        t0 = time.perf_counter()
+        publish(self, image)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/frame",
+                                    timeout=10) as r:
+            served.append(r.read())
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    out_dir = work / "app_preview"
+    argv = ["run", str(work / "scene.ks"), "--conf", str(work / "scene.conf"),
+            "--streams", str(work / "rec"), "--no-native-ingest", "--frames",
+            str(APP_FRAMES), "--out", str(out_dir), "--width", "1280",
+            "--height", "720", *sizes, *PREVIEW_ARGS, "--preview-port",
+            str(port)]
+    kernels.reset_launch_counts()
+    PreviewServer.update = update_then_fetch
+    try:
+        app.main(argv)
+    finally:
+        PreviewServer.update = publish
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    by_path["app_mode1_preview"] = launched
+    want = {k: APP_FRAMES * int(k in PATH_KERNELS) for k in launched}
+    if launched != want:
+        raise AssertionError(f"app_mode1_preview: launched {launched}, "
+                             f"expected {want}")
+
+    def frame_size(data):
+        i = 2
+        while data[i + 1] != 0xC0:
+            i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+        return struct.unpack(">HH", data[i + 5:i + 9])
+
+    sizes_ok = [d[:2] == b"\xff\xd8" and d[-2:] == b"\xff\xd9"
+                and frame_size(d) == (720, 1280) for d in served]
+    print(f"app_mode1_preview: launches {launched}; /frame after each of "
+          f"{len(served)} frames: SOI, EOI and 1280x720 {sizes_ok}, "
+          f"{[len(d) for d in served]} bytes; update() on the frame loop "
+          f"{update_ms!r} ms (host clock, the copy to the host; the encode "
+          f"runs on the server's thread), on {card}", flush=True)
+    if len(served) != APP_FRAMES or not all(sizes_ok):
+        raise AssertionError(f"preview: {len(served)} frames, {sizes_ok}")
+    times = []
+    for _ in range(JPEG_SAMPLES):
+        t0 = time.perf_counter()
+        data = jpeg.encode_jpeg(color, 80)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"jpeg encode of the fast path's 1280x720 render at quality 80: "
+          f"{statistics.median(times)!r} ms (host clock, median of "
+          f"{JPEG_SAMPLES}: {times}), {len(data)} bytes, on this card's "
+          f"host ({card})", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--multiprocess", action="store_true",
+                    help="build the kernels and run phase 14 alone")
+    args = ap.parse_args(argv)
     # imports first: in a directory without the repo this fails before any
     # result is printed
     import numpy as np
@@ -1149,6 +1461,10 @@ def main() -> int:
         report = _build.BUILD_DIR / f"{src.stem}.ptxas.txt"
         print(f"ptxas -v, {src.name}:\n{report.read_text().strip()}",
               flush=True)
+    if args.multiprocess:
+        _phase14_layouts(np, torch, card)
+        print(card)
+        return 0
 
     # ---- 2. reference-scale setup ------------------------------------------
     t0 = time.perf_counter()
@@ -1337,6 +1653,13 @@ def main() -> int:
 
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- 13. the gather-rate probe, right after phase 3: torch.profiler
+    # handed back only empty traces after phase 11's profile of a whole
+    # refinement round (~111 k device activities) ---------------------------
+    t_phase = time.perf_counter()
+    results += _phase13_gather(np, torch, card, flush)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 4. the main path, counted -----------------------------------------
     t_phase = time.perf_counter()
     kernels.reset_launch_counts()
@@ -1345,15 +1668,19 @@ def main() -> int:
     torch.cuda.synchronize()
     launched = kernels.launch_counts()
     print(f"launches on the fast path: {launched}", flush=True)
-    missing = [k for k, n in launched.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"fast path did not launch: {missing}")
+    missing = [k for k in PATH_KERNELS if launched[k] <= 0]
+    extra = [k for k, n in launched.items() if n and k not in PATH_KERNELS]
+    if missing or extra:
+        raise AssertionError(f"fast path did not launch {missing}, "
+                             f"launched {extra}")
     by_path = {"fast": launched}
     _, fast_hits = _check_render(np, torch, "fast", volume, out, counts, cfg,
                                  camera, HITS_REF)
 
     # the colour variants of phase 9 must leave these bit-equal
     fast = (out.hit.clone(), out.depth.clone())
+    # phase 15 encodes this render
+    fast_color = out.color.cpu().numpy()
 
     # ---- 5. timings (informative) ------------------------------------------
     fuse_ms = _timed(lambda: pipe.fuse(frames))
@@ -1383,7 +1710,8 @@ def main() -> int:
         print(f"launches on the {name} path: {launched}", flush=True)
         must, must_not = SIDE_LAUNCHES[name]
         missing = [k for k in must if launched[k] <= 0]
-        extra = [k for k in must_not if launched[k] > 0]
+        extra = [k for k, n in launched.items()
+                 if n > 0 and (k in must_not or k not in PATH_KERNELS)]
         if missing or extra:
             raise AssertionError(f"{name} path: not launched {missing}, "
                                  f"launched {extra}")
@@ -1418,7 +1746,7 @@ def main() -> int:
 
     # ---- 8. the application shell, every mode -----------------------------
     t_phase = time.perf_counter()
-    _phase8_app(torch, pipe, frames, card, by_path)
+    app_work, app_sizes = _phase8_app(torch, pipe, frames, card, by_path)
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 9. the fast config's variants ------------------------------------
@@ -1445,6 +1773,15 @@ def main() -> int:
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
     del pipe, frames, drifted
     torch.cuda.empty_cache()
+
+    # ---- 14. the mesh over two processes ----------------------------------
+    _phase14_layouts(np, torch, card)
+
+    # ---- 15. the live preview and its encoder ------------------------------
+    t_phase = time.perf_counter()
+    _phase15_preview(np, torch, card, app_work, app_sizes, fast_color,
+                     by_path)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     for r in results:

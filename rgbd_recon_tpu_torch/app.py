@@ -31,10 +31,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# the queue item of ROADMAP.md that the app's unported option waits on
-_PREVIEW_ITEM = "ROADMAP.md §1.4, viz/preview"
-
-
 def _device(name: str) -> torch.device:
     from .device import resolve
 
@@ -247,10 +243,6 @@ def cmd_run(args):
     from .viz import save_image
     from .viz.stereo import StereoCamera, make_stereo_renderer
 
-    if args.preview_port:
-        raise NotImplementedError(
-            f"--preview-port: the live preview is not ported yet "
-            f"({_PREVIEW_ITEM})")
     device = _device(args.device)
     scene, config = _load_scene(args.scene, args.conf)
     if args.mode is not None:
@@ -334,6 +326,14 @@ def cmd_run(args):
             start_frame = resumed.frame_index
             print(f"resuming at frame {start_frame}", file=sys.stderr)
 
+    preview = None
+    if args.preview_port:
+        from .viz.preview import PreviewServer
+
+        preview = PreviewServer(port=args.preview_port)
+        print(f"live preview: http://localhost:{preview.port}/",
+              file=sys.stderr)
+
     feed = FrameFeed(source, device=device, mode=feed_mode)
     start = time.time()
     try:
@@ -380,6 +380,10 @@ def cmd_run(args):
                                                   cam_pose)
             if args.save_renders:
                 save_image(out_dir / f"frame_{n_done:04d}.png", img)
+            if preview is not None:
+                # live MJPEG preview (the reference's viewer window,
+                # kinect_client.cpp:583-716, as a browser stream)
+                preview.update(img)
             n_done += 1
             if ckpt_mgr is not None and n_done % args.checkpoint_every == 0:
                 ckpt_mgr.save(ReconCheckpoint(
@@ -407,6 +411,8 @@ def cmd_run(args):
             zmq_source.close()
         if fbr is not None:
             fbr.close()
+        if preview is not None:
+            preview.close()
     print(db.write_csv(out_dir / "timings.csv"), file=sys.stderr)
     if feed_mode == "latest":
         dropped = max(0, produced - n_done)
@@ -536,8 +542,8 @@ def main(argv=None):
     pr.add_argument("--resume", action="store_true",
                     help="resume frame cursor from the latest checkpoint")
     pr.add_argument("--preview-port", type=int, default=0,
-                    help="live MJPEG preview port (not ported: any port "
-                         f"raises; {_PREVIEW_ITEM})")
+                    help="serve a live MJPEG preview of the render on "
+                         "http://<host>:PORT/ (0 = off)")
     pr.add_argument("--out", default="out")
     pr.add_argument("--width", type=int, default=640)
     pr.add_argument("--height", type=int, default=360)

@@ -20,13 +20,14 @@ from .collectives import halo_shift
 
 
 def halo_exchange_z(slabs: Sequence[torch.Tensor], halo: int = 1,
-                    fill=None) -> Tuple[torch.Tensor, ...]:
+                    fill=None, mesh=None) -> Tuple[torch.Tensor, ...]:
     """Each (Zl, ...) slab extended to (Zl + 2 halo, ...) with its ghost
     rows: the neighbours' edge rows inside, the edge row repeated at the
-    global faces (or the value ``fill`` there when it is given). Use
+    global faces (or the value ``fill`` there when it is given). Over a
+    ``mesh`` of several processes, ``slabs`` are this process's own. Use
     :func:`crop_halo_z` to drop them after the stencil."""
-    return tuple(torch.cat([lo, s, hi], dim=0)
-                 for s, (lo, hi) in zip(slabs, halo_shift(slabs, halo, fill)))
+    return tuple(torch.cat([lo, s, hi], dim=0) for s, (lo, hi) in zip(
+        slabs, halo_shift(slabs, halo, fill, mesh)))
 
 
 def crop_halo_z(slabs: Sequence[torch.Tensor],

@@ -1,12 +1,16 @@
 """Device-mesh distribution of the reconstruction pipeline (counterpart of
-rgbd_recon_tpu/dist/mesh.py), in one process.
+rgbd_recon_tpu/dist/mesh.py).
 
 The JAX package runs one program over a ``Mesh`` of devices with
-``shard_map``; here one process drives every shard. A :class:`Mesh` is an
-ordered tuple of torch devices (a device may repeat: its shards run one
-after another), each shard's work is launched on its device, and the
-collectives are the explicit copies of ``collectives.py``. The sharded step
-runs the brick-compact fast path of one device:
+``shard_map``. Here a :class:`Mesh` is an ordered tuple of torch devices (a
+device may repeat: its shards run one after another), each shard's work is
+launched on its device, and the collectives are the explicit copies of
+``collectives.py``. One process drives every shard, or (``dist/process.py``,
+``make_mesh(devices_per_process=...)``) the mesh spans several processes:
+each runs the same step, launches only its own shards and computes the
+replicated stages itself, as each JAX process does under
+``jax.distributed``. The sharded step runs the brick-compact fast path of
+one device:
 
   - the per-voxel projection bake and the TSDF volume are split into brick
     z-slabs (each shard owns whole bricks; the slabs past the volume are
@@ -44,14 +48,45 @@ from .halo import halo_exchange_z
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: the shards' devices in shard order, and the axis name."""
+    """A 1-D mesh: the shards' devices in shard order, and the axis name.
+    A mesh over several processes also records each shard's process (a
+    process holds a run of shards, in rank order) and this process's rank;
+    each shard's device is named as its own process names it."""
 
     devices: Tuple[torch.device, ...]
     axis_name: str = "z"
+    processes: Tuple[int, ...] = ()
+    process: int = 0
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def multiprocess(self) -> bool:
+        return len(set(self.processes)) > 1
+
+    @property
+    def local(self) -> Tuple[int, ...]:
+        """The shards of this process, in order."""
+        if not self.multiprocess:
+            return tuple(range(self.size))
+        return tuple(s for s, p in enumerate(self.processes)
+                     if p == self.process)
+
+
+def local_shards(mesh: Mesh):
+    """(shard, its position among this process's shards, its device) for
+    each shard of this process."""
+    return [(s, j, mesh.devices[s]) for j, s in enumerate(mesh.local)]
+
+
+def _no_spanning(mesh: Mesh, what: str) -> None:
+    if mesh.multiprocess:
+        raise NotImplementedError(
+            f"{what} runs over a mesh of one process; over several it waits "
+            "on ROADMAP.md §1, 'The multi-process forms of shard_preprocess "
+            "and refine_poses'")
 
 
 def _indexed(device) -> torch.device:
@@ -63,15 +98,26 @@ def _indexed(device) -> torch.device:
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = "z",
-              devices: Optional[Sequence] = None, device=None) -> Mesh:
+              devices: Optional[Sequence] = None, device=None,
+              devices_per_process: Optional[int] = None) -> Mesh:
     """A mesh over the first ``n_devices`` CUDA devices (all of them by
     default); raises when fewer are visible, and never falls back to the
     CPU. ``devices`` lists the shards' devices instead (a device may
     repeat, e.g. ``["cuda:0"] * 8`` on one card); ``device`` places
     ``n_devices`` shards (1 by default) on that one device, e.g.
-    ``make_mesh(8, device="cpu")`` for tests on the CPU."""
+    ``make_mesh(8, device="cpu")`` for tests on the CPU.
+
+    ``devices_per_process`` builds the mesh over every process of the
+    group that ``dist.initialize`` joined (every process calls it): each
+    process gives ``devices_per_process`` shards, on ``device`` or on the
+    listed ``devices`` (one of the two is required); the shards follow in
+    rank order, and ``n_devices``, when given, must be their total. Raises
+    under NCCL when two processes would share a card."""
     if devices is not None and device is not None:
         raise ValueError("pass devices or device, not both")
+    if devices_per_process is not None:
+        return _process_mesh(n_devices, axis_name, devices, device,
+                             devices_per_process)
     if devices is not None:
         devs = tuple(_indexed(d) for d in devices)
         if n_devices is not None and n_devices != len(devs):
@@ -95,6 +141,38 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "z",
     return Mesh(devs, axis_name)
 
 
+def _process_mesh(n_devices, axis_name, devices, device, k: int) -> Mesh:
+    """The mesh over every process of the group, ``k`` shards each."""
+    import torch.distributed as tdist
+
+    from . import process
+
+    if devices is None and device is None:
+        raise ValueError("devices_per_process needs device= or devices=: "
+                         "the shards of this process")
+    if not process.initialized():
+        raise RuntimeError("devices_per_process needs the process group: "
+                           "call dist.initialize first")
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    if k < 1:
+        raise ValueError(f"devices_per_process must be >= 1, got {k}")
+    if n_devices is not None and n_devices != k * world:
+        raise ValueError(f"n_devices={n_devices} but {world} processes of "
+                         f"{k} shards")
+    local = make_mesh(k, axis_name, devices, device).devices
+    backend = tdist.get_backend()
+    # each process's shards: (device key, device name as it names it)
+    shards = process.all_objects([(process.device_key(d), str(d))
+                                  for d in local])
+    process.check_backend(backend, [[key for key, _ in per]
+                                    for per in shards])
+    if backend == "nccl":
+        torch.cuda.set_device(local[0])
+    return Mesh(tuple(torch.device(name) for per in shards
+                      for _, name in per), axis_name,
+                tuple(p for p, per in enumerate(shards) for _ in per), rank)
+
+
 def _pad_to_multiple(arr: torch.Tensor, axis: int, m: int):
     """Pad an axis with zeros to a multiple of m (shards split it evenly).
     Returns (padded, rows added)."""
@@ -114,16 +192,22 @@ class ShardedVolume:
 
     slabs: Tuple[torch.Tensor, ...]
     shape: Tuple[int, int, int]
+    mesh: Optional[Mesh] = None
 
     def gather(self) -> torch.Tensor:
-        """The whole (Z, Y, X) volume on the first shard's device."""
-        return all_gather(self.slabs, self.slabs[0].device)[: self.shape[0]]
+        """The whole (Z, Y, X) volume on the first shard's device. Over a
+        mesh of several processes the slabs are this process's own, and
+        every process calls this to get the whole on its first shard's
+        device."""
+        return all_gather(self.slabs, self.slabs[0].device,
+                          mesh=self.mesh)[: self.shape[0]]
 
 
 def _first_device(pipeline, mesh: Mesh) -> torch.device:
-    """The mesh's first device, which must hold the pipeline: the
-    replicated stages run there."""
-    dev0 = mesh.devices[0]
+    """The device of this process's first shard (the mesh's first device in
+    one process), which must hold the pipeline: the replicated stages run
+    there."""
+    dev0 = mesh.devices[mesh.local[0]]
     if _indexed(pipeline.device) != dev0:
         raise ValueError(f"the mesh's first device {dev0} must be the "
                          f"pipeline's ({pipeline.device})")
@@ -139,34 +223,40 @@ def shard_pipeline_step(pipeline, camera, mesh: Mesh):
     return _shard_dense_step(pipeline, camera, mesh)
 
 
-def _grow_slabs(slabs, halo: int, fill: float, dev0):
+def _grow_slabs(slabs, halo: int, fill: float, dev0, mesh: Mesh):
     """Each slab grown by ``halo`` ghost rows on each side, ``fill`` beyond
     the global z faces: the halo exchange with the neighbours, or slices of
     the gathered volume where one hop of neighbours cannot supply them."""
     Zl = slabs[0].shape[0]
     if halo <= Zl:
-        return halo_exchange_z(slabs, halo, fill=fill)
-    full = all_gather(slabs, dev0)
+        return halo_exchange_z(slabs, halo, fill=fill, mesh=mesh)
+    full = all_gather(slabs, dev0, mesh=mesh)
     pad = full.new_full((halo,) + tuple(full.shape[1:]), fill)
     full = torch.cat([pad, full, pad])
-    return tuple(scatter(full[s * Zl: (s + 1) * Zl + 2 * halo], s, t.device)
-                 for s, t in enumerate(slabs))
+    return tuple(scatter(full[s * Zl: (s + 1) * Zl + 2 * halo], j, dev)
+                 for s, j, dev in local_shards(mesh))
 
 
-def _bake_slabs(render, slabs, shape, brick_vox: int, limit: float, dev0):
+def _bake_slabs(render, slabs, shape, brick_vox: int, limit: float, dev0,
+                mesh=None):
     """The render's bake of the z-slabs of a volume: (march table, oct hit
     table or None, surface-brick mask, brick clearance), each on ``dev0``
     and bit-equal to the single-device bake of the whole volume. Each slab
     bakes on itself grown by the ghost rows the render asks for
     (``render.slab_halo``); the brick clearance and the oct hit table are
-    built on the gathered brick mask and raw volume."""
+    built on the gathered brick mask and raw volume. Over a mesh of several
+    processes ``slabs`` are this process's own; without a mesh, each slab
+    is a shard on its own tensor's device."""
+    if mesh is None:
+        mesh = Mesh(tuple(t.device for t in slabs))
     Z = shape[0]
     v = brick_vox
-    n = len(slabs)
+    n = mesh.size
     Bzl = slabs[0].shape[0] // v
     Bz = -(-Z // v)
-    ext = _grow_slabs(slabs, render.slab_halo, -limit, dev0)
-    occ = all_gather([render.slab_occ(e) for e in ext], dev0)[:Bz]
+    ext = _grow_slabs(slabs, render.slab_halo, -limit, dev0, mesh)
+    occ = all_gather([render.slab_occ(e) for e in ext], dev0,
+                     mesh=mesh)[:Bz]
     bsafe = render.brick_safe_field(occ)
     _, By, Bx = bsafe.shape
     # bsafe * brick_vox with one ghost brick row below the first slab and
@@ -175,10 +265,10 @@ def _bake_slabs(render, slabs, shape, brick_vox: int, limit: float, dev0):
     bs_pad = torch.cat([bs.new_zeros((1, By, Bx)), bs,
                         bs.new_zeros((n * Bzl - Bz + 1, By, Bx))])
     tables = [render.bake_slab(e, scatter(bs_pad[s * Bzl: (s + 1) * Bzl + 2],
-                                          s, e.device))
-              for s, e in enumerate(ext)]
-    table = all_gather(tables, dev0)[:Z]
-    oct = (render.build_oct(all_gather(slabs, dev0)[:Z], occ)
+                                          j, e.device))
+              for (s, j, _), e in zip(local_shards(mesh), ext)]
+    table = all_gather(tables, dev0, mesh=mesh)[:Z]
+    oct = (render.build_oct(all_gather(slabs, dev0, mesh=mesh)[:Z], occ)
            if render.build_oct is not None else None)
     return table, oct, occ, bsafe
 
@@ -192,7 +282,8 @@ def shard_compact_step(pipeline, camera, mesh: Mesh):
     occupied bricks and drops for the last frame."""
     cfg = pipeline.config
     v = pipeline.brick_vox
-    devs = mesh.devices
+    shards = local_shards(mesh)
+    devs = [dev for _, _, dev in shards]
     dev0 = _first_device(pipeline, mesh)
     Nd = mesh.size
     Z, Y, X = pipeline.volume_grid.shape
@@ -207,14 +298,14 @@ def shard_compact_step(pipeline, camera, mesh: Mesh):
     Vv = proj.shape[2]
     projz = proj.reshape(N, Bz, By * Bx, Vv, 4)
     proj_l = []
-    for s, dev in enumerate(devs):
+    for s, j, dev in shards:
         lo, hi = min(s * Bzl, Bz), min((s + 1) * Bzl, Bz)
         part = projz[:, lo:hi]
         if hi - lo < Bzl:
             pad = proj.new_zeros((N, Bzl - (hi - lo), By * Bx, Vv, 4))
             pad[..., 3] = -1.0
             part = torch.cat([part, pad], dim=1)
-        proj_l.append(scatter(part.reshape(N, Bzl * By * Bx, Vv, 4), s, dev))
+        proj_l.append(scatter(part.reshape(N, Bzl * By * Bx, Vv, 4), j, dev))
 
     render, cam0 = pipeline.make_render_fn(camera)
     last = {}
@@ -227,12 +318,12 @@ def shard_compact_step(pipeline, camera, mesh: Mesh):
         depth, qual, sil = (broadcast(t, devs) for t in (
             maps.depth[..., 0], maps.quality, maps.silhouette))
         slabs = []
-        for s, dev in enumerate(devs):
+        for s, j, dev in shards:
             ids = tsdf.occupied_brick_ids(
-                scatter(counts_p[s * Bzl: (s + 1) * Bzl], s, dev),
+                scatter(counts_p[s * Bzl: (s + 1) * Bzl], j, dev),
                 cfg.min_voxels_per_brick, cfg.brick_capacity)
             slab = tsdf.integrate_bricks(
-                proj_l[s], ids, depth[dev], qual[dev], sil[dev], limit,
+                proj_l[j], ids, depth[dev], qual[dev], sil[dev], limit,
                 (Zl, Y, X), v, carve_sil_threshold=cfg.carve_sil_threshold,
                 phantom_hull=cfg.phantom_hull, taps=cfg.integrate_taps)
             # rows past Z (the last brick's padding) hold the clear value,
@@ -240,17 +331,18 @@ def shard_compact_step(pipeline, camera, mesh: Mesh):
             if (s + 1) * Zl > Z:
                 slab[max(Z - s * Zl, 0):] = -limit
             slabs.append(slab)
-        volume = ShardedVolume(tuple(slabs), (Z, Y, X))
+        volume = ShardedVolume(tuple(slabs), (Z, Y, X), mesh)
         pm = pipeline._get_projection_models()
         if render.bake_slab is None:
             return volume, render(volume.gather(), maps, counts, cam0,
                                   pm, limit)
-        baked = _bake_slabs(render, slabs, (Z, Y, X), v, limit, dev0)
+        baked = _bake_slabs(render, slabs, (Z, Y, X), v, limit, dev0, mesh)
         return volume, render.render_from_baked(baked, maps, cam0, pm, limit)
 
     def diagnostics():
-        """Per shard, for the last frame: occupied bricks, the capacity,
-        the bricks dropped beyond it."""
+        """Per shard (every shard of the mesh: the counts are replicated),
+        for the last frame: occupied bricks, the capacity, the bricks
+        dropped beyond it."""
         counts_p = last["counts"]
         out = []
         for s in range(Nd):
@@ -273,7 +365,8 @@ def _shard_dense_step(pipeline, camera, mesh: Mesh):
     cropped), then the full render runs on the gathered volume on the
     first device. ``step(frames) -> (ShardedVolume, RenderOutput)``."""
     cfg = pipeline.config
-    devs = mesh.devices
+    shards = local_shards(mesh)
+    devs = [dev for _, _, dev in shards]
     dev0 = _first_device(pipeline, mesh)
     Nd = mesh.size
     Z, Y, X = pipeline.volume_grid.shape
@@ -281,7 +374,7 @@ def _shard_dense_step(pipeline, camera, mesh: Mesh):
     inv = broadcast(pipeline.calib.cv_xyz_inv, devs)
     proj_l = [tsdf.bake_projections(inv[dev], (Zl, Y, X), (Z, Y, X), s * Zl)
               if cfg.precompute_projections else None
-              for s, dev in enumerate(devs)]
+              for s, _, dev in shards]
     render, cam0 = pipeline.make_render_fn(camera)
 
     def step(frames):
@@ -293,16 +386,16 @@ def _shard_dense_step(pipeline, camera, mesh: Mesh):
         depth, qual, sil = (broadcast(t, devs) for t in (
             maps.depth[..., 0], maps.quality, maps.silhouette))
         slabs = []
-        for s, dev in enumerate(devs):
+        for s, j, dev in shards:
             slabs.append(tsdf.integrate(
                 (Zl, Y, X), inv[dev], depth[dev], qual[dev], sil[dev], limit,
                 voxel_mask=(None if mask is None else
-                            scatter(mask[s * Zl: (s + 1) * Zl], s, dev)),
-                projections=proj_l[s],
+                            scatter(mask[s * Zl: (s + 1) * Zl], j, dev)),
+                projections=proj_l[j],
                 carve_sil_threshold=cfg.carve_sil_threshold,
                 phantom_hull=cfg.phantom_hull, true_shape=(Z, Y, X),
                 z0=s * Zl))
-        volume = ShardedVolume(tuple(slabs), (Z, Y, X))
+        volume = ShardedVolume(tuple(slabs), (Z, Y, X), mesh)
         out = render(volume.gather(), maps, counts, cam0,
                      pipeline._get_projection_models(), limit)
         return volume, out

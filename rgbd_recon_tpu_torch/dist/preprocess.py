@@ -18,7 +18,7 @@ import dataclasses
 
 from ..ops.preprocess import SensorMaps
 from .collectives import all_gather, psum, scatter
-from .mesh import Mesh, _first_device
+from .mesh import Mesh, _first_device, _no_spanning
 
 
 def _sensors(container, sl, shard, device, shared=()):
@@ -35,7 +35,8 @@ def shard_preprocess(pipeline, mesh: Mesh):
     """A sensor-sharded preprocess, ``frames -> (SensorMaps, brick
     counts)``, equal to ``pipeline.preprocess`` (the same chain on sensor
     slices; the gather keeps the sensor order, the counts are integers).
-    Requires num_sensors % mesh size == 0."""
+    Requires num_sensors % mesh size == 0, and a mesh of one process."""
+    _no_spanning(mesh, "shard_preprocess")
     calib = pipeline.calib
     N = calib.num_sensors
     Nd = mesh.size

@@ -22,7 +22,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stencil13.cu", _PKG / "csrc" / "bake.cu")
+SOURCES = tuple(_PKG / "csrc" / f for f in ("stencil13.cu", "bake.cu",
+                                              "gather.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
@@ -42,6 +43,11 @@ _SIGNATURES = {
     "rgbd_surface_occ": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rgbd_sentinel_bake": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P),
+    "rgbd_gather_flat": (_P, _P, _P, _I, _I, _P),
+    "rgbd_gather_flat_smem": (_P, _P, _P, _I, _I, _P),
+    "rgbd_gather_smem_entries": (ctypes.POINTER(_I),),
+    "rgbd_gather_rows": (_P, _P, _P, _I, _I, _I, _P),
+    "rgbd_gather_cols": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

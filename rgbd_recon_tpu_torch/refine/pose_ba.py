@@ -325,7 +325,7 @@ def refine_poses(calib, maps, volume, limit: float, iters: int = 5,
     each sensor's points over its shards, padded with zero-weight points to
     a multiple of the shards: the normal equations reduce per shard and
     meet in a psum (:func:`_normal_equations_mesh`); the accept / reject
-    costs run on the first device.
+    costs run on the first device. The mesh must be of one process.
 
     Returns (poses (N, 6), per-iteration mean |r| at the iteration's start
     (iters, N))."""
@@ -336,10 +336,11 @@ def refine_poses(calib, maps, volume, limit: float, iters: int = 5,
     dev = maps.depth.device
     pts, ws = zip(*(_surface_points(calib, maps, i, stride)
                     for i in range(N)))
-    from ..dist.mesh import _pad_to_multiple, make_mesh
+    from ..dist.mesh import _no_spanning, _pad_to_multiple, make_mesh
 
     if mesh is None:
         mesh = make_mesh(device=dev)
+    _no_spanning(mesh, "refine_poses(mesh=...)")
     # the point axis must divide over the shards: zero-weight padding
     pts_m = [_pad_to_multiple(p, 0, mesh.size)[0] for p in pts]
     ws_m = [_pad_to_multiple(w, 0, mesh.size)[0] for w in ws]

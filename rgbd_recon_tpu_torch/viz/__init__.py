@@ -1,5 +1,9 @@
-"""Port of rgbd_recon_tpu/viz: PNG output and stereo composition."""
+"""Port of rgbd_recon_tpu/viz: PNG output, stereo composition, the orbit
+navigator and the live MJPEG preview (with its own JPEG encoder)."""
 
+from .jpeg import encode_jpeg
+from .navigation import OrbitNavigator
+from .preview import PreviewServer
 from .render import (
     save_image,
     colorize_depth,
@@ -15,6 +19,9 @@ from .stereo import (
 )
 
 __all__ = [
+    "encode_jpeg",
+    "OrbitNavigator",
+    "PreviewServer",
     "save_image",
     "colorize_depth",
     "colorize_normals",

@@ -1,7 +1,7 @@
 """The port's application shell (``python -m rgbd_recon_tpu_torch.app``) on
 the CPU: ``record`` then ``run`` in all five modes, stereo output with
 checkpoints, resuming from a checkpoint the JAX app wrote, ``invert``,
-pose refinement every frame, the option that is not ported, the CUDA
+pose refinement every frame, the live preview's option, the CUDA
 requirement, and one run of both apps
 on the same recordings and calibration volumes, image for image.
 
@@ -186,10 +186,21 @@ def test_invert_matches_jax_app(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [("--preview-port", "viz/preview")])
-def test_unported_options_raise(scene, tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        app.main(_run_args(scene, "synth.ks", tmp_path, "--device", "cpu",
-                           flag, "5"))
+def test_unported_options_raise(scene, tmp_path, capsys, flag, item):
+    """No option of the app is left unported: ``--preview-port`` (once
+    waiting on ``item``) runs on the port it is given and says where
+    (tests/test_torch_preview.py fetches its frames)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    app.main(_run_args(scene, "synth.ks", tmp_path, "--device", "cpu",
+                       flag, str(port)))
+    err = capsys.readouterr().err
+    assert f"live preview: http://localhost:{port}/" in err
+    assert not hasattr(app, "_PREVIEW_ITEM")
+    assert len(sorted(tmp_path.glob("frame_*.png"))) == 2
 
 
 def test_refine_every_runs_in_mode_1(scene, tmp_path, capsys):

@@ -1,0 +1,91 @@
+"""The gather-rate probe's four gathers (rgbd_recon_tpu_torch/ops/gather.py)
+against the XLA forms of scripts/probe_pallas_gather.py, which its Pallas
+kernels compute: ``table[idx]`` (``pallas_take``), ``jnp.take(table, idx,
+axis=0)`` (``pallas_take2``) and ``jnp.take_along_axis`` along axis 1
+(``pallas_taa``) and axis 0 (``pallas_taas``). The script runs its probe
+when imported, so its functions are restated here. Inputs are made with
+numpy from a seed, indices in range; a gather copies values, so every
+comparison is bit for bit. Then the probe's own formulations on the CPU
+(each twin and library call equal), and the dispatch: CPU tensors take the
+plain twin and launch nothing.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rgbd_recon_tpu_torch import kernels
+from rgbd_recon_tpu_torch.bench import gather_probe
+from rgbd_recon_tpu_torch.ops import gather
+
+
+def _inputs(seed, table_shape, idx_shape, axis_len):
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal(table_shape).astype(np.float32)
+    i = rng.integers(0, axis_len, idx_shape, dtype=np.int32)
+    return t, i
+
+
+@pytest.mark.parametrize("n,m", [(1 << 16, 1 << 16), (1000, 777), (1, 5)])
+def test_flat_matches_take(n, m):
+    t, i = _inputs(n + m, (n,), (m,), n)
+    want = np.asarray(jnp.asarray(t)[jnp.asarray(i)])
+    want_take = np.asarray(jnp.take(jnp.asarray(t), jnp.asarray(i), axis=0))
+    np.testing.assert_array_equal(want, want_take)
+    for fn in (gather.gather_flat, gather.gather_flat_smem,
+               gather.gather_flat_plain):
+        got = fn(torch.from_numpy(t), torch.from_numpy(i)).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,m", [((8, 1 << 13), 1 << 13), ((3, 1001), 517),
+                                     ((1, 4), 9)])
+def test_rows_match_take_along_axis_1(shape, m):
+    t, i = _inputs(m, shape, (shape[0], m), shape[1])
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(t), jnp.asarray(i),
+                                          axis=1))
+    for fn in (gather.gather_rows, gather.gather_rows_plain):
+        np.testing.assert_array_equal(
+            fn(torch.from_numpy(t), torch.from_numpy(i)).numpy(), want)
+
+
+@pytest.mark.parametrize("shape,m", [((1 << 9, 128), 1 << 9), ((999, 37), 45),
+                                     ((4, 1), 6)])
+def test_cols_match_take_along_axis_0(shape, m):
+    t, i = _inputs(m, shape, (m, shape[1]), shape[0])
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(t), jnp.asarray(i),
+                                          axis=0))
+    for fn in (gather.gather_cols, gather.gather_cols_plain):
+        np.testing.assert_array_equal(
+            fn(torch.from_numpy(t), torch.from_numpy(i)).numpy(), want)
+
+
+def test_probe_formulations_on_the_cpu():
+    """The probe's four formulations at 2^14 lookups into 2^14 entries
+    (a 2^10-entry shared-memory table): twin, library call and the
+    dispatching function agree, at the shapes the probe reshapes to; on
+    CPU tensors no kernel launches."""
+    kernels.reset_launch_counts()
+    table, idx = gather_probe.make_inputs("cpu", 0, 1 << 14, 1 << 14)
+    assert table.dtype == torch.float32 and idx.dtype == torch.int32
+    assert int(idx.min()) >= 0 and int(idx.max()) < 1 << 14
+    forms = gather_probe.formulations(table, idx, 1 << 10)
+    assert [f.name for f in forms] == ["gather_flat", "gather_flat_smem",
+                                       "gather_rows", "gather_cols"]
+    shapes = [(1 << 14,), (1 << 14,), (8, 1 << 11), (1 << 7, 128)]
+    for f, shape in zip(forms, shapes):
+        got = f.kernel()
+        assert got.shape == shape, f.name
+        assert torch.equal(got, f.plain()) and torch.equal(got, f.library())
+        assert f.moved[-1].shape == shape
+        assert "scripts/probe_pallas_gather.py:" in f.replaces
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+def test_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="cuda"):
+        gather_probe.main([])

@@ -20,6 +20,7 @@ from rgbd_recon_tpu import core as jax_core
 from rgbd_recon_tpu.calib import scattered as jax_scattered
 from rgbd_recon_tpu.io import checkpoint as jax_checkpoint
 from rgbd_recon_tpu.io import stream as jax_stream
+from rgbd_recon_tpu.viz import navigation as jax_navigation
 
 from rgbd_recon_tpu_torch import convert
 from rgbd_recon_tpu_torch import core as port_core
@@ -35,6 +36,8 @@ from rgbd_recon_tpu_torch.io.feed import FrameFeed
 from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
 from rgbd_recon_tpu_torch.recon.tsdf_pipeline import CamParams
 from rgbd_recon_tpu_torch.sensors import synthetic as port_synthetic
+from rgbd_recon_tpu_torch.viz import OrbitNavigator
+from rgbd_recon_tpu_torch.viz import navigation as port_navigation
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
@@ -85,7 +88,10 @@ def test_module_list_is_whole():
                  "bench/timing.py", "refine/pose_ba.py",
                  "calib/scattered.py", "dist/__init__.py",
                  "dist/collectives.py", "dist/halo.py", "dist/mesh.py",
-                 "dist/preprocess.py"):
+                 "dist/preprocess.py", "dist/process.py", "dist/worker.py",
+                 "viz/navigation.py", "viz/preview.py", "viz/jpeg.py",
+                 "kernels/gather.py", "ops/gather.py",
+                 "bench/gather_probe.py"):
         assert f"rgbd_recon_tpu_torch/{name}" in PORT_FILES, name
 
 
@@ -264,6 +270,58 @@ def test_native_reader_matches(tmp_path):
             np.testing.assert_array_equal(dn, dp)
     finally:
         nat.close()
+
+
+def _navigate(module):
+    """The cameras of an orbit navigator through orbits (one past the
+    elevation limit), pans, zooms (one below the minimum distance) and a
+    reset, as (eye, target, width, height, fov_y, rotation)."""
+    nav = module.OrbitNavigator(poi=(0.1, 1.0, -0.2), distance=2.5,
+                                width=96, height=80)
+    steps = [lambda n: n, lambda n: n.orbit(0.7, 0.3),
+             lambda n: n.pan(0.2, -0.1), lambda n: n.zoom(0.8),
+             lambda n: n.orbit(7.0, 2.0), lambda n: n.zoom(0.01),
+             lambda n: n.pan(-0.4, 0.3), lambda n: n.reset()]
+    out = []
+    for step in steps:
+        cam = step(nav).camera()
+        out.append((cam.eye, cam.target, cam.width, cam.height, cam.fov_y,
+                    cam.rotation()))
+    return out
+
+
+def test_orbit_navigator_matches():
+    """viz/navigation.py's copy drives the port's ViewCamera through the
+    JAX package's navigator's cameras, value for value."""
+    assert port_navigation.ViewCamera is ViewCamera
+    for got, want in zip(_navigate(port_navigation),
+                         _navigate(jax_navigation)):
+        assert got[:5] == want[:5]
+        np.testing.assert_array_equal(got[5], np.asarray(want[5]))
+
+
+def test_orbit_navigator_distance_and_target():
+    """tests/test_new_components.py:225 on the port's navigator."""
+    nav = OrbitNavigator(poi=(0.0, 1.0, 0.0), distance=3.0)
+    cam = nav.camera()
+    assert np.isclose(np.linalg.norm(np.asarray(cam.eye)
+                                     - np.asarray(nav.poi)), 3.0)
+    nav.orbit(np.pi / 2, 0.0)
+    cam2 = nav.camera()
+    assert not np.allclose(cam.eye, cam2.eye)
+    assert np.isclose(
+        np.linalg.norm(np.asarray(cam2.eye) - np.asarray(nav.poi)), 3.0)
+
+
+def test_orbit_navigator_zoom_reset():
+    """tests/test_new_components.py:239 on the port's navigator."""
+    nav = OrbitNavigator(distance=2.0)
+    nav.zoom(0.5)
+    assert np.isclose(nav.distance, 1.0)
+    nav.pan(0.3, -0.1)
+    nav.reset()
+    assert np.isclose(nav.distance, 2.0)
+    assert np.allclose(nav.poi, (0.0, 1.1, 0.0))
 
 
 @pytest.mark.parametrize("fn", ["idw", "mls", "mls_degenerate", "lookup"])

@@ -349,6 +349,7 @@ def test_port_imports_without_jax():
         "import rgbd_recon_tpu_torch.recon.tsdf_pipeline\n"
         "import rgbd_recon_tpu_torch.kernels.stencil13\n"
         "import rgbd_recon_tpu_torch.kernels.bake\n"
+        "import rgbd_recon_tpu_torch.kernels.gather\n"
         "import rgbd_recon_tpu_torch.profile_slice\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -662,3 +663,120 @@ def test_sharded_step_over_the_cards(cuda):
     assert torch.equal(vol_sh.gather(), volume)
     for field in ("hit", "depth", "color"):
         assert torch.equal(getattr(out, field), getattr(ref, field)), field
+
+
+# ---- the gather-rate probe's kernels ----------------------------------------
+
+def _gather_inputs(rng, kind, table_shape, idx_shape, device):
+    """A normal f32 table and int32 indices in range along the gathered
+    axis of ``kind``."""
+    t = torch.from_numpy(rng.standard_normal(table_shape).astype(np.float32))
+    axis_len = {"flat": table_shape[0], "smem": table_shape[0],
+                "rows": table_shape[-1], "cols": table_shape[0]}[kind]
+    i = torch.from_numpy(rng.integers(0, axis_len, idx_shape,
+                                      dtype=np.int32))
+    return t.to(device), i.to(device)
+
+
+GATHER_CASES = [
+    ("flat", (1 << 20,), (1 << 20,)),     # the probe's shapes
+    ("flat", (1000,), (777,)),
+    ("smem", (1 << 15,), (1 << 20,)),     # the probe's shapes
+    ("smem", (1,), (300,)),
+    ("smem", (4099,), (5000,)),
+    ("rows", (8, 1 << 17), (8, 1 << 17)),  # the probe's shapes
+    ("rows", (3, 1001), (3, 517)),
+    ("cols", (1 << 13, 128), (1 << 13, 128)),  # the probe's shapes
+    ("cols", (999, 37), (45, 37)),
+]
+
+
+def _gather_fns(kind):
+    from rgbd_recon_tpu_torch.kernels import gather as kg
+    from rgbd_recon_tpu_torch.ops import gather as og
+
+    return {"flat": (kg.gather_flat_cuda, og.gather_flat_plain),
+            "smem": (kg.gather_flat_smem_cuda, og.gather_flat_plain),
+            "rows": (kg.gather_rows_cuda, og.gather_rows_plain),
+            "cols": (kg.gather_cols_cuda, og.gather_cols_plain)}[kind]
+
+
+def test_gather_cuda_wrappers_reject_cpu_tensors():
+    from rgbd_recon_tpu_torch.kernels import gather as kg
+
+    t, i = torch.zeros(8), torch.zeros(4, dtype=torch.int32)
+    for fn in (kg.gather_flat_cuda, kg.gather_flat_smem_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(t, i)
+    for fn in (kg.gather_rows_cuda, kg.gather_cols_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(t.reshape(2, 4), i.reshape(2, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,table_shape,idx_shape", GATHER_CASES)
+def test_gather_kernels_bit_exact(cuda, kind, table_shape, idx_shape):
+    """Each gather kernel equals its plain twin bit for bit and counts its
+    launch."""
+    kern, plain = _gather_fns(kind)
+    rng = np.random.default_rng(len(idx_shape) + idx_shape[0])
+    t, i = _gather_inputs(rng, kind, table_shape, idx_shape, cuda)
+    name = {"flat": "gather_flat", "smem": "gather_flat_smem",
+            "rows": "gather_rows", "cols": "gather_cols"}[kind]
+    before = kernels.LAUNCHES[name]
+    got = kern(t, i)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.float32 and got.shape == i.shape
+    assert torch.equal(got, plain(t, i))
+
+
+@pytest.mark.cuda
+def test_gather_smem_largest_table(cuda):
+    """The shared-memory gather at its largest table (the opt-in shared
+    memory of a block, 58,112 entries on an H100), every entry looked up,
+    and with no lookups (the launch that only stages the table)."""
+    from rgbd_recon_tpu_torch.kernels import gather as kg
+
+    most = kg.smem_table_entries(cuda)
+    assert most >= 1 << 15
+    rng = np.random.default_rng(3)
+    t, i = _gather_inputs(rng, "smem", (most,), (1 << 20,), cuda)
+    i[:most] = torch.arange(most, dtype=torch.int32, device=cuda)
+    got = kg.gather_flat_smem_cuda(t, i)
+    torch.cuda.synchronize()
+    assert torch.equal(got, t[i])
+    empty = kg.gather_flat_smem_cuda(t, i[:0])
+    torch.cuda.synchronize()
+    assert empty.shape == (0,)
+    with pytest.raises(ValueError, match="shared memory"):
+        kg.gather_flat_smem_cuda(torch.zeros(most + 1, device=cuda), i)
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_reject_what_they_do_not_take(cuda):
+    """dtype, dimensions, contiguity, matching axes and devices."""
+    from rgbd_recon_tpu_torch.kernels import gather as kg
+
+    t = torch.zeros(64, device=cuda)
+    i = torch.zeros(16, dtype=torch.int32, device=cuda)
+    for fn in (kg.gather_flat_cuda, kg.gather_flat_smem_cuda):
+        with pytest.raises(ValueError, match="float32"):
+            fn(t.double(), i)
+        with pytest.raises(ValueError, match="int32"):
+            fn(t, i.long())
+        with pytest.raises(ValueError, match="dimensions"):
+            fn(t.reshape(8, 8), i)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(t, torch.zeros(32, dtype=torch.int32, device=cuda)[::2])
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(t, i.cpu())
+        with pytest.raises(ValueError, match="empty"):
+            fn(t[:0], i)
+    t2 = t.reshape(8, 8)
+    with pytest.raises(ValueError, match="rows"):
+        kg.gather_rows_cuda(t2, i.reshape(4, 4))
+    with pytest.raises(ValueError, match="columns"):
+        kg.gather_cols_cuda(t2, i.reshape(4, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        kg.gather_rows_cuda(t2.t(), i.reshape(8, 2))
