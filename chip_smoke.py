@@ -80,7 +80,12 @@ Then, at the same scale:
   against their plain twins bit for bit, timed like the kernels of phase 3
   beside their bound and the PyTorch call that computes the same gather;
   the shared-memory gather's table load is timed on its own (a launch with
-  no lookups). They are on no path: launched 0 times in every path's run;
+  no lookups). ``gather_flat`` and ``gather_cols`` are also held against
+  their plain versions at an odd shape and on an index view at a storage
+  offset (``gather_probe.edge_cases``); the three gathers from L2 print
+  their G lookups/s and the L2 sector rate that implies (lookups x 32 B
+  over the device time: reckoned, not a counter). They are on no path:
+  launched 0 times in every path's run;
 - phase 14 runs ``python -m rgbd_recon_tpu_torch.dist.worker`` as 2
   processes of 4 shards each on the worker's scene: gloo, both processes
   on the first card, bit-equal to the single device and to the 8-shard
@@ -309,18 +314,19 @@ def _device_ms(torch, fn, flush):
     warm ms, {activity: cold ms}, traces retaken). Cold: ``flush`` (which
     evicts the L2) before each of DEVICE_ITERS calls, its own activities
     left out; warm: the calls back to back. A trace that comes back with no
-    device activity is taken again, at most TRACE_TRIES times in all, and
-    counted in the fourth value; raises if none of them records any: there
-    is no fallback to CUDA events."""
+    device activity, or with fewer of the calls' activities than they
+    launched, is taken again, at most TRACE_TRIES times in all, and counted
+    in the fourth value; raises if none of them records them all: there is
+    no fallback to CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
     from rgbd_recon_tpu_torch.profile_slice import _device_us, _on_device
 
     retakes = [0]
 
-    def trace(body):
-        # torch.profiler can hand back a trace with no device activity
-        # although the calls ran
+    def trace(body, complete=bool):
+        # torch.profiler can hand back a trace with no device activity, or
+        # one that lacks an activity, although the calls ran
         for i in range(TRACE_TRIES):
             retakes[0] += i > 0
             torch.cuda.synchronize()
@@ -329,9 +335,9 @@ def _device_ms(torch, fn, flush):
                 body()
                 torch.cuda.synchronize()
             events = [e for e in prof.events() if _on_device(e)]
-            if events:
+            if complete(events):
                 return events
-        return []
+        return events
 
     fn()
     own, flushing = trace(fn), trace(flush)
@@ -351,7 +357,11 @@ def _device_ms(torch, fn, flush):
                 if cold:
                     flush()
                 fn()
-        acts = [e for e in trace(body) if e.name in names]
+        def timed(events):
+            return [e for e in events if e.name in names]
+
+        acts = timed(trace(body, lambda events: len(timed(events)) ==
+                           DEVICE_ITERS * len(own)))
         if len(acts) != DEVICE_ITERS * len(own):
             raise AssertionError(
                 f"the profiler recorded {len(acts)} device activities of "
@@ -1201,6 +1211,11 @@ def _phase13_gather(np, torch, card, flush):
                    library_device_ms_warm=lib_warm,
                    mlookups_s_cold=n / device_ms / 1e3,
                    mlookups_s_warm=n / device_ms_warm / 1e3, ops=0)
+        if f.name != "gather_flat_smem":
+            # reckoned, not a counter: a random lookup moves one 32-byte
+            # sector from L2 to an SM
+            row.update(l2_sector_tb_s_cold=n * 32 / device_ms / 1e9,
+                       l2_sector_tb_s_warm=n * 32 / device_ms_warm / 1e9)
         if f.name == "gather_flat_smem":
             # the table load alone: a launch of the same grid with no
             # lookups
@@ -1226,7 +1241,31 @@ def _phase13_gather(np, torch, card, flush):
               f"{bound_ms!r} ms by {bound_by}, {bound_ms / device_ms:.1%} "
               f"of it, on {card}",
               flush=True)
+        if "l2_sector_tb_s_cold" in row:
+            print(f"{f.name}: {n / device_ms / 1e6:.2f} / "
+                  f"{n / device_ms_warm / 1e6:.2f} G lookups/s cold / warm; "
+                  f"L2 sector rate (lookups x 32 B / device time, reckoned) "
+                  f"{row['l2_sector_tb_s_cold']:.3f} / "
+                  f"{row['l2_sector_tb_s_warm']:.3f} TB/s", flush=True)
         rows.append(row)
+    by_name = {r["name"]: r for r in rows}
+
+    # gather_flat and gather_cols against their plain versions at an odd
+    # shape and on an index view at a storage offset
+    twins = {"gather_flat": (gather.gather_flat, gather.gather_flat_plain),
+             "gather_cols": (gather.gather_cols, gather.gather_cols_plain)}
+    for label, name, t, i in gather_probe.edge_cases(dev):
+        kernel, plain = twins[name]
+        got, want = kernel(t, i), plain(t, i)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        print(f"{name}, {label}: idx {tuple(i.shape)} at storage offset "
+              f"{i.storage_offset()}, max|kernel - plain| = {err!r} "
+              f"(bound 0)", flush=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({label})")
+        by_name[name].setdefault("edge_checks", {})[label] = err
     return rows
 
 

@@ -11,13 +11,21 @@ formulation: name, ms and M lookups/s by CUDA events over back-to-back
 calls (the table warm in L2), then the same for the one PyTorch call that
 computes the same function. The data comes from a seeded
 ``torch.Generator`` on the card. Without a CUDA device it exits non-zero.
+
+Then the rate sweep (:func:`rate_cases`): ``gather_flat`` and
+``torch.take`` at 2^24 uniform lookups into tables of 2^15 to 2^24 entries,
+G lookups/s by CUDA events over back-to-back calls; at 2^24 lookups a call
+takes about 0.1 ms or more on an H100, so the wrapper's host time hides
+behind the device's. :func:`edge_cases` are odd shapes and index views at a
+storage offset for ``gather_flat`` and ``gather_cols`` (``chip_smoke.py``
+phase 13 holds the kernels to them).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -106,6 +114,56 @@ def formulations(table: torch.Tensor, idx: torch.Tensor,
     ]
 
 
+def edge_cases(device, seed: int = 1) -> List[Tuple[str, str, torch.Tensor,
+                                                     torch.Tensor]]:
+    """(label, kernel, table, idx) at odd shapes and offsets, idx holding 0
+    and the last index along the gathered axis: ``gather_flat`` at an odd
+    length and on a view at storage offset 1 (indices not 16-byte aligned),
+    ``gather_cols`` with 37 columns and at the probe's 128 columns on a
+    view at storage offset 3."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def case(table_shape, m, offset, axis_len):
+        t = torch.randn(table_shape, generator=g, device=device)
+        buf = torch.randint(0, axis_len, (offset + m,), generator=g,
+                            device=device, dtype=torch.int32)
+        buf[offset], buf[-1] = 0, axis_len - 1
+        return t, buf[offset:]
+
+    n = 1 << 20
+    flat_t, flat_i = case((n,), n + 3, 0, n)
+    view_t, view_i = case((n,), n + 2, 1, n)
+    odd_t, odd_i = case((999, 37), 1001 * 37, 0, 999)
+    cols_t, cols_i = case((n // 128, 128), n, 3, n // 128)
+    return [("odd length 2^20 + 3", "gather_flat", flat_t, flat_i),
+            ("idx at storage offset 1", "gather_flat", view_t, view_i),
+            ("(999, 37), 1001 rows", "gather_cols", odd_t,
+             odd_i.view(1001, 37)),
+            ("(2^13, 128), idx at storage offset 3", "gather_cols", cols_t,
+             cols_i.view(n // 128, 128))]
+
+
+RATE_LOOKUPS = 1 << 24
+RATE_TABLES = (15, 18, 20, 22, 24)   # log2 of the f32 entries
+
+
+def rate_cases(device, seed: int = 2, lookups: int = RATE_LOOKUPS
+               ) -> List[Tuple[str, torch.Tensor, torch.Tensor]]:
+    """(label, table, idx): ``lookups`` uniform i32 indices into tables of
+    2^15 entries (128 KiB: an SM's L1 holds it), 2^18, the probe's 2^20
+    (4 MiB), 2^22 (16 MiB) and 2^24 (64 MiB: past the 50 MB L2)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    cases = []
+    for k in RATE_TABLES:
+        t = torch.randn(1 << k, generator=g, device=device)
+        cases.append((f"table 2^{k}", t,
+                      torch.randint(0, 1 << k, (lookups,), generator=g,
+                                    device=device, dtype=torch.int32)))
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -126,6 +184,17 @@ def main(argv=None) -> None:
             ms = event_ms(fn, iters=args.iters)
             print(f"{label:40s} {ms:8.4f} ms   "
                   f"{LOOKUPS / ms / 1e3:10.1f} M lookups/s", flush=True)
+    for label, t, i in rate_cases(torch.device("cuda"), args.seed + 2):
+        i_l = i.long()
+        if not torch.equal(gather.gather_flat(t, i), t[i_l]):
+            raise SystemExit(f"gather_flat ({label}) differs from its plain "
+                             "version")
+        for who, fn in (("gather_flat", lambda: gather.gather_flat(t, i)),
+                        ("torch.take", lambda: torch.take(t, i_l))):
+            ms = event_ms(fn, iters=args.iters)
+            print(f"rate {who}, {label} ({t.numel()} entries, "
+                  f"{i.numel()} lookups): {ms:8.4f} ms "
+                  f"{i.numel() / ms / 1e6:7.1f} G lookups/s", flush=True)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,12 @@
 // 32 bytes of L2 traffic (33.5 MB at 2^20 lookups) wherever the table lies
 // outside shared memory: the bound counts what the function must move, not
 // what the memory system moves for it.
+// gather_flat and gather_cols stay one lookup a thread. A design of 4 or 8
+// lookups a thread (16-byte index loads and stores, a persistent grid) was
+// measured on the H100 no faster at the probe's uniform random indices:
+// there the card's rate of random 32-byte sectors from L2 (about 120 G
+// lookups/s, for these kernels and torch.take alike) sets the time, not
+// the instructions. PERF.md (gather probe) has the figures.
 // Indices are i32 in [0, n) for a table of n entries along the gathered
 // axis: the probe never makes any other. Out of range the JAX references
 // disagree (negatives wrap in jnp indexing, table[idx] clamps, jnp.take

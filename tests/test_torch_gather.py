@@ -5,9 +5,11 @@ axis=0)`` (``pallas_take2``) and ``jnp.take_along_axis`` along axis 1
 (``pallas_taa``) and axis 0 (``pallas_taas``). The script runs its probe
 when imported, so its functions are restated here. Inputs are made with
 numpy from a seed, indices in range; a gather copies values, so every
-comparison is bit for bit. Then the probe's own formulations on the CPU
-(each twin and library call equal), and the dispatch: CPU tensors take the
-plain twin and launch nothing.
+comparison is bit for bit, also at odd lengths and column counts and on
+index views at storage offsets 1-3 (``idx[k:]``, not 16-byte aligned).
+Then the probe's own formulations and edge cases on the CPU (each twin and
+library call equal), and the dispatch: CPU tensors take the plain twin and
+launch nothing.
 """
 
 import jax.numpy as jnp
@@ -27,16 +29,37 @@ def _inputs(seed, table_shape, idx_shape, axis_len):
     return t, i
 
 
-@pytest.mark.parametrize("n,m", [(1 << 16, 1 << 16), (1000, 777), (1, 5)])
-def test_flat_matches_take(n, m):
+def _offset_view(i, axis_len, offset):
+    """``i``, its first index set to 0 and its last to ``axis_len - 1``, as
+    a contiguous view at storage ``offset`` of a larger buffer, as
+    ``idx[k:]`` gives one."""
+    i.reshape(-1)[[0, -1]] = 0, axis_len - 1
+    buf = torch.zeros(offset + i.size, dtype=torch.int32)
+    buf[offset:] = torch.from_numpy(i.reshape(-1))
+    view = buf[offset:].view(i.shape)
+    assert view.storage_offset() == offset and view.is_contiguous()
+    return view
+
+
+# (n, m, storage offset of idx): the first three with their earlier ids;
+# then odd lengths, each on a view at one offset
+@pytest.mark.parametrize("n,m,offset", [
+    pytest.param(1 << 16, 1 << 16, 0, id="65536-65536"),
+    pytest.param(1000, 777, 0, id="1000-777"),
+    pytest.param(1, 5, 0, id="1-5"),
+    *[pytest.param(4099, m, off, id=f"4099-{m}-offset{off}")
+      for m, off in [(1, 1), (3, 2), (4, 3), (5, 1), (129, 2),
+                     ((1 << 20) + 3, 3)]]])
+def test_flat_matches_take(n, m, offset):
     t, i = _inputs(n + m, (n,), (m,), n)
+    idx = _offset_view(i, n, offset) if offset else torch.from_numpy(i)
     want = np.asarray(jnp.asarray(t)[jnp.asarray(i)])
     want_take = np.asarray(jnp.take(jnp.asarray(t), jnp.asarray(i), axis=0))
     np.testing.assert_array_equal(want, want_take)
     for fn in (gather.gather_flat, gather.gather_flat_smem,
                gather.gather_flat_plain):
-        got = fn(torch.from_numpy(t), torch.from_numpy(i)).numpy()
-        assert got.dtype == np.float32
+        got = fn(torch.from_numpy(t), idx).numpy()
+        assert got.dtype == np.float32 and got.shape == (m,)
         np.testing.assert_array_equal(got, want)
 
 
@@ -51,15 +74,54 @@ def test_rows_match_take_along_axis_1(shape, m):
             fn(torch.from_numpy(t), torch.from_numpy(i)).numpy(), want)
 
 
-@pytest.mark.parametrize("shape,m", [((1 << 9, 128), 1 << 9), ((999, 37), 45),
-                                     ((4, 1), 6)])
-def test_cols_match_take_along_axis_0(shape, m):
+# (table shape, m, storage offset of idx): the first three with their
+# earlier ids; then C = 37, 4 and 128, each on a view at one offset
+@pytest.mark.parametrize("shape,m,offset", [
+    pytest.param((1 << 9, 128), 1 << 9, 0, id="shape0-512"),
+    pytest.param((999, 37), 45, 0, id="shape1-45"),
+    pytest.param((4, 1), 6, 0, id="shape2-6"),
+    pytest.param((999, 37), 1001, 1, id="999x37-1001-offset1"),
+    pytest.param((1000, 4), 129, 2, id="1000x4-129-offset2"),
+    pytest.param((1 << 9, 128), 513, 3, id="512x128-513-offset3")])
+def test_cols_match_take_along_axis_0(shape, m, offset):
     t, i = _inputs(m, shape, (m, shape[1]), shape[0])
+    idx = (_offset_view(i, shape[0], offset) if offset
+           else torch.from_numpy(i))
     want = np.asarray(jnp.take_along_axis(jnp.asarray(t), jnp.asarray(i),
                                           axis=0))
     for fn in (gather.gather_cols, gather.gather_cols_plain):
         np.testing.assert_array_equal(
-            fn(torch.from_numpy(t), torch.from_numpy(i)).numpy(), want)
+            fn(torch.from_numpy(t), idx).numpy(), want)
+
+
+def test_probe_edge_cases_on_the_cpu():
+    """The edge cases ``chip_smoke.py`` holds ``gather_flat`` and
+    ``gather_cols`` to on the card: their shapes, storage offsets and end indices, each through
+    the dispatching function against the XLA form, bit for bit; on CPU
+    tensors no kernel launches."""
+    kernels.reset_launch_counts()
+    cases = gather_probe.edge_cases("cpu")
+    assert [(name, tuple(i.shape), i.storage_offset())
+            for _, name, _, i in cases] == [
+        ("gather_flat", ((1 << 20) + 3,), 0),
+        ("gather_flat", ((1 << 20) + 2,), 1),
+        ("gather_cols", (1001, 37), 0),
+        ("gather_cols", (1 << 13, 128), 3)]
+    for label, name, t, i in cases:
+        axis_len = t.shape[0]
+        flat = i.reshape(-1)
+        assert int(flat[0]) == 0 and int(flat[-1]) == axis_len - 1, label
+        assert int(i.min()) >= 0 and int(i.max()) < axis_len, label
+        if name == "gather_flat":
+            got = gather.gather_flat(t, i)
+            want = jnp.take(jnp.asarray(t.numpy()), jnp.asarray(i.numpy()),
+                            axis=0)
+        else:
+            got = gather.gather_cols(t, i)
+            want = jnp.take_along_axis(jnp.asarray(t.numpy()),
+                                       jnp.asarray(i.numpy()), axis=0)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert all(n == 0 for n in kernels.launch_counts().values())
 
 
 def test_probe_formulations_on_the_cpu():

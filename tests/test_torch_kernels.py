@@ -667,20 +667,31 @@ def test_sharded_step_over_the_cards(cuda):
 
 # ---- the gather-rate probe's kernels ----------------------------------------
 
-def _gather_inputs(rng, kind, table_shape, idx_shape, device):
+def _gather_inputs(rng, kind, table_shape, idx_shape, device, offset=0):
     """A normal f32 table and int32 indices in range along the gathered
-    axis of ``kind``."""
+    axis of ``kind``, the first 0 and the last the axis' last index; with
+    ``offset`` the indices are a contiguous view at that storage offset."""
     t = torch.from_numpy(rng.standard_normal(table_shape).astype(np.float32))
     axis_len = {"flat": table_shape[0], "smem": table_shape[0],
                 "rows": table_shape[-1], "cols": table_shape[0]}[kind]
-    i = torch.from_numpy(rng.integers(0, axis_len, idx_shape,
-                                      dtype=np.int32))
-    return t.to(device), i.to(device)
+    buf = rng.integers(0, axis_len, offset + int(np.prod(idx_shape)),
+                       dtype=np.int32)
+    buf[offset], buf[-1] = 0, axis_len - 1
+    i = torch.from_numpy(buf).to(device)[offset:].view(idx_shape)
+    assert i.storage_offset() == offset and i.is_contiguous()
+    return t.to(device), i
 
 
 GATHER_CASES = [
     ("flat", (1 << 20,), (1 << 20,)),     # the probe's shapes
     ("flat", (1000,), (777,)),
+    # lengths around multiples of 4 lookups (16 bytes), and past 2^20
+    ("flat", (1000,), (1,)),
+    ("flat", (1000,), (3,)),
+    ("flat", (1000,), (4,)),
+    ("flat", (1000,), (5,)),
+    ("flat", (1000,), (129,)),
+    ("flat", (1 << 20,), ((1 << 20) + 3,)),
     ("smem", (1 << 15,), (1 << 20,)),     # the probe's shapes
     ("smem", (1,), (300,)),
     ("smem", (4099,), (5000,)),
@@ -688,6 +699,21 @@ GATHER_CASES = [
     ("rows", (3, 1001), (3, 517)),
     ("cols", (1 << 13, 128), (1 << 13, 128)),  # the probe's shapes
     ("cols", (999, 37), (45, 37)),
+    ("cols", (999, 37), (1001, 37)),       # C % 4 != 0
+    ("cols", (1000, 4), (129, 4)),         # C = 4: 16 bytes a row
+]
+
+# gather_flat and gather_cols on index views at storage offsets 1-3: the
+# indices are not 16-byte aligned where the fresh output is
+GATHER_VIEW_CASES = [
+    (kind, table_shape, idx_shape, offset)
+    for kind, table_shape, idx_shape in [
+        ("flat", (1 << 20,), ((1 << 20) + 3,)),
+        ("flat", (1000,), (129,)),
+        ("cols", (1 << 13, 128), (1 << 13, 128)),
+        ("cols", (1000, 4), (129, 4)),
+        ("cols", (999, 37), (45, 37))]
+    for offset in (1, 2, 3)
 ]
 
 
@@ -728,6 +754,25 @@ def test_gather_kernels_bit_exact(cuda, kind, table_shape, idx_shape):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     assert got.dtype == torch.float32 and got.shape == i.shape
+    assert torch.equal(got, plain(t, i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,table_shape,idx_shape,offset",
+                         GATHER_VIEW_CASES)
+def test_gather_kernels_on_offset_views(cuda, kind, table_shape, idx_shape,
+                                        offset):
+    """gather_flat and gather_cols on index views at a storage offset equal
+    their plain twins bit for bit and count one launch each."""
+    kern, plain = _gather_fns(kind)
+    rng = np.random.default_rng(offset + idx_shape[0])
+    t, i = _gather_inputs(rng, kind, table_shape, idx_shape, cuda, offset)
+    name = {"flat": "gather_flat", "cols": "gather_cols"}[kind]
+    before = kernels.LAUNCHES[name]
+    got = kern(t, i)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.shape == i.shape
     assert torch.equal(got, plain(t, i))
 
 
