@@ -82,10 +82,21 @@ Then, at the same scale:
   the shared-memory gather's table load is timed on its own (a launch with
   no lookups). ``gather_flat`` and ``gather_cols`` are also held against
   their plain versions at an odd shape and on an index view at a storage
-  offset (``gather_probe.edge_cases``); the three gathers from L2 print
-  their G lookups/s and the L2 sector rate that implies (lookups x 32 B
-  over the device time: reckoned, not a counter). They are on no path:
-  launched 0 times in every path's run;
+  offset (``gather_probe.edge_cases``). ``gather_rows_cluster``, the
+  probe's measure of lookups from a thread-block cluster's shared memory
+  (each row held in 4 or 8 blocks; not behind ``gather_rows``, which reads
+  the row from L2), runs at ``gather_rows``' shapes in the same way and
+  goes into ``gather_rows``' record; it is held to its plain version at odd
+  shapes, at the longest rows clusters of 4 and 8 blocks hold, and on a
+  table view at a storage offset, and must refuse a longer row;
+  ``gather_flat_smem`` on table views at storage offsets 1-3, at its
+  largest table and at 1, 3 and 5 lookups. Each kernel must have launched
+  once at the probe's shapes; ``gather_rows_cluster`` and
+  ``gather_flat_smem`` print their launch configuration (blocks a cluster,
+  clusters a row or the grid, the table bytes read from L2, reckoned); the
+  three gathers from L2 print their G lookups/s and the L2 sector rate that
+  implies (lookups x 32 B over the device time: reckoned, not a counter).
+  They are on no path: launched 0 times in every path's run;
 - phase 14 runs ``python -m rgbd_recon_tpu_torch.dist.worker`` as 2
   processes of 4 shards each on the worker's scene: gloo, both processes
   on the first card, bit-equal to the single device and to the 8-shard
@@ -1167,25 +1178,43 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
 
 def _phase13_gather(np, torch, card, flush):
     """The gather-rate probe at the TPU probe's shapes (see the module
-    docstring). Returns the four kernels' JSON records."""
+    docstring). Returns the four kernels' JSON records; gather_rows' holds
+    gather_rows_cluster's under "cluster"."""
+    from rgbd_recon_tpu_torch import kernels
     from rgbd_recon_tpu_torch.bench import gather_probe
-    from rgbd_recon_tpu_torch.kernels.gather import smem_table_entries
+    from rgbd_recon_tpu_torch.kernels import gather as kg
     from rgbd_recon_tpu_torch.ops import gather
     from rgbd_recon_tpu_torch.profile_slice import event_ms
 
     dev = torch.device("cuda")
     n = gather_probe.LOOKUPS
     table, idx = gather_probe.make_inputs(dev, seed=0)
+    cap4, cap8 = kg.rows_capacities(dev)
+    limits = (cap4, cap8, kg.smem_table_entries(dev))
     print(f"gather probe: {n} lookups, table {table.numel()} f32 entries; "
-          f"shared memory takes at most {smem_table_entries(dev)} entries "
-          f"a block on this card", flush=True)
-    rows = []
-    for f in gather_probe.formulations(table, idx):
-        got, want, lib = f.kernel(), f.plain(), f.library()
+          f"on this card gather_flat_smem takes at most {limits[2]} "
+          f"entries, gather_rows_cluster rows of at most {cap4} entries in "
+          f"its smaller cluster, {cap8} in its larger", flush=True)
+
+    def measure(f):
+        config = None
+        if f.name in ("gather_rows_cluster", "gather_flat_smem"):
+            config = gather_probe.configuration(f.name, *f.moved[:2])
+            print(f"{f.name}: launch configuration {config}; the table "
+                  f"read from L2 {config['table_bytes_from_l2']} B a call "
+                  f"(reckoned)", flush=True)
+        before = kernels.launch_counts()
+        got = f.kernel()
+        counted = {k: v - before[k]
+                   for k, v in kernels.launch_counts().items()
+                   if v != before[k]}
+        want, lib = f.plain(), f.library()
         torch.cuda.synchronize()
         err = _max_abs_err(torch, got, want)
-        print(f"{f.name}: max|kernel - plain| = {err!r} (bound 0)",
-              flush=True)
+        print(f"{f.name}: max|kernel - plain| = {err!r} (bound 0); "
+              f"launched {counted}", flush=True)
+        if counted != {f.name: 1}:
+            raise AssertionError(f"{f.name}: launched {counted}")
         if not torch.equal(got, want):
             raise AssertionError(f"{f.name} differs from its plain version")
         if not torch.equal(lib, want):
@@ -1211,7 +1240,9 @@ def _phase13_gather(np, torch, card, flush):
                    library_device_ms_warm=lib_warm,
                    mlookups_s_cold=n / device_ms / 1e3,
                    mlookups_s_warm=n / device_ms_warm / 1e3, ops=0)
-        if f.name != "gather_flat_smem":
+        if config is not None:
+            row["config"] = config
+        if f.name in ("gather_flat", "gather_rows", "gather_cols"):
             # reckoned, not a counter: a random lookup moves one 32-byte
             # sector from L2 to an SM
             row.update(l2_sector_tb_s_cold=n * 32 / device_ms / 1e9,
@@ -1247,25 +1278,57 @@ def _phase13_gather(np, torch, card, flush):
                   f"L2 sector rate (lookups x 32 B / device time, reckoned) "
                   f"{row['l2_sector_tb_s_cold']:.3f} / "
                   f"{row['l2_sector_tb_s_warm']:.3f} TB/s", flush=True)
-        rows.append(row)
-    by_name = {r["name"]: r for r in rows}
+        if f.name == "gather_rows_cluster":
+            # reckoned: each lookup reads the owning block's shared memory,
+            # another block's for all but 1 in cluster
+            remote = (config["cluster"] - 1) / config["cluster"]
+            print(f"{f.name}: {n / device_ms / 1e6:.2f} / "
+                  f"{n / device_ms_warm / 1e6:.2f} G lookups/s cold / warm "
+                  f"from the cluster's shared memory, {remote:.0%} of them "
+                  f"in another block (reckoned), the table load included",
+                  flush=True)
+        return row
 
-    # gather_flat and gather_cols against their plain versions at an odd
-    # shape and on an index view at a storage offset
+    rows = [measure(f) for f in gather_probe.formulations(table, idx)]
+    by_name = {r["name"]: r for r in rows}
+    by_name["gather_rows_cluster"] = by_name["gather_rows"]["cluster"] = \
+        measure(gather_probe.cluster_formulation(table, idx))
+
+    # the gathers against their plain versions at odd shapes, at the
+    # clusters' capacity and past it, and on views at a storage offset
     twins = {"gather_flat": (gather.gather_flat, gather.gather_flat_plain),
+             "gather_flat_smem": (gather.gather_flat_smem,
+                                  gather.gather_flat_plain),
+             "gather_rows": (gather.gather_rows, gather.gather_rows_plain),
+             "gather_rows_cluster": (kg.gather_rows_cluster_cuda,
+                                     gather.gather_rows_plain),
              "gather_cols": (gather.gather_cols, gather.gather_cols_plain)}
-    for label, name, t, i in gather_probe.edge_cases(dev):
+    for label, name, t, i in gather_probe.edge_cases(dev, limits=limits):
         kernel, plain = twins[name]
-        got, want = kernel(t, i), plain(t, i)
+        before = kernels.launch_counts()
+        got = kernel(t, i)
+        counted = [k for k, v in kernels.launch_counts().items()
+                   if v != before[k]]
+        want = plain(t, i)
         torch.cuda.synchronize()
         err = _max_abs_err(torch, got, want)
-        print(f"{name}, {label}: idx {tuple(i.shape)} at storage offset "
-              f"{i.storage_offset()}, max|kernel - plain| = {err!r} "
-              f"(bound 0)", flush=True)
+        print(f"{name}, {label}: table {tuple(t.shape)} at storage offset "
+              f"{t.storage_offset()}, idx {tuple(i.shape)} at "
+              f"{i.storage_offset()}, kernel {counted}, max|kernel - "
+              f"plain| = {err!r} (bound 0)", flush=True)
         if not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version "
                                  f"({label})")
         by_name[name].setdefault("edge_checks", {})[label] = err
+        if name == "gather_rows":
+            # past every cluster: the cluster kernel's launch is refused
+            try:
+                kg.gather_rows_cluster_cuda(t, i)
+            except RuntimeError as e:
+                print(f"gather_rows_cluster, {label}: refused ({e})",
+                      flush=True)
+            else:
+                raise AssertionError(f"gather_rows_cluster took {label}")
     return rows
 
 

@@ -12,19 +12,26 @@ calls (the table warm in L2), then the same for the one PyTorch call that
 computes the same function. The data comes from a seeded
 ``torch.Generator`` on the card. Without a CUDA device it exits non-zero.
 
-Then the rate sweep (:func:`rate_cases`): ``gather_flat`` and
-``torch.take`` at 2^24 uniform lookups into tables of 2^15 to 2^24 entries,
-G lookups/s by CUDA events over back-to-back calls; at 2^24 lookups a call
-takes about 0.1 ms or more on an H100, so the wrapper's host time hides
-behind the device's. :func:`edge_cases` are odd shapes and index views at a
-storage offset for ``gather_flat`` and ``gather_cols`` (``chip_smoke.py``
-phase 13 holds the kernels to them).
+Then the same for ``gather_rows_cluster`` at the (8, 2^17) shape of
+``gather_rows`` (each row held in a thread-block cluster's shared memory),
+and the launch configurations of it and of ``gather_flat_smem``
+(:func:`configuration`). Then the rate sweep (:func:`rate_cases`):
+``gather_flat`` and ``torch.take`` at 2^24 uniform lookups into tables of
+2^15 to 2^24 entries, and (:func:`row_rate_cases`) ``gather_rows`` (from
+L2), ``gather_rows_cluster`` (from the cluster's shared memory) and
+``torch.take_along_dim`` at 2^24 lookups into one row of 2^15 to 2^18
+entries, G lookups/s by CUDA events over back-to-back calls; at 2^24
+lookups a call takes about 0.1 ms or more on an H100, so the wrapper's
+host time hides behind the device's. :func:`edge_cases` are odd shapes,
+the clusters' capacity and views at a storage offset for the gathers
+(``chip_smoke.py`` phase 13 holds the kernels to them).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 from typing import Callable, List, Tuple
 
 import torch
@@ -114,18 +121,33 @@ def formulations(table: torch.Tensor, idx: torch.Tensor,
     ]
 
 
-def edge_cases(device, seed: int = 1) -> List[Tuple[str, str, torch.Tensor,
-                                                     torch.Tensor]]:
+def edge_cases(device, seed: int = 1, limits: Tuple[int, int, int] = None
+               ) -> List[Tuple[str, str, torch.Tensor, torch.Tensor]]:
     """(label, kernel, table, idx) at odd shapes and offsets, idx holding 0
     and the last index along the gathered axis: ``gather_flat`` at an odd
     length and on a view at storage offset 1 (indices not 16-byte aligned),
     ``gather_cols`` with 37 columns and at the probe's 128 columns on a
-    view at storage offset 3."""
+    view at storage offset 3; ``gather_rows_cluster`` at odd C (rows off
+    16-byte boundaries), at 5 rows (not a multiple of the clusters a row),
+    at the longest row a cluster of 4 holds and one entry longer (a
+    cluster of 8), at the longest row a cluster of 8 holds, and on a table
+    view at storage offset 1; ``gather_rows`` one entry past that (no
+    cluster holds it); ``gather_flat_smem`` on table views at storage
+    offsets 1-3, at its largest table and at 1, 3 and 5 lookups.
+    ``limits`` are the longest rows clusters of 4 and 8 blocks hold and
+    the largest table of ``gather_flat_smem`` (the card's, when None)."""
+    if limits is None:
+        from ..kernels import gather as kg
+
+        limits = (*kg.rows_capacities(device), kg.smem_table_entries(device))
+    cap4, cap8, most = limits
     g = torch.Generator(device=device)
     g.manual_seed(seed)
 
-    def case(table_shape, m, offset, axis_len):
-        t = torch.randn(table_shape, generator=g, device=device)
+    def case(table_shape, m, offset, axis_len, table_offset=0):
+        size = math.prod(table_shape)
+        t = torch.randn(table_offset + size, generator=g,
+                        device=device)[table_offset:].view(table_shape)
         buf = torch.randint(0, axis_len, (offset + m,), generator=g,
                             device=device, dtype=torch.int32)
         buf[offset], buf[-1] = 0, axis_len - 1
@@ -136,12 +158,71 @@ def edge_cases(device, seed: int = 1) -> List[Tuple[str, str, torch.Tensor,
     view_t, view_i = case((n,), n + 2, 1, n)
     odd_t, odd_i = case((999, 37), 1001 * 37, 0, 999)
     cols_t, cols_i = case((n // 128, 128), n, 3, n // 128)
-    return [("odd length 2^20 + 3", "gather_flat", flat_t, flat_i),
-            ("idx at storage offset 1", "gather_flat", view_t, view_i),
-            ("(999, 37), 1001 rows", "gather_cols", odd_t,
-             odd_i.view(1001, 37)),
-            ("(2^13, 128), idx at storage offset 3", "gather_cols", cols_t,
-             cols_i.view(n // 128, 128))]
+    cases = [("odd length 2^20 + 3", "gather_flat", flat_t, flat_i),
+             ("idx at storage offset 1", "gather_flat", view_t, view_i),
+             ("(999, 37), 1001 rows", "gather_cols", odd_t,
+              odd_i.view(1001, 37)),
+             ("(2^13, 128), idx at storage offset 3", "gather_cols", cols_t,
+              cols_i.view(n // 128, 128))]
+    for label, name, R, C, M, t_off in [
+            ("(3, 1001) x 517, odd C", "gather_rows_cluster", 3, 1001, 517,
+             0),
+            ("(5, 2^16) x (2^15 + 4), 5 rows", "gather_rows_cluster", 5,
+             1 << 16, (1 << 15) + 4, 0),
+            (f"(2, {cap4}), the longest row 4 blocks hold",
+             "gather_rows_cluster", 2, cap4, 5000, 0),
+            (f"(2, {cap4 + 1}), in 8 blocks", "gather_rows_cluster", 2,
+             cap4 + 1, 5000, 0),
+            (f"(1, {cap8}), the longest row 8 blocks hold",
+             "gather_rows_cluster", 1, cap8, 5000, 0),
+            ("(8, 2^17), table at storage offset 1", "gather_rows_cluster",
+             8, 1 << 17, 1 << 17, 1),
+            (f"(1, {cap8 + 1}), past every cluster", "gather_rows", 1,
+             cap8 + 1, 5000, 0)]:
+        t, i = case((R, C), R * M, 0, C, t_off)
+        cases.append((label, name, t, i.view(R, M)))
+    for label, size, m, t_off in [
+            *[(f"table 2^15 at storage offset {k}", 1 << 15, n, k)
+              for k in (1, 2, 3)],
+            (f"largest table, {most} entries", most, n, 0),
+            *[(f"n = {m}", 4099, m, 0) for m in (1, 3, 5)]]:
+        t, i = case((size,), m, 0, size, t_off)
+        cases.append((label, "gather_flat_smem", t, i))
+    return cases
+
+
+def configuration(name: str, table: torch.Tensor, idx: torch.Tensor
+                  ) -> dict:
+    """The launch of ``gather_rows_cluster`` or ``gather_flat_smem`` at these
+    inputs (``kernels.gather.rows_plan`` / ``smem_plan``) and the table
+    bytes it reads from L2 a call (reckoned: one read of the row a
+    cluster, one of the table a block)."""
+    from ..kernels import gather as kg
+
+    if name == "gather_rows_cluster":
+        R, C = table.shape
+        plan = kg.rows_plan(R, C, idx.shape[1], table.device)
+        return dict(plan, table_bytes_from_l2=R * plan["clusters_per_row"]
+                    * C * 4)
+    if name == "gather_flat_smem":
+        plan = kg.smem_plan(idx.numel(), table.numel(), table.device)
+        return dict(plan, table_bytes_from_l2=plan["blocks"] * table.numel()
+                    * 4)
+    raise ValueError(f"{name}: no launch configuration to report")
+
+
+def cluster_formulation(table: torch.Tensor, idx: torch.Tensor
+                        ) -> Formulation:
+    """``gather_rows_cluster`` on the inputs of the probe's ``gather_rows``
+    (see :func:`formulations`): not a gather of the TPU probe's, the
+    probe's measure of lookups from a cluster's shared memory."""
+    from ..kernels.gather import gather_rows_cluster_cuda
+
+    rows = formulations(table, idx)[2]
+    t, i = rows.moved[:2]
+    return dataclasses.replace(
+        rows, name="gather_rows_cluster",
+        kernel=lambda: gather_rows_cluster_cuda(t, i))
 
 
 RATE_LOOKUPS = 1 << 24
@@ -164,6 +245,26 @@ def rate_cases(device, seed: int = 2, lookups: int = RATE_LOOKUPS
     return cases
 
 
+ROW_RATE_ROWS = (15, 16, 17, 18)   # log2 of the one row's f32 entries
+
+
+def row_rate_cases(device, seed: int = 3, lookups: int = RATE_LOOKUPS
+                   ) -> List[Tuple[str, torch.Tensor, torch.Tensor]]:
+    """(label, t, idx): ``lookups`` uniform i32 indices into one row of
+    2^15 to 2^18 entries, t (1, C) and idx (1, lookups): from 128 KiB to 1
+    MiB, each held in one cluster's shared memory by
+    ``gather_rows_cluster`` (4 blocks up to 2^17, 8 for 2^18)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    cases = []
+    for k in ROW_RATE_ROWS:
+        t = torch.randn(1, 1 << k, generator=g, device=device)
+        cases.append((f"row 2^{k}", t,
+                      torch.randint(0, 1 << k, (1, lookups), generator=g,
+                                    device=device, dtype=torch.int32)))
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -175,10 +276,13 @@ def main(argv=None) -> None:
 
     print(card_line(), flush=True)
     table, idx = make_inputs(torch.device("cuda"), args.seed)
-    for f in formulations(table, idx):
+    for f in [*formulations(table, idx), cluster_formulation(table, idx)]:
         if not torch.equal(f.kernel(), f.plain()):
             raise SystemExit(f"{f.name}: the kernel differs from its plain "
                              "version")
+        if f.name in ("gather_rows_cluster", "gather_flat_smem"):
+            print(f"{f.name}: {configuration(f.name, *f.moved[:2])}",
+                  flush=True)
         for label, fn in ((f.name, f.kernel),
                           (f"  {f.library_name}", f.library)):
             ms = event_ms(fn, iters=args.iters)
@@ -191,6 +295,27 @@ def main(argv=None) -> None:
                              "version")
         for who, fn in (("gather_flat", lambda: gather.gather_flat(t, i)),
                         ("torch.take", lambda: torch.take(t, i_l))):
+            ms = event_ms(fn, iters=args.iters)
+            print(f"rate {who}, {label} ({t.numel()} entries, "
+                  f"{i.numel()} lookups): {ms:8.4f} ms "
+                  f"{i.numel() / ms / 1e6:7.1f} G lookups/s", flush=True)
+    from ..kernels.gather import gather_rows_cluster_cuda
+
+    for label, t, i in row_rate_cases(torch.device("cuda"), args.seed + 3):
+        i_l = i.long()
+        want = torch.take_along_dim(t, i_l, dim=1)
+        for who, fn in (("gather_rows", gather.gather_rows),
+                        ("gather_rows_cluster", gather_rows_cluster_cuda)):
+            if not torch.equal(fn(t, i), want):
+                raise SystemExit(f"{who} ({label}) differs from its plain "
+                                 "version")
+        cluster = configuration("gather_rows_cluster", t, i)["cluster"]
+        for who, fn in (
+                ("gather_rows", lambda: gather.gather_rows(t, i)),
+                (f"gather_rows_cluster ({cluster} blocks)",
+                 lambda: gather_rows_cluster_cuda(t, i)),
+                ("torch.take_along_dim",
+                 lambda: torch.take_along_dim(t, i_l, dim=1))):
             ms = event_ms(fn, iters=args.iters)
             print(f"rate {who}, {label} ({t.numel()} entries, "
                   f"{i.numel()} lookups): {ms:8.4f} ms "

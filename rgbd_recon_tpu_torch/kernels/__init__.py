@@ -21,6 +21,9 @@ LAUNCHES = {
     "gather_flat_smem": 0,
     "gather_rows": 0,
     "gather_cols": 0,
+    # the probe's measure of distributed shared memory (on no path, and
+    # behind no ops function)
+    "gather_rows_cluster": 0,
 }
 
 

@@ -45,8 +45,11 @@ _SIGNATURES = {
                            _P),
     "rgbd_gather_flat": (_P, _P, _P, _I, _I, _P),
     "rgbd_gather_flat_smem": (_P, _P, _P, _I, _I, _P),
+    "rgbd_gather_flat_smem_plan": (_I, _I, ctypes.POINTER(_I)),
     "rgbd_gather_smem_entries": (ctypes.POINTER(_I),),
     "rgbd_gather_rows": (_P, _P, _P, _I, _I, _I, _P),
+    "rgbd_gather_rows_cluster": (_P, _P, _P, _I, _I, _I, _P),
+    "rgbd_gather_rows_cluster_plan": (_I, _I, _I, ctypes.POINTER(_I)),
     "rgbd_gather_cols": (_P, _P, _P, _I, _I, _I, _P),
 }
 

@@ -39,6 +39,13 @@ def _inputs(table: torch.Tensor, idx: torch.Tensor, dim: int) -> None:
         raise ValueError("the table is empty")
 
 
+def _rows_inputs(t: torch.Tensor, idx: torch.Tensor) -> None:
+    _inputs(t, idx, 2)
+    if idx.shape[0] != t.shape[0]:
+        raise ValueError(f"idx {tuple(idx.shape)} must have the table's "
+                         f"{t.shape[0]} rows")
+
+
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -74,6 +81,42 @@ def _smem_entries(index: int) -> int:
     return entries.value
 
 
+def _plan(fn, args, keys, device, name) -> dict:
+    plan = (ctypes.c_int * len(keys))()
+    with torch.cuda.device(device):
+        check(fn(*args, plan), name)
+    return dict(zip(keys, plan))
+
+
+def rows_plan(R: int, C: int, M: int, device) -> dict:
+    """The launch of :func:`gather_rows_cluster_cuda` at (R, C) rows and M
+    lookups a row on ``device``: ``cluster`` blocks a cluster, ``slice``
+    entries a block, ``clusters_per_row``, ``blocks``, ``smem_bytes`` a
+    block, ``threads`` a block, and ``capacity``, the longest row a
+    cluster of that size holds. Raises for a row that does not fit."""
+    return _plan(library().rgbd_gather_rows_cluster_plan, (R, C, M),
+                 ("cluster", "slice", "clusters_per_row", "blocks",
+                  "smem_bytes", "threads", "capacity"), torch.device(device),
+                 "gather_rows_cluster")
+
+
+def rows_capacities(device) -> tuple:
+    """The longest row :func:`gather_rows_cluster_cuda` holds on
+    ``device`` in its smaller cluster, then in its larger (longer rows are
+    refused)."""
+    small = rows_plan(1, 1, 1, device)["capacity"]
+    return small, rows_plan(1, small + 1, 1, device)["capacity"]
+
+
+def smem_plan(n: int, size: int, device) -> dict:
+    """The persistent grid of :func:`gather_flat_smem_cuda` for ``n``
+    lookups into ``size`` entries on ``device``: ``blocks``, ``smem_bytes``
+    a block, ``threads`` a block."""
+    return _plan(library().rgbd_gather_flat_smem_plan, (n, size),
+                 ("blocks", "smem_bytes", "threads"), torch.device(device),
+                 "gather_flat_smem")
+
+
 def gather_flat_smem_cuda(table: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` from a copy of the table in each block's shared
@@ -99,10 +142,7 @@ def gather_flat_smem_cuda(table: torch.Tensor,
 def gather_rows_cuda(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(R, C) f32, (R, M) i32 -> (R, M) f32 ``take_along_axis(t, idx,
     axis=1)``."""
-    _inputs(t, idx, 2)
-    if idx.shape[0] != t.shape[0]:
-        raise ValueError(f"idx {tuple(idx.shape)} must have the table's "
-                         f"{t.shape[0]} rows")
+    _rows_inputs(t, idx)
     R, C = t.shape
     out = torch.empty(idx.shape, dtype=torch.float32, device=t.device)
     with torch.cuda.device(t.device):
@@ -111,6 +151,29 @@ def gather_rows_cuda(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             _stream(t))
     check(err, "gather_rows")
     LAUNCHES["gather_rows"] += 1
+    return out
+
+
+def gather_rows_cluster_cuda(t: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_rows_cuda` with each row held in the shared memory of
+    a thread-block cluster (see :func:`rows_plan`), every lookup read from
+    the owning block's shared memory: the probe's measure of random
+    lookups from distributed shared memory. On no path, and not behind
+    ``ops.gather.gather_rows``: slower than the L2 kernel on the H100
+    (PERF.md). The launch is refused, and this raises, for rows longer
+    than :func:`rows_capacities` allows."""
+    _rows_inputs(t, idx)
+    R, C = t.shape
+    out = torch.empty(idx.shape, dtype=torch.float32, device=t.device)
+    if idx.numel() == 0:
+        return out
+    with torch.cuda.device(t.device):
+        err = library().rgbd_gather_rows_cluster(
+            t.data_ptr(), idx.data_ptr(), out.data_ptr(), R, C, idx.shape[1],
+            _stream(t))
+    check(err, "gather_rows_cluster")
+    LAUNCHES["gather_rows_cluster"] += 1
     return out
 
 

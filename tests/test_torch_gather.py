@@ -21,6 +21,10 @@ from rgbd_recon_tpu_torch import kernels
 from rgbd_recon_tpu_torch.bench import gather_probe
 from rgbd_recon_tpu_torch.ops import gather
 
+# an H100's limits: the longest rows gather_rows_cluster holds in clusters
+# of 4 and 8 blocks, the largest table of gather_flat_smem
+H100_LIMITS = (232_416, 464_832, 58_112)
+
 
 def _inputs(seed, table_shape, idx_shape, axis_len):
     rng = np.random.default_rng(seed)
@@ -95,33 +99,66 @@ def test_cols_match_take_along_axis_0(shape, m, offset):
 
 
 def test_probe_edge_cases_on_the_cpu():
-    """The edge cases ``chip_smoke.py`` holds ``gather_flat`` and
-    ``gather_cols`` to on the card: their shapes, storage offsets and end indices, each through
-    the dispatching function against the XLA form, bit for bit; on CPU
-    tensors no kernel launches."""
+    """The edge cases ``chip_smoke.py`` holds the four gathers to on the
+    card (at an H100's shared memory): their shapes, storage offsets of
+    table and indices and end indices, each through the dispatching
+    function against the XLA form, bit for bit; on CPU tensors no kernel
+    launches."""
     kernels.reset_launch_counts()
-    cases = gather_probe.edge_cases("cpu")
-    assert [(name, tuple(i.shape), i.storage_offset())
-            for _, name, _, i in cases] == [
-        ("gather_flat", ((1 << 20) + 3,), 0),
-        ("gather_flat", ((1 << 20) + 2,), 1),
-        ("gather_cols", (1001, 37), 0),
-        ("gather_cols", (1 << 13, 128), 3)]
+    cases = gather_probe.edge_cases("cpu", limits=H100_LIMITS)
+    n = 1 << 20
+    assert [(name, tuple(t.shape), t.storage_offset(), tuple(i.shape),
+             i.storage_offset()) for _, name, t, i in cases] == [
+        ("gather_flat", (n,), 0, (n + 3,), 0),
+        ("gather_flat", (n,), 0, (n + 2,), 1),
+        ("gather_cols", (999, 37), 0, (1001, 37), 0),
+        ("gather_cols", (1 << 13, 128), 0, (1 << 13, 128), 3),
+        ("gather_rows_cluster", (3, 1001), 0, (3, 517), 0),
+        ("gather_rows_cluster", (5, 1 << 16), 0, (5, (1 << 15) + 4), 0),
+        ("gather_rows_cluster", (2, 232_416), 0, (2, 5000), 0),
+        ("gather_rows_cluster", (2, 232_417), 0, (2, 5000), 0),
+        ("gather_rows_cluster", (1, 464_832), 0, (1, 5000), 0),
+        ("gather_rows_cluster", (8, 1 << 17), 1, (8, 1 << 17), 0),
+        ("gather_rows", (1, 464_833), 0, (1, 5000), 0),
+        *[("gather_flat_smem", (1 << 15,), k, (n,), 0) for k in (1, 2, 3)],
+        ("gather_flat_smem", (58_112,), 0, (n,), 0),
+        *[("gather_flat_smem", (4099,), 0, (m,), 0) for m in (1, 3, 5)]]
     for label, name, t, i in cases:
-        axis_len = t.shape[0]
+        axis_len = t.shape[1] if name.startswith("gather_rows") else \
+            t.shape[0]
         flat = i.reshape(-1)
-        assert int(flat[0]) == 0 and int(flat[-1]) == axis_len - 1, label
+        # (one lookup: the last index only)
+        assert int(flat[0]) == (0 if flat.numel() > 1 else axis_len - 1)
+        assert int(flat[-1]) == axis_len - 1, label
         assert int(i.min()) >= 0 and int(i.max()) < axis_len, label
-        if name == "gather_flat":
-            got = gather.gather_flat(t, i)
-            want = jnp.take(jnp.asarray(t.numpy()), jnp.asarray(i.numpy()),
-                            axis=0)
+        tj, ij = jnp.asarray(t.numpy()), jnp.asarray(i.numpy())
+        if name in ("gather_flat", "gather_flat_smem"):
+            got = getattr(gather, name)(t, i)
+            want = jnp.take(tj, ij, axis=0)
+        elif name.startswith("gather_rows"):
+            # gather_rows_cluster's plain version: gather_rows' on the CPU
+            got = gather.gather_rows(t, i)
+            want = jnp.take_along_axis(tj, ij, axis=1)
         else:
             got = gather.gather_cols(t, i)
-            want = jnp.take_along_axis(jnp.asarray(t.numpy()),
-                                       jnp.asarray(i.numpy()), axis=0)
+            want = jnp.take_along_axis(tj, ij, axis=0)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+def test_probe_row_rate_cases_on_the_cpu():
+    """The rate sweep's rows: one row of 2^15-2^18 entries a case, 2^24
+    indices in range (here 2^12), every row within what a cluster holds on
+    an H100; the twin equals the library call."""
+    cases = gather_probe.row_rate_cases("cpu", lookups=1 << 12)
+    assert [tuple(t.shape) for _, t, _ in cases] == [
+        (1, 1 << k) for k in (15, 16, 17, 18)]
+    assert all(t.shape[1] <= H100_LIMITS[1] for _, t, _ in cases)
+    for _, t, i in cases:
+        assert i.shape == (1, 1 << 12) and i.dtype == torch.int32
+        assert int(i.min()) >= 0 and int(i.max()) < t.shape[1]
+        assert torch.equal(gather.gather_rows(t, i),
+                           torch.take_along_dim(t, i.long(), dim=1))
 
 
 def test_probe_formulations_on_the_cpu():
@@ -151,3 +188,18 @@ def test_probe_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="cuda"):
         gather_probe.main([])
+
+
+def test_probe_cluster_formulation_on_the_cpu():
+    """gather_rows_cluster's probe formulation takes gather_rows' inputs,
+    plain version and library call; its kernel needs the card (no plain
+    fallback on CPU tensors)."""
+    table, idx = gather_probe.make_inputs("cpu", 0, 1 << 14, 1 << 14)
+    rows = gather_probe.formulations(table, idx)[2]
+    f = gather_probe.cluster_formulation(table, idx)
+    assert f.name == "gather_rows_cluster" and f.replaces == rows.replaces
+    assert all(torch.equal(a, b) for a, b in zip(f.moved[:2], rows.moved))
+    assert f.moved[2].shape == rows.moved[2].shape   # the output
+    assert torch.equal(f.plain(), f.library())
+    with pytest.raises(ValueError, match="CUDA"):
+        f.kernel()

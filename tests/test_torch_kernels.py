@@ -667,19 +667,42 @@ def test_sharded_step_over_the_cards(cuda):
 
 # ---- the gather-rate probe's kernels ----------------------------------------
 
-def _gather_inputs(rng, kind, table_shape, idx_shape, device, offset=0):
+def _gather_inputs(rng, kind, table_shape, idx_shape, device, offset=0,
+                   table_offset=0):
     """A normal f32 table and int32 indices in range along the gathered
     axis of ``kind``, the first 0 and the last the axis' last index; with
-    ``offset`` the indices are a contiguous view at that storage offset."""
-    t = torch.from_numpy(rng.standard_normal(table_shape).astype(np.float32))
+    ``offset`` the indices are a contiguous view at that storage offset,
+    with ``table_offset`` the table."""
+    size = int(np.prod(table_shape))
+    t = torch.from_numpy(rng.standard_normal(table_offset + size).astype(
+        np.float32)).to(device)[table_offset:].view(table_shape)
+    assert t.storage_offset() == table_offset and t.is_contiguous()
     axis_len = {"flat": table_shape[0], "smem": table_shape[0],
-                "rows": table_shape[-1], "cols": table_shape[0]}[kind]
+                "rows": table_shape[-1], "cluster": table_shape[-1],
+                "cols": table_shape[0]}[kind]
     buf = rng.integers(0, axis_len, offset + int(np.prod(idx_shape)),
                        dtype=np.int32)
     buf[offset], buf[-1] = 0, axis_len - 1
     i = torch.from_numpy(buf).to(device)[offset:].view(idx_shape)
     assert i.storage_offset() == offset and i.is_contiguous()
-    return t.to(device), i
+    return t, i
+
+
+def _gather_shape(shape, device):
+    """``shape`` with the card's limits put in: "most" is the largest table
+    of the shared-memory gather, "cap4" / "cap8" the longest row a cluster
+    of 4 / 8 blocks holds (gather_rows_cluster), "+1" one entry more."""
+    from rgbd_recon_tpu_torch.kernels import gather as kg
+
+    cap4, cap8 = kg.rows_capacities(device)
+    named = {"most": kg.smem_table_entries(device), "cap4": cap4,
+             "cap4+1": cap4 + 1, "cap8": cap8, "cap8+1": cap8 + 1}
+    return tuple(named.get(d, d) for d in shape)
+
+
+GATHER_NAMES = {"flat": "gather_flat", "smem": "gather_flat_smem",
+                "rows": "gather_rows", "cluster": "gather_rows_cluster",
+                "cols": "gather_cols"}
 
 
 GATHER_CASES = [
@@ -701,6 +724,28 @@ GATHER_CASES = [
     ("cols", (999, 37), (45, 37)),
     ("cols", (999, 37), (1001, 37)),       # C % 4 != 0
     ("cols", (1000, 4), (129, 4)),         # C = 4: 16 bytes a row
+    # gather_rows_cluster (each row in a cluster's shared memory) at the
+    # probe's shapes, at the longest rows clusters of 4 and 8 blocks hold
+    # and one entry past the first (8 blocks); gather_rows one entry past
+    # the second (no cluster holds it)
+    ("cluster", (8, 1 << 17), (8, 1 << 17)),
+    ("cluster", (2, "cap4"), (2, 5000)),
+    ("cluster", (2, "cap4+1"), (2, 5000)),
+    ("cluster", (1, "cap8"), (1, 5000)),
+    ("rows", (1, "cap8+1"), (1, 5000)),
+    # rows whose count is not a multiple of the clusters a row
+    ("cluster", (5, 1 << 16), (5, (1 << 15) + 4)),
+    ("cluster", (13, 300), (13, 1 << 14)),
+    # odd C: every row but the first starts off a 16-byte boundary, and
+    # odd M: so do the index rows
+    ("cluster", (3, 1001), (3, 517)),
+    ("cluster", (5, 4099), (5, 1027)),
+    ("cluster", (1, 5), (1, 9)),
+    # the shared-memory gather at its largest table, and at 1, 3, 5 lookups
+    ("smem", ("most",), (1 << 20,)),
+    ("smem", (4099,), (1,)),
+    ("smem", (4099,), (3,)),
+    ("smem", (4099,), (5,)),
 ]
 
 # gather_flat and gather_cols on index views at storage offsets 1-3: the
@@ -714,6 +759,19 @@ GATHER_VIEW_CASES = [
         ("cols", (1000, 4), (129, 4)),
         ("cols", (999, 37), (45, 37))]
     for offset in (1, 2, 3)
+] + [
+    # the shared-memory gathers on a table view at storage offsets 1-3
+    # (gather_rows_cluster: head and tail outside the bulk copy), then on
+    # index views (no 16-byte index loads)
+    (kind, table_shape, idx_shape, (offset, 0) if on_table else offset)
+    for on_table, kind, table_shape, idx_shape in [
+        (True, "smem", (1 << 15,), (1 << 20,)),
+        (True, "smem", (4099,), (5000,)),
+        (True, "cluster", (8, 1 << 17), (8, 1 << 17)),
+        (True, "cluster", (3, 1001), (3, 517)),
+        (False, "smem", (4099,), (5000,)),
+        (False, "cluster", (4, 1 << 15), (4, 1 << 15))]
+    for offset in (1, 2, 3)
 ]
 
 
@@ -724,6 +782,7 @@ def _gather_fns(kind):
     return {"flat": (kg.gather_flat_cuda, og.gather_flat_plain),
             "smem": (kg.gather_flat_smem_cuda, og.gather_flat_plain),
             "rows": (kg.gather_rows_cuda, og.gather_rows_plain),
+            "cluster": (kg.gather_rows_cluster_cuda, og.gather_rows_plain),
             "cols": (kg.gather_cols_cuda, og.gather_cols_plain)}[kind]
 
 
@@ -734,7 +793,8 @@ def test_gather_cuda_wrappers_reject_cpu_tensors():
     for fn in (kg.gather_flat_cuda, kg.gather_flat_smem_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(t, i)
-    for fn in (kg.gather_rows_cuda, kg.gather_cols_cuda):
+    for fn in (kg.gather_rows_cuda, kg.gather_rows_cluster_cuda,
+               kg.gather_cols_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(t.reshape(2, 4), i.reshape(2, 2))
 
@@ -746,9 +806,9 @@ def test_gather_kernels_bit_exact(cuda, kind, table_shape, idx_shape):
     launch."""
     kern, plain = _gather_fns(kind)
     rng = np.random.default_rng(len(idx_shape) + idx_shape[0])
+    table_shape = _gather_shape(table_shape, cuda)
     t, i = _gather_inputs(rng, kind, table_shape, idx_shape, cuda)
-    name = {"flat": "gather_flat", "smem": "gather_flat_smem",
-            "rows": "gather_rows", "cols": "gather_cols"}[kind]
+    name = GATHER_NAMES[kind]
     before = kernels.LAUNCHES[name]
     got = kern(t, i)
     torch.cuda.synchronize()
@@ -762,12 +822,15 @@ def test_gather_kernels_bit_exact(cuda, kind, table_shape, idx_shape):
                          GATHER_VIEW_CASES)
 def test_gather_kernels_on_offset_views(cuda, kind, table_shape, idx_shape,
                                         offset):
-    """gather_flat and gather_cols on index views at a storage offset equal
+    """The gathers on index views at a storage offset, and the cluster
+    gathers on table views at one (``offset`` = (table's, indices')), equal
     their plain twins bit for bit and count one launch each."""
     kern, plain = _gather_fns(kind)
-    rng = np.random.default_rng(offset + idx_shape[0])
-    t, i = _gather_inputs(rng, kind, table_shape, idx_shape, cuda, offset)
-    name = {"flat": "gather_flat", "cols": "gather_cols"}[kind]
+    t_off, i_off = offset if isinstance(offset, tuple) else (0, offset)
+    rng = np.random.default_rng(t_off + i_off + idx_shape[0])
+    t, i = _gather_inputs(rng, kind, table_shape, idx_shape, cuda, i_off,
+                          t_off)
+    name = GATHER_NAMES[kind]
     before = kernels.LAUNCHES[name]
     got = kern(t, i)
     torch.cuda.synchronize()
@@ -825,3 +888,54 @@ def test_gather_wrappers_reject_what_they_do_not_take(cuda):
         kg.gather_cols_cuda(t2, i.reshape(4, 4))
     with pytest.raises(ValueError, match="contiguous"):
         kg.gather_rows_cuda(t2.t(), i.reshape(8, 2))
+
+
+@pytest.mark.cuda
+def test_gather_rows_cluster_refuses_longer_rows(cuda):
+    """gather_rows_cluster takes rows up to what its larger cluster holds:
+    one entry more and the launch plan is refused, so the wrapper raises
+    and launches nothing (no fallback to the L2 kernel)."""
+    from rgbd_recon_tpu_torch.kernels import gather as kg
+
+    C = kg.rows_capacities(cuda)[1] + 1
+    t = torch.zeros(1, C, device=cuda)
+    i = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="gather_rows_cluster"):
+        kg.rows_plan(1, C, 8, cuda)
+    with pytest.raises(RuntimeError, match="gather_rows_cluster"):
+        kg.gather_rows_cluster_cuda(t, i)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_gather_launch_plans(cuda):
+    """The launch plans the card reports: gather_rows_cluster holds the
+    probe's 2^17-entry rows in clusters of 4 blocks, each block's slice a
+    multiple of 4 entries that with the cluster's other slices covers the
+    row and fits the block's shared memory; up to the smaller cluster's
+    capacity it keeps that cluster, one entry past it takes the larger;
+    gather_flat_smem a persistent grid, smaller for few lookups."""
+    from rgbd_recon_tpu_torch.kernels import gather as kg
+
+    optin = 4 * kg.smem_table_entries(cuda)   # a block's shared memory
+    cap4, cap8 = kg.rows_capacities(cuda)
+    assert cap8 > cap4 > 1 << 17
+    plans = [(C, kg.rows_plan(R, C, M, cuda)) for R, C, M in [
+        (8, 1 << 17, 1 << 17), (3, 1001, 517), (1, 5, 9), (1, cap4, 4096),
+        (1, cap4 + 1, 1 << 16), (1, cap8, 4096)]]
+    assert [p["cluster"] for _, p in plans] == [4, 4, 4, 4, 8, 8]
+    assert [p["capacity"] for _, p in plans] == [cap4] * 4 + [cap8] * 2
+    for C, p in plans:
+        S = p["slice"]
+        assert S % 4 == 0 and S * p["cluster"] >= C
+        assert S - 4 < -(-C // p["cluster"])
+        assert 4 * S < p["smem_bytes"] <= optin
+        assert p["blocks"] % (p["clusters_per_row"] * p["cluster"]) == 0
+    probe = plans[0][1]
+    assert probe["blocks"] == 8 * probe["clusters_per_row"] * 4
+    full = kg.smem_plan(0, 1 << 15, cuda)
+    assert full["blocks"] >= torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    assert full["smem_bytes"] == 4 << 15
+    assert kg.smem_plan(5, 1 << 15, cuda)["blocks"] == 1
