@@ -11,7 +11,11 @@ kernel (CUDA events around the wrapper, and its own device time under
 between CUDA events once the profiler records no device activity)
 beside its bound (bytes or operations of this run's inputs at the H100's
 peak rates) and, where one PyTorch call computes the same function, that
-call; then drives four paths
+call. The march kernel (``csrc/march.cu``) is held and timed on the
+recorded arguments of every stepwise march of one fast frame (the coarse
+march, phase 1, two tail stages) and one parity frame (the coarse and the
+full march): its eight outputs bit-equal to ``march_plain``'s, each
+stage's rays, samples and longest ray printed. Then it drives four paths
 at reference scale through the entry points a user calls: 4 synthetic
 sensors at 512x424 depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm
 voxels (200x220x200), ``TsdfPipeline.fuse`` then ``make_renderer(camera)``
@@ -26,7 +30,8 @@ at 1280x720:
   sentinel and oct tables (the sentinel bake's f32 output).
 
 For each path it checks which kernels launched (launch counts set to 0
-just before the path's fuse + render and read just after), that the output
+just before the path's fuse + render and read just after; the march once a
+stepwise march: ``PATH_MARCHES``), that the output
 is finite, and the surface RMSE against the analytic sphere (the accuracy
 oracle of bench.py). Timings (CUDA events) are printed for information.
 
@@ -146,7 +151,22 @@ SIDE_RMSE_LIMIT_MM = 7.0
 # BENCH_r05.json: the JAX reference-exact path's RMSE, measured on a TPU
 TPU_EXACT_RMSE_MM = 5.55
 # the kernels of the paths (the gather probe's four run on none)
-PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake")
+PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
+                "march")
+# the march kernel's launches a frame (one a stepwise march): the fast
+# config's coarse march, phase 1 and two tail stages; the parity config's
+# coarse and full march; the full-screen march without blocks
+PATH_MARCHES = {"fast": 4, "parity": 2, "parity_dense": 1, "fast_f32": 4}
+# the stages of the marches phase 3 records, in the order the render runs
+# them
+MARCH_STAGES = {"fast": ("coarse", "phase1", "tail1", "tail2"),
+                "parity": ("coarse", "full")}
+# f32 operations of one march step: the position (3 products, 3 sums), the
+# texel index (3 products; trilinear: 3 more subtractions, 3 floors, 3
+# weights, the 7 blends of 2 products and a sum), the clamp, the test, the
+# sentinel advance (3) and the step (1); the secant on the hit step
+# (4 and a division) is left out
+MARCH_STEP_OPS = {"nearest": 15, "trilinear": 15 + 3 + 3 + 3 + 7 * 3}
 
 
 def _side_paths():
@@ -175,7 +195,8 @@ def _gate(path):
     return dict(fast, rmse_limit_mm=SIDE_RMSE_LIMIT_MM)
 
 
-# kernels each side path must and must not launch
+# kernels each side path must and must not launch (the march: as
+# PATH_MARCHES says)
 SIDE_LAUNCHES = {
     "parity": (("bilateral13", "quality13", "surface_occ"),
                ("sentinel_bake",)),
@@ -207,23 +228,24 @@ SPLAT_DILATE_PX = 3
 SPLAT_OUTSIDE_FRAC = 0.01
 SPLAT_MEDIAN_MM = 10.0
 # phase 8: frames per app run, and the kernel launches each run must make
-# (a mode's per-frame counts: all four kernels in mode 1, twice the bake
-# kernels with stereo, the two stencils elsewhere, bilateral13 a second
-# time in the MVT render)
+# (a mode's per-frame counts: all five kernels in mode 1, the march four
+# times, twice the bake kernels and the marches with stereo, the two
+# stencils elsewhere, bilateral13 a second time in the MVT render)
 APP_FRAMES = 2
+MODE1_FRAME = dict(bilateral13=1, quality13=1, surface_occ=1,
+                   sentinel_bake=1, march=PATH_MARCHES["fast"])
 APP_RUNS = {
     "app_mode0": (["--mode", "0"], dict(bilateral13=1, quality13=1)),
-    "app_mode1": (["--mode", "1"], dict(bilateral13=1, quality13=1,
-                                        surface_occ=1, sentinel_bake=1)),
+    "app_mode1": (["--mode", "1"], MODE1_FRAME),
     "app_mode2": (["--mode", "2"], dict(bilateral13=1, quality13=1)),
     "app_mode3": (["--mode", "3"], dict(bilateral13=2, quality13=1)),
     "app_mode4": (["--mode", "4"], dict(bilateral13=1, quality13=1)),
     "app_mode1_anaglyph": (["--mode", "1", "--stereo", "anaglyph"],
                            dict(bilateral13=1, quality13=1, surface_occ=2,
-                                sentinel_bake=2)),
+                                sentinel_bake=2,
+                                march=2 * PATH_MARCHES["fast"])),
     "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
-                         dict(bilateral13=1, quality13=1, surface_occ=1,
-                              sentinel_bake=1)),
+                         MODE1_FRAME),
 }
 # the line the app prints after each refinement
 REFINE_LINE = "refined sensor poses; translation corrections (mm):"
@@ -312,7 +334,11 @@ def _bound(tensors, ops):
     ``tensors`` once each and does ``ops`` operations: the larger of the
     bytes over the card's memory rate and the operations over its f32
     rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return _bound_of(sum(t.numel() * t.element_size() for t in tensors), ops)
+
+
+def _bound_of(nbytes, ops):
+    """(least ms, what sets it) of ``nbytes`` moved and ``ops`` done."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -454,6 +480,163 @@ def _device_ms(torch, fn, flush):
     if not warm:
         return by_events()
     return cold[0], warm[0], cold[1], retakes[0]
+
+
+def _record_marches(torch, render_frame):
+    """The arguments of every stepwise march one render makes, in order:
+    [(args, kwargs)] as ``ops.raymarch.march`` received them (the render
+    calls it through the module, so the recorder sees every call)."""
+    from rgbd_recon_tpu_torch.ops import raymarch
+
+    calls, march = [], raymarch.march
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return march(*args, **kwargs)
+
+    raymarch.march = record
+    try:
+        render_frame()
+        torch.cuda.synchronize()
+    finally:
+        raymarch.march = march
+    return calls
+
+
+def _march_outputs(result):
+    hit, num, state = result
+    return (hit, num, *state)
+
+
+def _march_bits_differ(torch, got, want):
+    """The names of the march outputs that are not bit-equal."""
+    names = ("hit", "num", "t", "prev_t", "prev", "lo_t", "hi_t", "hit_t")
+    return [n for n, g, w in zip(names, _march_outputs(got),
+                                 _march_outputs(want))
+            if not (g.shape == w.shape and torch.equal(
+                g.view(torch.int32) if g.dtype == torch.float32 else g,
+                w.view(torch.int32) if w.dtype == torch.float32 else w))]
+
+
+def _march_work(args, kwargs, num):
+    """(bytes, operations, samples) one march needs on its data: each per-ray
+    input read once (7 f32, 3 more when resumed) and each output written
+    once (hit, num, 6 f32); the table entries its samples read (a tap an
+    entry, at most the table once); MARCH_STEP_OPS a sample."""
+    table = args[0]
+    mode = kwargs.get("mode", "nearest")
+    resumed = kwargs.get("resume") is not None
+    n = num.numel()
+    samples = int(num.sum())
+    taps = 8 if mode == "trilinear" else 1
+    entries = min(samples * taps, table.numel())
+    nbytes = (entries * table.element_size() + n * 4 * (7 + 3 * resumed)
+              + n * (1 + 4 + 6 * 4))
+    return nbytes, samples * MARCH_STEP_OPS[mode], samples
+
+
+def _phase3_march(np, torch, pipe, frames, camera, renderer, card, flush):
+    """The march kernel on the recorded arguments of every stepwise march
+    of one fast and one parity frame (MARCH_STAGES): hit, num and the six
+    state tensors bit-equal to march_plain's, each stage timed like the
+    kernels above (events, device time with a cold and a warm L2, the
+    plain version) beside its bound, with the rays' samples and the
+    longest ray's steps. Returns the kernel's JSON row: the fast frame's
+    stages summed, the parity frame's under "parity", every stage under
+    "stages"."""
+    from rgbd_recon_tpu_torch.bench.trace import event_ms
+    from rgbd_recon_tpu_torch.kernels.raymarch import march_cuda
+    from rgbd_recon_tpu_torch.ops.raymarch import march_plain
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
+        pipe.config, **_side_paths()["parity"]), pipe.bbox)
+    paths = {"fast": (pipe, renderer),
+             "parity": (ppipe, ppipe.make_renderer(camera))}
+    stages, frame_sums, retakes, err = [], {}, 0, 0.0
+    for path, (p, render) in paths.items():
+        volume, maps, counts = p.fuse(frames)
+        render(volume, maps, counts)        # warm-up: fits the models
+        calls = _record_marches(torch, lambda: render(volume, maps, counts))
+        if len(calls) != PATH_MARCHES[path]:
+            raise AssertionError(f"{path} frame: {len(calls)} marches, "
+                                 f"expected {PATH_MARCHES[path]}")
+        sums = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, device_ms_warm=0.0,
+                    bytes=0, ops=0, samples=0, longest_chain=0)
+        for label, (args, kwargs) in zip(MARCH_STAGES[path], calls):
+            def kern(args=args, kwargs=kwargs):
+                return march_cuda(*args, **kwargs)
+
+            def plain(args=args, kwargs=kwargs):
+                return march_plain(*args, **kwargs)
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            differ = _march_bits_differ(torch, got, want)
+            stage_err = _max_abs_err(torch, _march_outputs(got),
+                                     _march_outputs(want))
+            if differ:
+                raise AssertionError(f"march {path}/{label}: {differ} differ "
+                                     f"from march_plain's (max abs error "
+                                     f"{stage_err})")
+            err = max(err, stage_err)
+            num = want[1]
+            nbytes, ops, samples = _march_work(args, kwargs, num)
+            bound_ms, bound_by = _bound_of(nbytes, ops)
+            ms = event_ms(kern, iters=20, warmup=3)
+            plain_ms = event_ms(plain, iters=3, warmup=1)
+            device_ms, device_ms_warm, split, n = _device_ms(torch, kern,
+                                                             flush)
+            retakes += n
+            inputs = [*args[3][0], args[3][1], *args[4],
+                      *(kwargs.get("resume") or ())]
+            stage = dict(
+                path=path, stage=label, rays=num.numel(), max_steps=args[2],
+                mode=kwargs.get("mode"), table=str(args[0].dtype),
+                sentinel_skip=kwargs.get("sentinel_skip"),
+                resumed=kwargs.get("resume") is not None,
+                strided_inputs=sum(not x.is_contiguous() for x in inputs),
+                hits=int(want[0].sum()), samples=samples,
+                longest_ray=int(num.max()), max_abs_err=stage_err, ms=ms,
+                plain_ms=plain_ms, device_ms=device_ms,
+                device_ms_warm=device_ms_warm, device_split=split,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+                share_of_bound=bound_ms / device_ms)
+            stages.append(stage)
+            print(f"march {path}/{label}: {stage['rays']} rays, budget "
+                  f"{args[2]}, {stage['mode']} on {stage['table']}, "
+                  f"{stage['strided_inputs']} strided inputs; {samples} "
+                  f"samples, longest ray {stage['longest_ray']} steps, "
+                  f"{stage['hits']} hits; max|kernel - plain| {stage_err!r} "
+                  f"(bit-equal, bound 0); {ms!r} ms (events; plain "
+                  f"{plain_ms!r}), device {device_ms!r} ms cold L2, "
+                  f"{device_ms_warm!r} warm, bound {bound_ms!r} ms by "
+                  f"{bound_by}, {bound_ms / device_ms:.1%} of it, on {card}",
+                  flush=True)
+            for k in ("ms", "plain_ms", "device_ms", "device_ms_warm",
+                      "bytes", "ops", "samples"):
+                sums[k] += stage[k]
+            sums["longest_chain"] += stage["longest_ray"]
+        sums["bound_ms"], sums["bound_by"] = _bound_of(sums["bytes"],
+                                                       sums["ops"])
+        frame_sums[path] = sums
+        print(f"march, the {path} frame's {len(calls)} launches: {sums} "
+              f"on {card}", flush=True)
+        del volume, maps, counts, calls
+    del ppipe, paths
+    torch.cuda.empty_cache()
+    fast = frame_sums["fast"]
+    return dict(
+        name="march", route="cuda",
+        source="rgbd_recon_tpu_torch/csrc/march.cu",
+        replaces="rgbd_recon_tpu/ops/raymarch.py:501", max_abs_err=err,
+        ms=fast["ms"], plain_ms=fast["plain_ms"],
+        device_ms=fast["device_ms"], device_ms_warm=fast["device_ms_warm"],
+        bound_ms=fast["bound_ms"], bound_by=fast["bound_by"],
+        share_of_bound=fast["bound_ms"] / fast["device_ms"],
+        library_ms=None, samples=fast["samples"],
+        longest_chain=fast["longest_chain"], parity=frame_sums["parity"],
+        stages=stages, trace_retakes=retakes)
 
 
 def _check_render(torch, label, volume, out, counts, cfg, camera):
@@ -734,6 +917,9 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
         want = {k: int(k in PATH_KERNELS) for k in launched}
         if vpipe.config.skip_fine_rounds > vpipe.brick_vox:
             want["sentinel_bake"] = 0        # the plain bake, as in JAX
+        # with march_chunk, phase 1 is the chunked march (no kernel)
+        want["march"] = (PATH_MARCHES["fast"]
+                         - int(vpipe.config.march_chunk > 0))
         if launched != want:
             raise AssertionError(f"{name}: launched {launched}, expected "
                                  f"{want}")
@@ -1061,7 +1247,7 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         step(frames)                                  # warm-up
         n = mesh.size
         want = dict(bilateral13=1, quality13=1, surface_occ=n,
-                    sentinel_bake=n)
+                    sentinel_bake=n, march=PATH_MARCHES["fast"])
         vol_sh, out_sh = counted(label, lambda: step(frames), want)
         same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
                 for f in ("hit", "depth")}
@@ -1101,7 +1287,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
     dstep(frames)                                     # warm-up
     vol_sh, out_sh = counted(f"dense{DENSE_SHARDS}", lambda: dstep(frames),
                              dict(bilateral13=1, quality13=1, surface_occ=0,
-                                  sentinel_bake=0))
+                                  sentinel_bake=0,
+                                  march=PATH_MARCHES["parity_dense"]))
     same = {f: torch.equal(getattr(out_sh, f), getattr(dout, f))
             for f in ("hit", "depth")}
     same["volume"] = torch.equal(vol_sh.gather(), dvol)
@@ -1518,7 +1705,7 @@ def _phase15_preview(np, torch, card, work, sizes, color, by_path):
     torch.cuda.synchronize()
     launched = kernels.launch_counts()
     by_path["app_mode1_preview"] = launched
-    want = {k: APP_FRAMES * int(k in PATH_KERNELS) for k in launched}
+    want = {k: APP_FRAMES * MODE1_FRAME.get(k, 0) for k in launched}
     if launched != want:
         raise AssertionError(f"app_mode1_preview: launched {launched}, "
                              f"expected {want}")
@@ -1778,6 +1965,8 @@ def main(argv=None) -> int:
                   f"device activity and were taken again", flush=True)
         results.append(row)
 
+    results.append(_phase3_march(np, torch, pipe, frames, camera, renderer,
+                                 card, flush))
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 13. the gather-rate probe, right after phase 3: torch.profiler
@@ -1797,9 +1986,10 @@ def main(argv=None) -> int:
     print(f"launches on the fast path: {launched}", flush=True)
     missing = [k for k in PATH_KERNELS if launched[k] <= 0]
     extra = [k for k, n in launched.items() if n and k not in PATH_KERNELS]
-    if missing or extra:
+    if missing or extra or launched["march"] != PATH_MARCHES["fast"]:
         raise AssertionError(f"fast path did not launch {missing}, "
-                             f"launched {extra}")
+                             f"launched {extra}, march "
+                             f"{launched['march']} times")
     by_path = {"fast": launched}
     _, fast_hits = _check_render(torch, "fast", volume, out, counts, cfg,
                                  camera)
@@ -1839,9 +2029,10 @@ def main(argv=None) -> int:
         missing = [k for k in must if launched[k] <= 0]
         extra = [k for k, n in launched.items()
                  if n > 0 and (k in must_not or k not in PATH_KERNELS)]
-        if missing or extra:
+        if missing or extra or launched["march"] != PATH_MARCHES[name]:
             raise AssertionError(f"{name} path: not launched {missing}, "
-                                 f"launched {extra}")
+                                 f"launched {extra}, march "
+                                 f"{launched['march']} times")
         by_path[name] = launched
         rmse, _ = _check_render(torch, name, volume, out, counts,
                                 ppipe.config, camera)

@@ -23,7 +23,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("stencil13.cu", "bake.cu",
-                                              "gather.cu"))
+                                              "gather.cu", "march.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
@@ -35,7 +35,8 @@ COMPILE_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 # entry point -> argtypes (all return int, the CUDA error code)
 _SIGNATURES = {
     "rgbd_bilateral13": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "rgbd_gather_rows_cluster": (_P, _P, _P, _I, _I, _I, _P),
     "rgbd_gather_rows_cluster_plan": (_I, _I, _I, ctypes.POINTER(_I)),
     "rgbd_gather_cols": (_P, _P, _P, _I, _I, _I, _P),
+    "rgbd_march": (_P, _I, _I, _I, _I, _LL, _LL, _I, _LL, _I, _I, _I, _I,
+                   _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()

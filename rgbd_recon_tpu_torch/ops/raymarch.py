@@ -1,8 +1,9 @@
 """TSDF raymarching pieces of the render (counterpart of
 rgbd_recon_tpu/ops/raymarch.py): the view camera, the march (nearest or
-trilinear taps, with or without skip sentinels) and its chunked nearest
-form, the oct cell-corner hit table with its secant refine and gradient,
-the table-based secant refine and central-difference gradient, the color
+trilinear taps, with or without skip sentinels; on the card one launch of
+csrc/march.cu, on the CPU its plain twin) and its chunked nearest form,
+the oct cell-corner hit table with its secant refine and gradient, the
+table-based secant refine and central-difference gradient, the color
 blends (calibration volumes, their nearest-lookup variant, analytic
 projection models, the normal-weighted blends, the camera-influence view)
 and Blinn-Phong shading.
@@ -338,6 +339,22 @@ def unit_cube_entry(eye: torch.Tensor, dirs, limit: float):
 def march(table: torch.Tensor, limit: float, max_steps: int,
           start_end, dirs, mode: str = "nearest", sentinel_skip: bool = True,
           sentinel_scale: float = 1.0, resume=None):
+    """The march of :func:`march_plain`: the CUDA kernel (csrc/march.cu, one
+    launch, one thread a ray) on a CUDA table, the plain version on a CPU
+    table. Same arguments and results."""
+    if table.device.type == "cpu":
+        return march_plain(table, limit, max_steps, start_end, dirs, mode,
+                           sentinel_skip, sentinel_scale, resume)
+    from ..kernels.raymarch import march_cuda
+
+    return march_cuda(table, limit, max_steps, start_end, dirs, mode,
+                      sentinel_skip, sentinel_scale, resume)
+
+
+def march_plain(table: torch.Tensor, limit: float, max_steps: int,
+                start_end, dirs, mode: str = "nearest",
+                sentinel_skip: bool = True, sentinel_scale: float = 1.0,
+                resume=None):
     """The march loop of tsdf_raymarch.fs:62-114: each active ray samples
     the table at its position (``mode`` "nearest": the nearest texel;
     "trilinear": sampling.pair_trilinear), records the secant zero of the

@@ -90,7 +90,7 @@ def test_module_list_is_whole():
                  "dist/collectives.py", "dist/halo.py", "dist/mesh.py",
                  "dist/preprocess.py", "dist/process.py", "dist/worker.py",
                  "viz/navigation.py", "viz/preview.py", "viz/jpeg.py",
-                 "kernels/gather.py", "ops/gather.py",
+                 "kernels/gather.py", "ops/gather.py", "kernels/raymarch.py",
                  "bench/gather_probe.py", "bench/headline.py",
                  "bench/oracle.py", "bench/trace.py"):
         assert f"rgbd_recon_tpu_torch/{name}" in PORT_FILES, name

@@ -940,3 +940,210 @@ def test_gather_launch_plans(cuda):
         cuda).multi_processor_count
     assert full["smem_bytes"] == 4 << 15
     assert kg.smem_plan(5, 1 << 15, cuda)["blocks"] == 1
+
+
+# ---- the march -------------------------------------------------------------
+
+# the cells' volume (1 cm voxels in the 2 x 2.2 x 2 m box), their TSDF
+# limit and the fast frame's fine march (2,048 blocks of 4 x 4 rays at
+# 1280x720: ray_compaction's floor)
+MARCH_VOLUME = (200, 220, 200)
+MARCH_LIMIT = 0.01
+MARCH_RAYS = 184_320
+# (mode, table): the fast cell's (nearest, bf16 sentinels), the fast_f32
+# path's, the parity cell's (trilinear, raw f32), and the other two
+MARCH_CASES = [("nearest", "sentinel_bf16"), ("nearest", "raw_f32"),
+               ("nearest", "sentinel_f32"), ("trilinear", "raw_f32"),
+               ("trilinear", "sentinel_bf16")]
+_MARCH_TABLES = {}
+
+
+def _march_table(kind, device):
+    """(table, sentinel_skip, sentinel_scale) at the cells' volume: a
+    sphere's TSDF band (+-limit) with seeded values on the faces' two outer
+    layers, raw or sentinel-coded by the render's bake rule (10-voxel
+    bricks, 6 rounds)."""
+    if kind not in _MARCH_TABLES:
+        Z, Y, X = MARCH_VOLUME
+        z, y, x = (torch.arange(n, dtype=torch.float32, device=device) + 0.5
+                   for n in MARCH_VOLUME)
+        r = torch.sqrt((x[None, None] - X / 2) ** 2
+                       + (y[None, :, None] - Y / 2) ** 2
+                       + (z[:, None, None] - Z / 2) ** 2)
+        vol = torch.clamp((60.0 - r) * MARCH_LIMIT * 0.4, -MARCH_LIMIT,
+                          MARCH_LIMIT)
+        noise = torch.from_numpy(np.random.default_rng(5).uniform(
+            -MARCH_LIMIT, MARCH_LIMIT / 2, MARCH_VOLUME).astype(
+                np.float32)).to(device)
+        inner = torch.zeros(MARCH_VOLUME, dtype=torch.bool, device=device)
+        inner[2:-2, 2:-2, 2:-2] = True
+        vol = torch.where(inner, vol, noise).contiguous()
+        if kind == "raw_f32":
+            table, skip = vol, False
+        else:
+            occ = bake.surface_occ_plain(vol, 10)
+            bs = (bake.fine_safe_field(occ, 2) * 10.0).contiguous()
+            dtype = (torch.bfloat16 if kind == "sentinel_bf16"
+                     else torch.float32)
+            table = bake.sentinel_bake_plain(vol, bs, 10, 6, dtype)
+            skip = True
+        _MARCH_TABLES[kind] = (table, skip, 1.0 / max(MARCH_VOLUME))
+    return _MARCH_TABLES[kind]
+
+
+def _march_rays(seed, n, device):
+    """((pos0 x, y, z), length), (dir x, y, z) of ``n`` rays: most from a
+    shell of radius 0.45 around the cube's centre toward the sphere, the
+    rest from anywhere in the cube in any direction; lengths in [0, 0.9],
+    a few 0 or negative."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(3, n))
+    u /= np.linalg.norm(u, axis=0, keepdims=True)
+    start = np.where(np.arange(n) % 8 < 6, 0.5 + 0.45 * u,
+                     rng.uniform(0.0, 1.0, (3, n)))
+    aim = 0.5 + rng.normal(0.0, 0.1, (3, n)) - start
+    d = np.where(np.arange(n) % 8 < 6, aim, rng.normal(size=(3, n)))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    length = rng.uniform(0.0, 0.9, n)
+    length[rng.random(n) < 0.05] = 0.0
+    length[rng.random(n) < 0.02] = -0.1
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return (tuple(map(t, start)), t(length)), tuple(map(t, d))
+
+
+def _assert_march_equal(got, want):
+    """hit, num and the six state tensors bit for bit (NaN payloads too)."""
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for name, g, w in zip(("t", "prev_t", "prev", "lo_t", "hi_t", "hit_t"),
+                          got[2], want[2]):
+        assert g.shape == w.shape, name
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resume", [False, True])
+@pytest.mark.parametrize("max_steps", [0, 1, 7, 8, 9, 64])
+@pytest.mark.parametrize("mode,kind", MARCH_CASES)
+def test_march_kernel_bit_exact(cuda, mode, kind, max_steps, resume):
+    """The march kernel against march_plain at the cells' volume and the
+    fast frame's ray count, bit for bit; with ``resume`` from the twin's
+    state after 5 steps, a tenth of the rays pushed past their length."""
+    from rgbd_recon_tpu_torch.kernels.raymarch import march_cuda
+    from rgbd_recon_tpu_torch.ops import raymarch
+
+    table, skip, scale = _march_table(kind, cuda)
+    start_end, dirs = _march_rays(max_steps + 100 * resume, MARCH_RAYS, cuda)
+    res = None
+    if resume:
+        _, _, st = raymarch.march_plain(table, MARCH_LIMIT, 5, start_end,
+                                        dirs, mode, skip, scale)
+        past = torch.rand(MARCH_RAYS, generator=torch.Generator(
+            cuda).manual_seed(1), device=cuda) < 0.1
+        res = (torch.where(past, start_end[1] + 0.05, st[0]), st[1], st[2])
+    before = kernels.LAUNCHES["march"]
+    got = march_cuda(table, MARCH_LIMIT, max_steps, start_end, dirs, mode,
+                     skip, scale, res)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["march"] == before + 1
+    want = raymarch.march_plain(table, MARCH_LIMIT, max_steps, start_end,
+                                dirs, mode, skip, scale, res)
+    _assert_march_equal(got, want)
+    if max_steps == 64 and not resume:
+        assert int(got[0].sum()) > MARCH_RAYS // 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kind", MARCH_CASES)
+def test_march_kernel_on_column_views(cuda, mode, kind):
+    """The tail stages' form: the per-ray inputs and the resumed state are
+    column views of (N, 8) rows (stride 8, storage offsets 0-7), read
+    through their strides, bit-equal to march_plain on the same views and
+    to the kernel on contiguous copies."""
+    from rgbd_recon_tpu_torch.kernels.raymarch import march_cuda
+    from rgbd_recon_tpu_torch.ops import raymarch
+
+    table, skip, scale = _march_table(kind, cuda)
+    n = MARCH_RAYS // 10
+    (p0, length), d = _march_rays(7, n, cuda)
+    rg = torch.stack([*p0, *d, length, torch.zeros_like(length)], dim=-1)
+    _, _, st = raymarch.march_plain(table, MARCH_LIMIT, 9, (p0, length), d,
+                                    mode, skip, scale)
+    sg = torch.stack([*st, torch.zeros_like(length),
+                      torch.zeros_like(length)], dim=-1)
+    views = ((rg[:, 0], rg[:, 1], rg[:, 2]), rg[:, 6])
+    vdirs = (rg[:, 3], rg[:, 4], rg[:, 5])
+    vres = (sg[:, 0], sg[:, 1], sg[:, 2])
+    assert vres[0].stride() == (8,) and not views[1].is_contiguous()
+    got = march_cuda(table, MARCH_LIMIT, 132, views, vdirs, mode, skip,
+                     scale, vres)
+    want = raymarch.march_plain(table, MARCH_LIMIT, 132, views, vdirs, mode,
+                                skip, scale, vres)
+    _assert_march_equal(got, want)
+    dense = march_cuda(
+        table, MARCH_LIMIT, 132,
+        (tuple(v.contiguous() for v in views[0]), views[1].contiguous()),
+        tuple(v.contiguous() for v in vdirs), mode, skip, scale,
+        tuple(v.contiguous() for v in vres))
+    _assert_march_equal(dense, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["trilinear", "nearest"])
+def test_march_kernel_full_screen(cuda, mode):
+    """render_dense's march: (720, 1280) rays from an eye through their
+    unit-cube entries over the raw f32 volume, the whole budget of the
+    cells' limit (347 steps), bit-equal to march_plain."""
+    from rgbd_recon_tpu_torch.kernels.raymarch import march_cuda
+    from rgbd_recon_tpu_torch.ops import raymarch
+
+    table, _, _ = _march_table("raw_f32", cuda)
+    cam = raymarch.ViewCamera(width=1280, height=720, eye=(0.5, 0.55, 1.9),
+                              target=(0.5, 0.5, 0.5))
+    d = torch.from_numpy(cam.ray_directions_world().astype(np.float32))
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    dn = tuple(d[..., i].contiguous().to(cuda) for i in range(3))
+    eye = torch.tensor(cam.eye, dtype=torch.float32, device=cuda)
+    start_end = raymarch.unit_cube_entry(eye, dn, MARCH_LIMIT)
+    steps = int(np.ceil(np.sqrt(3.0) / (MARCH_LIMIT * 0.5)))
+    got = march_cuda(table, MARCH_LIMIT, steps, start_end, dn, mode, False)
+    want = raymarch.march_plain(table, MARCH_LIMIT, steps, start_end, dn,
+                                mode, False)
+    assert got[0].shape == (720, 1280)
+    _assert_march_equal(got, want)
+    assert int(got[0].sum()) > 10_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,marches", [
+    ({}, 4),
+    (dict(march_mode="trilinear", march_empty_skip=False,
+          march_dtype="float32"), 2),
+    (dict(march_mode="trilinear", march_empty_skip=False,
+          march_dtype="float32", bricking=False, skip_space=False), 1),
+    (dict(march_chunk=8), 3)])
+def test_render_marches_on_the_kernel(cuda, monkeypatch, config, marches):
+    """A render on the card launches the march kernel once a stepwise
+    march (the fast config: the coarse march, phase 1 and two tail stages;
+    the parity config: the coarse and the full march; without blocks the
+    full-screen march; with march_chunk phase 1 is the chunked march) and
+    equals, bit for bit, the same render with every march on
+    march_plain."""
+    from rgbd_recon_tpu_torch.ops import raymarch
+
+    pipe, volume, maps, counts, cam, _ = _small_scene(cuda, **config)
+    render = pipe.make_renderer(cam)
+    kernels.reset_launch_counts()
+    out = render(volume, maps, counts)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["march"] == marches
+    monkeypatch.setattr(raymarch, "march", raymarch.march_plain)
+    kernels.reset_launch_counts()
+    want = render(volume, maps, counts)
+    assert kernels.launch_counts()["march"] == 0
+    for field in ("hit", "depth", "color", "num_samples", "overflow"):
+        assert torch.equal(getattr(out, field), getattr(want, field)), field
+    assert int(out.hit.sum()) > 50
