@@ -117,6 +117,17 @@ Then, at the same scale:
   the app's frame loop, and times ``viz/jpeg.py`` on the fast path's
   1280x720 render on this machine's host.
 
+- phase 16 runs the three measurement scripts of
+  ``rgbd_recon_tpu_torch.bench`` at reference scale, MEASURE_ITERS timed
+  calls a row, on one setup: the fast-mode ablation (``ablation.run``;
+  its "fast defaults" and "reference-exact (all)" rows must read the
+  fast and parity paths' RMSE and hits bit for bit, and it must launch
+  every path kernel), the render-lever sweep (``render_sweep.run``; its
+  baseline's hits and overflow must equal a fresh pipeline's render of
+  the two-sphere frames) and the stage rows of preprocess, fuse and render
+  (``stages.run``; the moved-camera render must not rebuild the renderer);
+  every RMSE finite, every time positive, each module's launches printed.
+
 ``python3 chip_smoke.py --multiprocess`` builds the kernels and runs phase
 14 alone (on a machine of four cards: gloo and NCCL at 2 x 4 and 4 x 2).
 
@@ -300,6 +311,9 @@ MP_TIMEOUT_S = 300
 # phase 15: the app's preview run, and the encoder's timing samples
 PREVIEW_ARGS = ["--mode", "1"]
 JPEG_SAMPLES = 5
+# phase 16: timed calls a row of the measurement scripts (10 and 5 by
+# their defaults; 3 keeps the phase within the script's time)
+MEASURE_ITERS = 3
 MESH_POSE_ITERS = 2
 MESH_POSE_ATOL = 3e-4
 INV_CV_RES = (40, 48, 40)
@@ -1736,6 +1750,93 @@ def _phase15_preview(np, torch, card, work, sizes, color, by_path):
           f"host ({card})", flush=True)
 
 
+def _phase16_measure(torch, card, oracle_by_path):
+    """The three measurement scripts of ``rgbd_recon_tpu_torch.bench`` at
+    reference scale on one setup (see the module docstring)."""
+    import math
+
+    from rgbd_recon_tpu_torch.bench import ablation, render_sweep, stages
+    from rgbd_recon_tpu_torch.bench.headline import REFERENCE, reference_setup
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    def positive(*times):
+        return all(t is not None and math.isfinite(t) and t > 0.0
+                   for t in times)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    pipe, frames, camera = reference_setup(dev)
+    two = pipe, render_sweep.two_sphere_frames(dev, bbox=pipe.bbox), camera
+    print(f"measure: setup (bake, one- and two-sphere frames) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    abl = ablation.run(iters=MEASURE_ITERS, setup=(pipe, frames, camera),
+                       out=ablation.OUT)
+    for r in abl["rows"]:
+        print(f"ablation {r['variant']}: surface RMSE {r['surface_rmse_mm']!r}"
+              f" mm over {r['surface_hits']} hits, overflow {r['overflow']}; "
+              f"fuse {r['fuse_ms']!r} ms (events {r['fuse_event_ms']!r}), "
+              f"render {r['render_ms']!r} ms (events "
+              f"{r['render_event_ms']!r}) on {card}", flush=True)
+        if not (math.isfinite(r["surface_rmse_mm"])
+                and positive(r["fuse_ms"], r["fuse_event_ms"],
+                             r["render_ms"], r["render_event_ms"])):
+            raise AssertionError(f"ablation {r['variant']}: {r}")
+    print(f"ablation: launches {abl['launches']}; table {abl['table']}",
+          flush=True)
+    rows = {r["variant"]: r for r in abl["rows"]}
+    for variant, path in (("fast defaults", "fast"),
+                          ("reference-exact (all)", "parity")):
+        got = (rows[variant]["surface_rmse_mm"],
+               rows[variant]["surface_hits"])
+        if got != oracle_by_path[path]:
+            raise AssertionError(f"ablation {variant}: {got}, the {path} "
+                                 f"path read {oracle_by_path[path]}")
+    missing = [k for k in PATH_KERNELS if not abl["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"ablation launched no {missing}")
+    print("ablation: fast defaults and reference-exact (all) bit-equal to "
+          "the fast and parity paths' RMSE and hits", flush=True)
+
+    sweep = render_sweep.run(iters=MEASURE_ITERS, setup=two)
+    for r in sweep["rows"]:
+        print(f"sweep {r['variant']}: render {r['render_ms']!r} ms (events "
+              f"{r['render_event_ms']!r}), hits {r['hits']}, overflow "
+              f"{r['overflow']}, {r['diagnostics']} on {card}", flush=True)
+        if not positive(r["render_ms"], r["render_event_ms"]):
+            raise AssertionError(f"sweep {r['variant']}: {r}")
+    fresh = TsdfPipeline(pipe.calib, REFERENCE.config(), pipe.bbox)
+    out = fresh.make_renderer(camera)(*fresh.fuse(two[1]))
+    want = (int(out.hit.sum()), out.overflow.tolist())
+    base = sweep["rows"][0]
+    if (base["hits"], base["overflow"]) != want:
+        raise AssertionError(f"sweep baseline {base['hits']} hits, overflow "
+                             f"{base['overflow']}; a fresh pipeline {want}")
+    print(f"sweep: launches {sweep['launches']}; baseline equal to a fresh "
+          f"pipeline's render ({want[0]} hits, overflow {want[1]})",
+          flush=True)
+    del fresh, out
+
+    st = stages.run("all", iters=MEASURE_ITERS, setup=two)
+    for part, res in st["parts"].items():
+        for name, r in res["rows"].items():
+            print(f"stages {part}/{name}: {r['ms']!r} ms (events "
+                  f"{r['event_ms']!r})", flush=True)
+            if not positive(r["ms"], r["event_ms"]):
+                raise AssertionError(f"stages {part}/{name}: {r}")
+    render = st["parts"]["render"]
+    moved = render["moved_camera"]
+    print(f"stages: occupied bricks {st['parts']['fuse']['occupied_bricks']}"
+          f"; render hits {render['hits']}, overflow {render['overflow']}, "
+          f"{render['diagnostics']}; moved-camera render {moved['ms']!r} ms, "
+          f"rebuilt {moved['rebuilt']}; launches {st['launches']} on {card}",
+          flush=True)
+    if moved["rebuilt"] or not positive(moved["ms"]):
+        raise AssertionError(f"stages: moved-camera render {moved}")
+    del pipe, frames, two
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1991,8 +2092,10 @@ def main(argv=None) -> int:
                              f"launched {extra}, march "
                              f"{launched['march']} times")
     by_path = {"fast": launched}
-    _, fast_hits = _check_render(torch, "fast", volume, out, counts, cfg,
-                                 camera)
+    # each path's oracle reading (phase 16's ablation must repeat them)
+    oracle_by_path = {"fast": _check_render(torch, "fast", volume, out,
+                                            counts, cfg, camera)}
+    fast_hits = oracle_by_path["fast"][1]
 
     # the colour variants of phase 9 must leave these bit-equal
     fast = (out.hit.clone(), out.depth.clone())
@@ -2034,8 +2137,9 @@ def main(argv=None) -> int:
                                  f"launched {extra}, march "
                                  f"{launched['march']} times")
         by_path[name] = launched
-        rmse, _ = _check_render(torch, name, volume, out, counts,
-                                ppipe.config, camera)
+        oracle_by_path[name] = _check_render(torch, name, volume, out,
+                                             counts, ppipe.config, camera)
+        rmse = oracle_by_path[name][0]
         if name.startswith("parity"):
             print(f"{name}: surface RMSE {rmse!r} mm; BENCH_r05.json "
                   f"records {TPU_EXACT_RMSE_MM} mm for the JAX "
@@ -2100,6 +2204,11 @@ def main(argv=None) -> int:
     _phase15_preview(np, torch, card, app_work, app_sizes, fast_color,
                      by_path)
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- 16. the measurement scripts at reference scale --------------------
+    t_phase = time.perf_counter()
+    _phase16_measure(torch, card, oracle_by_path)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     for r in results:

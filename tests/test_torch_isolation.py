@@ -92,7 +92,8 @@ def test_module_list_is_whole():
                  "viz/navigation.py", "viz/preview.py", "viz/jpeg.py",
                  "kernels/gather.py", "ops/gather.py", "kernels/raymarch.py",
                  "bench/gather_probe.py", "bench/headline.py",
-                 "bench/oracle.py", "bench/trace.py"):
+                 "bench/oracle.py", "bench/trace.py", "bench/ablation.py",
+                 "bench/render_sweep.py", "bench/stages.py"):
         assert f"rgbd_recon_tpu_torch/{name}" in PORT_FILES, name
 
 

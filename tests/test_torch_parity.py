@@ -90,6 +90,13 @@ SLICE_CONFIGS = {
     "march_chunk": dict(march_chunk=8),
     "march_chunk_per_block": dict(march_chunk=8, bracket_per_block=True),
     "skip_fine_rounds_16": dict(skip_fine_rounds=16),
+    # the render levers of scripts/bench_render_sweep.py:46-53 (the port's
+    # bench/render_sweep.py) that change the march: fewer compacted
+    # blocks, a longer phase 1, a finer interval scan, fewer compacted hits
+    "ray_compaction_025": dict(ray_compaction=0.25),
+    "phase1_16": dict(march_phase1_steps=16),
+    "step_frac_0125": dict(interval_step_frac=0.125),
+    "hit_compaction_035": dict(hit_compaction=0.35),
 }
 # the verify scene's config
 BASE_CFG = dict(voxel_size=0.05, brick_size=0.2, tsdf_limit=LIMIT,
