@@ -15,7 +15,13 @@ call. The march kernel (``csrc/march.cu``) is held and timed on the
 recorded arguments of every stepwise march of one fast frame (the coarse
 march, phase 1, two tail stages) and one parity frame (the coarse and the
 full march): its eight outputs bit-equal to ``march_plain``'s, each
-stage's rays, samples and longest ray printed. Then it drives four paths
+stage's rays, samples and longest ray printed. The fill kernels
+(``csrc/holefill.cu``) are held and timed on the recorded pre-fill planes
+(the render's strided views) of one fast and one parity frame: each pull
+level bit-equal to ``_pull_planar``, the push's level bit-equal and its
+colours within 1e-6 of ``_push_planar`` (which resamples by cuBLAS
+products), the pull chain, the push and the whole fill timed beside their
+bounds by bytes and the plain versions. Then it drives four paths
 at reference scale through the entry points a user calls: 4 synthetic
 sensors at 512x424 depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm
 voxels (200x220x200), ``TsdfPipeline.fuse`` then ``make_renderer(camera)``
@@ -31,7 +37,8 @@ at 1280x720:
 
 For each path it checks which kernels launched (launch counts set to 0
 just before the path's fuse + render and read just after; the march once a
-stepwise march: ``PATH_MARCHES``), that the output
+stepwise march: ``PATH_MARCHES``; the fill's pull 6 times and its push
+once: ``FILL_LAUNCHES``), that the output
 is finite, and the surface RMSE against the analytic sphere (the accuracy
 oracle of bench.py). Timings (CUDA events) are printed for information.
 
@@ -53,9 +60,11 @@ Then, at the same scale:
 - phase 9 drives the fast config's variants (the camera-influence view,
   the two normal-weighted blends, the profiling switches, per-block
   brackets, the chunked march alone and with per-block brackets, 16
-  dilation rounds in 10-voxel bricks, 20 in 20-voxel bricks): launch
-  counts, the color variants' hit mask and depth bit-equal to the fast
-  path's, the others held to the sphere, fuse + render times;
+  dilation rounds in 10-voxel bricks, 20 in 20-voxel bricks, the render
+  without the fill): launch counts (no fill kernel without colorfill),
+  the color variants' and the unfilled render's hit mask and depth
+  bit-equal to the fast path's, the others held to the sphere, fuse +
+  render times;
 - phase 10 reconfigures one pipeline under one renderer handle: limit
   0.02 and back, 2 cm voxels (100x110x100) and back, the flip-backs
   bit-equal to the first render;
@@ -163,7 +172,14 @@ SIDE_RMSE_LIMIT_MM = 7.0
 TPU_EXACT_RMSE_MM = 5.55
 # the kernels of the paths (the gather probe's four run on none)
 PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
-                "march")
+                "march", "holefill_pull", "holefill_push")
+# the fill kernels' launches a render with colorfill: a pull a level past
+# LOD 0 (a 1280x720 frame at 7 LODs: 6) and one push
+FILL_LAUNCHES = {"holefill_pull": 6, "holefill_push": 1}
+NO_FILL = {k: 0 for k in FILL_LAUNCHES}
+# the fill's colours against its plain twin (which resamples by cuBLAS
+# products; tests/test_torch_kernels.py); pull and level are bit-equal
+FILL_COLOR_ATOL = 1e-6
 # the march kernel's launches a frame (one a stepwise march): the fast
 # config's coarse march, phase 1 and two tail stages; the parity config's
 # coarse and full march; the full-screen march without blocks
@@ -239,12 +255,14 @@ SPLAT_DILATE_PX = 3
 SPLAT_OUTSIDE_FRAC = 0.01
 SPLAT_MEDIAN_MM = 10.0
 # phase 8: frames per app run, and the kernel launches each run must make
-# (a mode's per-frame counts: all five kernels in mode 1, the march four
-# times, twice the bake kernels and the marches with stereo, the two
-# stencils elsewhere, bilateral13 a second time in the MVT render)
+# (a mode's per-frame counts: all seven kernels in mode 1, the march four
+# times and the fill's pull six, twice the bake, march and fill kernels
+# with stereo, the two stencils elsewhere, bilateral13 a second time in
+# the MVT render)
 APP_FRAMES = 2
 MODE1_FRAME = dict(bilateral13=1, quality13=1, surface_occ=1,
-                   sentinel_bake=1, march=PATH_MARCHES["fast"])
+                   sentinel_bake=1, march=PATH_MARCHES["fast"],
+                   **FILL_LAUNCHES)
 APP_RUNS = {
     "app_mode0": (["--mode", "0"], dict(bilateral13=1, quality13=1)),
     "app_mode1": (["--mode", "1"], MODE1_FRAME),
@@ -254,17 +272,20 @@ APP_RUNS = {
     "app_mode1_anaglyph": (["--mode", "1", "--stereo", "anaglyph"],
                            dict(bilateral13=1, quality13=1, surface_occ=2,
                                 sentinel_bake=2,
-                                march=2 * PATH_MARCHES["fast"])),
+                                march=2 * PATH_MARCHES["fast"],
+                                **{k: 2 * n for k, n in
+                                   FILL_LAUNCHES.items()})),
     "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
                          MODE1_FRAME),
 }
 # the line the app prints after each refinement
 REFINE_LINE = "refined sensor poses; translation corrections (mm):"
-# phase 9: the fast config's variants; the color variants must leave the
-# hit mask and the depth of the fast path's render bit-equal. 16 rounds
-# past 10-voxel bricks take the plain bake (the JAX package's rule: its
-# Pallas bake only when brick_vox >= skip_fine_rounds); 20 rounds in
-# 20-voxel bricks take the kernel, in two dilation launches
+# phase 9: the fast config's variants; the color variants (and the render
+# without the fill) must leave the hit mask and the depth of the fast
+# path's render bit-equal. 16 rounds past 10-voxel bricks take the plain
+# bake (the JAX package's rule: its Pallas bake only when brick_vox >=
+# skip_fine_rounds); 20 rounds in 20-voxel bricks take the kernel, in two
+# dilation launches
 VARIANTS = {
     "shade_mode_3": dict(shade_mode=3),
     "best_two": dict(blend_mode="best_two"),
@@ -275,8 +296,10 @@ VARIANTS = {
     "march_chunk_per_block": dict(march_chunk=8, bracket_per_block=True),
     "skip_fine_rounds_16": dict(skip_fine_rounds=16),
     "bricks_20_rounds_20": dict(brick_size=0.2, skip_fine_rounds=20),
+    "colorfill_off": dict(colorfill=False),
 }
-COLOR_VARIANTS = ("shade_mode_3", "best_two", "normal_deviation")
+COLOR_VARIANTS = ("shade_mode_3", "best_two", "normal_deviation",
+                  "colorfill_off")
 # phase 11 (scripts/validate_pose_ba.py): the drift of sensor 1, and what
 # the refinement must reach: sensor 1's mean lookup error at most half its
 # start, each other sensor's lookup moved by at most 0.5 mm. The JAX
@@ -653,6 +676,198 @@ def _phase3_march(np, torch, pipe, frames, camera, renderer, card, flush):
         stages=stages, trace_retakes=retakes)
 
 
+def _record_fills(torch, render_frame):
+    """The arguments of every fill one render makes: [(the (H, W, 4)
+    pre-fill image, its window depth, num_lods)], copies of what
+    ``ops.holefill.fill_colors_planar`` received (the render calls it
+    through the module and passes the image's planes as strided views)."""
+    from rgbd_recon_tpu_torch.ops import holefill
+
+    calls, fill = [], holefill.fill_colors_planar
+
+    def record(planes0, depth0, num_lods=7):
+        calls.append((torch.stack(list(planes0), dim=-1), depth0.clone(),
+                      num_lods))
+        return fill(planes0, depth0, num_lods)
+
+    holefill.fill_colors_planar = record
+    try:
+        render_frame()
+        torch.cuda.synchronize()
+    finally:
+        holefill.fill_colors_planar = fill
+    return calls
+
+
+def _fill_pull_bytes(levels):
+    """Bytes the pull levels need on their data: at each level below the
+    last, alpha and depth once, r, g, b at the texels with alpha > 0 (no
+    other colour can be kept), and the 5 planes of the level above
+    written once."""
+    nbytes = 0
+    for below, above in zip(levels, levels[1:]):
+        valid = int((below[3] > 0.0).sum())
+        nbytes += 4 * (2 * below[3].numel() + 3 * valid + 5 * above[0].numel())
+    return nbytes
+
+
+def _fill_push_bytes(level, levels):
+    """Bytes the push needs on its data: LOD 0 alpha once, r, g, b of the
+    pixels that keep level 0, the r, g, b, alpha planes of every coarser
+    level once, and the 4 output planes written once."""
+    n = level.numel()
+    kept = int((level == 0).sum())
+    coarse = sum(4 * lv[0].numel() for lv in levels[1:])
+    return 4 * (n + 3 * kept + coarse + 4 * n)
+
+
+def _phase3_fill(torch, pipe, camera, frames, card, flush):
+    """The fill kernels on the recorded pre-fill planes of one fast and one
+    parity frame (the render's own strided views): each pull level
+    bit-equal to ``_pull_planar``, the push's level bit-equal and its
+    colours within FILL_COLOR_ATOL of ``_push_planar``, the whole fill
+    within FILL_COLOR_ATOL of ``fill_colors_plain``; the pull chain, the
+    push and the whole fill timed (events, device time with a cold and a
+    warm L2, the plain versions) beside their bounds by bytes. Returns
+    the two kernels' JSON rows: the fast frame's figures, the parity
+    frame's under "parity"."""
+    from rgbd_recon_tpu_torch.bench.trace import event_ms
+    from rgbd_recon_tpu_torch.kernels.holefill import pull_cuda, push_cuda
+    from rgbd_recon_tpu_torch.ops import holefill
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
+        pipe.config, **_side_paths()["parity"]), pipe.bbox)
+    rows = {"holefill_pull": {}, "holefill_push": {}}
+    errs = {"holefill_pull": 0.0, "holefill_push": 0.0}
+    retakes = 0
+    for path, p in (("fast", pipe), ("parity", ppipe)):
+        render = p.make_renderer(camera)
+        volume, maps, counts = p.fuse(frames)
+        render(volume, maps, counts)        # warm-up: fits the models
+        calls = _record_fills(torch, lambda: render(volume, maps, counts))
+        if len(calls) != 1:
+            raise AssertionError(f"{path} frame: {len(calls)} fills")
+        rgba, depth, lods = calls[0]
+        views = [rgba[..., i] for i in range(4)]
+        colors, depths = holefill._build_pyramid_planar(views, depth, lods)
+        if len(colors) - 1 != FILL_LAUNCHES["holefill_pull"]:
+            raise AssertionError(f"{path}: {len(colors)} levels")
+        # each pull level from the twin's level below, bit for bit
+        pull_err, differ = 0.0, []
+        for l in range(1, len(colors)):
+            got = pull_cuda([*colors[l - 1], depths[l - 1]])
+            want = [*colors[l], depths[l]]
+            torch.cuda.synchronize()
+            for name, g, w in zip("rgbad", got, want):
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    differ.append((l, name))
+            pull_err = max(pull_err, _max_abs_err(torch, tuple(got),
+                                                  tuple(want)))
+        if differ:
+            raise AssertionError(f"holefill_pull {path}: levels/planes "
+                                 f"{differ} differ from _pull_planar's (max "
+                                 f"abs error {pull_err})")
+
+        def pulls(views=views, depth=depth):
+            cur, out = [*views, depth], []
+            for _ in range(len(colors) - 1):
+                out.append(pull_cuda(cur))
+                cur = list(out[-1].unbind(0))
+            return out
+
+        levels = pulls()
+        got, level = push_cuda(views, levels, return_level=True)
+        want, _ = holefill._push_planar(colors, depths)
+        _, want_level = holefill._push_level(colors, *depth.shape)
+        torch.cuda.synchronize()
+        push_err = _max_abs_err(torch, tuple(got), tuple(want))
+        same_level = torch.equal(level, want_level)
+        filled, fdepth = holefill.fill_colors_planar(views, depth, lods)
+        plain, _ = holefill.fill_colors_plain(views, depth, lods)
+        fill_err = _max_abs_err(torch, tuple(filled), tuple(plain))
+        if (not same_level or not push_err <= FILL_COLOR_ATOL
+                or not fill_err <= FILL_COLOR_ATOL or fdepth is not depth):
+            raise AssertionError(f"holefill_push {path}: level bit-equal "
+                                 f"{same_level}, max|kernel - plain| "
+                                 f"{push_err} (push), {fill_err} (fill)")
+        errs["holefill_pull"] = max(errs["holefill_pull"], pull_err)
+        errs["holefill_push"] = max(errs["holefill_push"], push_err,
+                                    fill_err)
+        levels_by_twin = [[*c, d] for c, d in zip(colors, depths)]
+        hist = torch.bincount(level.reshape(-1).long(),
+                              minlength=len(colors)).tolist()
+        work = {
+            "holefill_pull": (pulls, lambda: holefill._build_pyramid_planar(
+                views, depth, lods), _fill_pull_bytes(levels_by_twin),
+                pull_err),
+            "holefill_push": (lambda: push_cuda(views, levels),
+                              lambda: holefill._push_planar(colors, depths),
+                              _fill_push_bytes(level, levels_by_twin),
+                              push_err),
+        }
+        for name, (kern, plain_fn, nbytes, err) in work.items():
+            ms = event_ms(kern, iters=20, warmup=3)
+            plain_ms = event_ms(plain_fn, iters=3, warmup=1)
+            device_ms, device_ms_warm, split, n = _device_ms(torch, kern,
+                                                             flush)
+            retakes += n
+            bound_ms, bound_by = _bound_of(nbytes, 0)
+            rows[name][path] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                device_ms=device_ms, device_ms_warm=device_ms_warm,
+                device_split=split, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, share_of_bound=bound_ms / device_ms)
+            print(f"{name} {path}: max|kernel - plain| {err!r} (bound "
+                  f"{0.0 if name == 'holefill_pull' else FILL_COLOR_ATOL}); "
+                  f"{ms!r} ms (events; plain {plain_ms!r}), device "
+                  f"{device_ms!r} ms cold L2, {device_ms_warm!r} warm "
+                  f"{split}, bound {bound_ms!r} ms by bytes ({nbytes} B), "
+                  f"{bound_ms / device_ms:.1%} of it, on {card}", flush=True)
+        def fill(views=views, depth=depth, lods=lods):
+            return holefill.fill_colors_planar(views, depth, lods)
+
+        fill_ms = event_ms(fill, iters=20, warmup=3)
+        fill_plain_ms = event_ms(lambda: holefill.fill_colors_plain(
+            views, depth, lods), iters=3, warmup=1)
+        fill_dev, fill_dev_warm, fill_split, n = _device_ms(torch, fill,
+                                                            flush)
+        retakes += n
+        # the fill's device activities are its 7 kernels: no copy (the
+        # push's taps were uploaded once, at the first fill of this shape)
+        if EVENTS_SPLIT not in fill_split and set(fill_split) != {
+                "pull_kernel", "push_kernel"}:
+            raise AssertionError(f"fill {path}: device activities "
+                                 f"{fill_split}")
+        fill_bound = _bound_of(4 * (5 + 4) * depth.numel(), 0)[0]
+        rows["holefill_push"][path].update(
+            pixels_by_level=hist, fill_ms=fill_ms,
+            fill_plain_ms=fill_plain_ms, fill_device_ms=fill_dev,
+            fill_device_ms_warm=fill_dev_warm, fill_device_split=fill_split,
+            fill_max_abs_err=fill_err)
+        print(f"fill {path}: {tuple(depth.shape)} at {lods} LODs, pixels by "
+              f"level {hist}; the whole fill {fill_ms!r} ms (events; plain "
+              f"{fill_plain_ms!r}), device {fill_dev!r} ms cold L2, "
+              f"{fill_dev_warm!r} warm {fill_split}, max|fill - plain| "
+              f"{fill_err!r}; its inputs and outputs once {fill_bound!r} ms "
+              f"at the HBM rate, on {card}", flush=True)
+        del volume, maps, counts, calls, levels, colors, depths
+    del ppipe
+    torch.cuda.empty_cache()
+    out = []
+    for name, by_path in rows.items():
+        row = dict(name=name, route="cuda",
+                   source="rgbd_recon_tpu_torch/csrc/holefill.cu",
+                   replaces=("rgbd_recon_tpu/ops/holefill.py:56"
+                             if name == "holefill_pull"
+                             else "rgbd_recon_tpu/ops/holefill.py:223"),
+                   library_ms=None)
+        row.update(by_path["fast"], max_abs_err=errs[name],
+                   parity=by_path["parity"], trace_retakes=retakes)
+        out.append(row)
+    return out
+
+
 def _check_render(torch, label, volume, out, counts, cfg, camera):
     """Finite volume, color and depth, a 1280x720 image, and the oracle's
     gate (bench/oracle.py) that the path ``label`` holds (``_gate``): the
@@ -934,6 +1149,7 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
         # with march_chunk, phase 1 is the chunked march (no kernel)
         want["march"] = (PATH_MARCHES["fast"]
                          - int(vpipe.config.march_chunk > 0))
+        want.update(FILL_LAUNCHES if vpipe.config.colorfill else NO_FILL)
         if launched != want:
             raise AssertionError(f"{name}: launched {launched}, expected "
                                  f"{want}")
@@ -1261,7 +1477,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         step(frames)                                  # warm-up
         n = mesh.size
         want = dict(bilateral13=1, quality13=1, surface_occ=n,
-                    sentinel_bake=n, march=PATH_MARCHES["fast"])
+                    sentinel_bake=n, march=PATH_MARCHES["fast"],
+                    **FILL_LAUNCHES)
         vol_sh, out_sh = counted(label, lambda: step(frames), want)
         same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
                 for f in ("hit", "depth")}
@@ -1302,7 +1519,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
     vol_sh, out_sh = counted(f"dense{DENSE_SHARDS}", lambda: dstep(frames),
                              dict(bilateral13=1, quality13=1, surface_occ=0,
                                   sentinel_bake=0,
-                                  march=PATH_MARCHES["parity_dense"]))
+                                  march=PATH_MARCHES["parity_dense"],
+                                  **FILL_LAUNCHES))
     same = {f: torch.equal(getattr(out_sh, f), getattr(dout, f))
             for f in ("hit", "depth")}
     same["volume"] = torch.equal(vol_sh.gather(), dvol)
@@ -2068,6 +2286,7 @@ def main(argv=None) -> int:
 
     results.append(_phase3_march(np, torch, pipe, frames, camera, renderer,
                                  card, flush))
+    results += _phase3_fill(torch, pipe, camera, frames, card, flush)
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 13. the gather-rate probe, right after phase 3: torch.profiler
@@ -2087,10 +2306,12 @@ def main(argv=None) -> int:
     print(f"launches on the fast path: {launched}", flush=True)
     missing = [k for k in PATH_KERNELS if launched[k] <= 0]
     extra = [k for k, n in launched.items() if n and k not in PATH_KERNELS]
-    if missing or extra or launched["march"] != PATH_MARCHES["fast"]:
+    fills = {k: launched[k] for k in FILL_LAUNCHES}
+    if (missing or extra or launched["march"] != PATH_MARCHES["fast"]
+            or fills != FILL_LAUNCHES):
         raise AssertionError(f"fast path did not launch {missing}, "
                              f"launched {extra}, march "
-                             f"{launched['march']} times")
+                             f"{launched['march']} times, fill {fills}")
     by_path = {"fast": launched}
     # each path's oracle reading (phase 16's ablation must repeat them)
     oracle_by_path = {"fast": _check_render(torch, "fast", volume, out,
@@ -2132,10 +2353,12 @@ def main(argv=None) -> int:
         missing = [k for k in must if launched[k] <= 0]
         extra = [k for k, n in launched.items()
                  if n > 0 and (k in must_not or k not in PATH_KERNELS)]
-        if missing or extra or launched["march"] != PATH_MARCHES[name]:
+        fills = {k: launched[k] for k in FILL_LAUNCHES}
+        if (missing or extra or launched["march"] != PATH_MARCHES[name]
+                or fills != FILL_LAUNCHES):
             raise AssertionError(f"{name} path: not launched {missing}, "
                                  f"launched {extra}, march "
-                                 f"{launched['march']} times")
+                                 f"{launched['march']} times, fill {fills}")
         by_path[name] = launched
         oracle_by_path[name] = _check_render(torch, name, volume, out,
                                              counts, ppipe.config, camera)

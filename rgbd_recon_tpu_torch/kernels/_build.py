@@ -23,7 +23,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("stencil13.cu", "bake.cu",
-                                              "gather.cu", "march.cu"))
+                                              "gather.cu", "march.cu",
+                                              "holefill.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
@@ -54,6 +55,9 @@ _SIGNATURES = {
     "rgbd_gather_cols": (_P, _P, _P, _I, _I, _I, _P),
     "rgbd_march": (_P, _I, _I, _I, _I, _LL, _LL, _I, _LL, _I, _I, _I, _I,
                    _F, _F, _F, _P),
+    "rgbd_holefill_pull": (_LL, _LL, _LL, _P, _I, _I, _P),
+    "rgbd_holefill_push": (_LL, _LL, _LL, _LL, ctypes.POINTER(_I), _I, _P,
+                           _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

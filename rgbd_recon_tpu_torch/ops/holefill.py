@@ -12,6 +12,12 @@ recon_integration.cpp:280-339).
 Channels are planar lists [r, g, b, a] of (H, W) tensors. The upsampling
 fetches of the push are separable resample matrices (nearest selection and
 GL bilinear weights), as in the JAX package.
+
+``fill_colors_planar`` is the dispatch: CUDA tensors go to the kernels of
+csrc/holefill.cu (kernels/holefill.py: one pull launch a level, one push
+launch), CPU tensors to the plain twin ``fill_colors_plain``. The push
+kernel reads the resample matrices as per-axis taps (``nearest_taps``,
+``bilinear_taps``: each row's nonzeros), packed by ``push_taps``.
 """
 
 from __future__ import annotations
@@ -76,6 +82,19 @@ def _pull_planar(planes: Sequence[torch.Tensor], depth: torch.Tensor):
     return out, d_out
 
 
+def pyramid_shapes(H: int, W: int, num_lods: int) -> List[Tuple[int, int]]:
+    """The (H, W) of each level _build_pyramid_planar makes from an (H, W)
+    LOD 0: halved (floor, at least 1) while both sides exceed 1, at most
+    ``num_lods`` levels."""
+    shapes = [(H, W)]
+    for _ in range(num_lods - 1):
+        h, w = shapes[-1]
+        if min(h, w) <= 1:
+            break
+        shapes.append((max(h // 2, 1), max(w // 2, 1)))
+    return shapes
+
+
 def _build_pyramid_planar(planes0, depth0, num_lods: int):
     colors, depths = [list(planes0)], [depth0]
     for _ in range(num_lods - 1):
@@ -113,6 +132,54 @@ def _bilinear_matrix(n_out: int, n_in: int) -> np.ndarray:
     return m
 
 
+@lru_cache(maxsize=64)
+def nearest_taps(n_out: int, n_in: int) -> np.ndarray:
+    """(n_out,) int32: the column of each row's one nonzero of
+    _nearest_matrix(n_out, n_in)."""
+    return np.argmax(_nearest_matrix(n_out, n_in) != 0, axis=1).astype(
+        np.int32)
+
+
+@lru_cache(maxsize=64)
+def bilinear_taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray]:
+    """((2, n_out) int32 columns, (2, n_out) f32 weights): the nonzeros of
+    each row of _bilinear_matrix(n_out, n_in), its f32 entries, in column
+    order; a row of one nonzero (merged edge taps, or a zero weight) gives
+    its column twice, the second time with weight 0."""
+    m = _bilinear_matrix(n_out, n_in)
+    rows, cols = np.nonzero(m)
+    count = np.bincount(rows, minlength=n_out)
+    if count.min() < 1 or count.max() > 2:
+        raise ValueError(f"bilinear rows of {count.min()}..{count.max()} "
+                         "taps")
+    first = np.cumsum(count) - count
+    idx = np.stack([cols[first], cols[first + count - 1]])
+    r = np.arange(n_out)
+    w = np.stack([m[r, idx[0]], np.where(count == 2, m[r, idx[1]], 0.0)])
+    return idx.astype(np.int32), w.astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def push_taps(shapes: Tuple[Tuple[int, int], ...]) -> np.ndarray:
+    """The per-axis taps the push kernel reads for the pyramid of level
+    shapes ``shapes`` (LOD 0 first), one int32 buffer: rows (L, 3, H) =
+    nearest, bilinear tap 0, tap 1 of each level's (H, Hl) matrices;
+    columns (L, 3, W) alike; then the bilinear weights' f32 bits, (L, 2, H)
+    and (L, 2, W). Level 0's entries are 0 and unread."""
+    (H, W), L = shapes[0], len(shapes)
+    yi = np.zeros((L, 3, H), np.int32)
+    xi = np.zeros((L, 3, W), np.int32)
+    yw = np.zeros((L, 2, H), np.float32)
+    xw = np.zeros((L, 2, W), np.float32)
+    for l, (h, w) in enumerate(shapes[1:], 1):
+        yi[l, 0] = nearest_taps(H, h)
+        yi[l, 1:], yw[l] = bilinear_taps(H, h)
+        xi[l, 0] = nearest_taps(W, w)
+        xi[l, 1:], xw[l] = bilinear_taps(W, w)
+    return np.concatenate([yi.ravel(), xi.ravel(), yw.view(np.int32).ravel(),
+                           xw.view(np.int32).ravel()])
+
+
 def _resample(planes: Sequence[torch.Tensor], my: np.ndarray,
               mx: np.ndarray) -> List[torch.Tensor]:
     """[(Hl, Wl)] -> [(H, W)]: my @ plane @ mx^T per plane (f32, no TF32)."""
@@ -124,11 +191,11 @@ def _resample(planes: Sequence[torch.Tensor], my: np.ndarray,
     return list(out.unbind(0))
 
 
-def _push_planar(colors: List[List[torch.Tensor]], depths: List[torch.Tensor]):
-    """Colorfill (tsdf_colorfill.fs:30-55) on planar channels."""
-    H, W = depths[0].shape
+def _push_level(colors: List[List[torch.Tensor]], H: int, W: int):
+    """The nearest fetch of every level at the (H, W) LOD 0 pixels, and the
+    level each pixel takes: the first with alpha > 0, else the last
+    (tsdf_colorfill.fs:36-40)."""
     L = len(colors)
-    dev = depths[0].device
     fetched = [
         colors[0] if l == 0 else _resample(
             colors[l], _nearest_matrix(H, colors[l][0].shape[0]),
@@ -138,6 +205,15 @@ def _push_planar(colors: List[List[torch.Tensor]], depths: List[torch.Tensor]):
     valid = torch.stack([f[3] > 0.0 for f in fetched])      # (L, H, W)
     level = valid.to(torch.float32).argmax(dim=0).to(torch.int32)
     level = torch.where(valid.any(dim=0), level, L - 1)
+    return fetched, level
+
+
+def _push_planar(colors: List[List[torch.Tensor]], depths: List[torch.Tensor]):
+    """Colorfill (tsdf_colorfill.fs:30-55) on planar channels."""
+    H, W = depths[0].shape
+    L = len(colors)
+    dev = depths[0].device
+    fetched, level = _push_level(colors, H, W)
 
     def select_level(per_level, lvl):
         out = list(per_level[L - 1])
@@ -170,9 +246,30 @@ def _push_planar(colors: List[List[torch.Tensor]], depths: List[torch.Tensor]):
     return out, depths[0]
 
 
+def fill_colors_plain(planes0: Sequence[torch.Tensor], depth0: torch.Tensor,
+                      num_lods: int = 7) -> Tuple[List[torch.Tensor],
+                                                  torch.Tensor]:
+    """Full pull-push in plain PyTorch: [r, g, b, a], depth (H, W) -> same
+    at full res."""
+    colors, depths = _build_pyramid_planar(planes0, depth0, num_lods)
+    return _push_planar(colors, depths)
+
+
 def fill_colors_planar(planes0: Sequence[torch.Tensor], depth0: torch.Tensor,
                        num_lods: int = 7) -> Tuple[List[torch.Tensor],
                                                    torch.Tensor]:
-    """Full pull-push: [r, g, b, a], depth (H, W) -> same at full res."""
-    colors, depths = _build_pyramid_planar(planes0, depth0, num_lods)
-    return _push_planar(colors, depths)
+    """The pull-push of :func:`fill_colors_plain`: on CUDA tensors the
+    kernels of csrc/holefill.cu (a pull launch a level past LOD 0, then one
+    push launch; the planes may be strided views), on CPU tensors the plain
+    version. Same arguments and results; the depth is ``depth0`` itself."""
+    if depth0.device.type == "cpu":
+        return fill_colors_plain(planes0, depth0, num_lods)
+    from ..kernels.holefill import pull_cuda, push_cuda
+
+    H, W = depth0.shape
+    levels, cur = [], [*planes0, depth0]
+    for _ in pyramid_shapes(H, W, num_lods)[1:]:
+        nxt = pull_cuda(cur)                                # (5, Hl, Wl)
+        levels.append(nxt)
+        cur = list(nxt.unbind(0))
+    return list(push_cuda(planes0, levels).unbind(0)), depth0

@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from rgbd_recon_tpu_torch import kernels
-from rgbd_recon_tpu_torch.ops import bake, stencil13
+from rgbd_recon_tpu_torch.ops import bake, holefill, stencil13
+
+from holefill_cases import fill_planes
 
 torch.set_num_threads(2)
 
@@ -350,6 +352,7 @@ def test_port_imports_without_jax():
         "import rgbd_recon_tpu_torch.kernels.stencil13\n"
         "import rgbd_recon_tpu_torch.kernels.bake\n"
         "import rgbd_recon_tpu_torch.kernels.gather\n"
+        "import rgbd_recon_tpu_torch.kernels.holefill\n"
         "import rgbd_recon_tpu_torch.profile_slice\n"
         "import rgbd_recon_tpu_torch.bench.headline\n"
     )
@@ -1147,3 +1150,142 @@ def test_render_marches_on_the_kernel(cuda, monkeypatch, config, marches):
     for field in ("hit", "depth", "color", "num_samples", "overflow"):
         assert torch.equal(getattr(out, field), getattr(want, field)), field
     assert int(out.hit.sum()) > 50
+
+
+# ---- the pull-push fill ----------------------------------------------------
+
+# (H, W), num_lods, kind (tests/holefill_cases.py): the render's 1280x720 at
+# 7 LODs, odd sizes, alpha <= 0 everywhere, alpha > 0 everywhere, a pyramid
+# that stops at 6 levels (37 -> 1 rows), at 2 levels, and of LOD 0 alone
+FILL_CASES = [((720, 1280), 7, "mixed"), ((81, 97), 7, "mixed"),
+              ((81, 97), 7, "invalid"), ((81, 97), 7, "valid"),
+              ((720, 1280), 7, "invalid"), ((53, 40), 5, "mixed"),
+              ((37, 150), 7, "mixed"), ((2, 3), 7, "mixed"),
+              ((1, 5), 7, "mixed")]
+FILL_COLOR_ATOL = 1e-6
+
+
+def _fill_inputs(shape, kind, device, seed=23):
+    return [torch.from_numpy(p).to(device)
+            for p in fill_planes(seed, *shape, kind)]
+
+
+def _bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lods,kind", FILL_CASES)
+def test_holefill_pull_kernel_bit_exact(cuda, shape, lods, kind):
+    """Each pull level of csrc/holefill.cu bit-equal to _pull_planar on
+    the card, from the twin's level below and along the kernel's own
+    chain."""
+    from rgbd_recon_tpu_torch.kernels.holefill import pull_cuda
+
+    planes = _fill_inputs(shape, kind, cuda)
+    colors, depths = holefill._build_pyramid_planar(planes[:4], planes[4],
+                                                    lods)
+    chain = planes
+    for l in range(1, len(colors)):
+        want = [*colors[l], depths[l]]
+        got = pull_cuda([*colors[l - 1], depths[l - 1]])
+        chain = list(pull_cuda(chain).unbind(0))
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == (5, *depths[l].shape)
+        for name, g, c, w in zip("rgbad", got, chain, want):
+            assert _bits_equal(g, w), (l, name)
+            assert _bits_equal(c, w), (l, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lods,kind", FILL_CASES)
+def test_holefill_push_kernel(cuda, shape, lods, kind):
+    """The push on the twin's pyramid: colours within atol 1e-6 of
+    _push_planar (which resamples by cuBLAS products), the chosen level
+    bit-equal, the depth passed through."""
+    from rgbd_recon_tpu_torch.kernels.holefill import push_cuda
+
+    planes = _fill_inputs(shape, kind, cuda)
+    colors, depths = holefill._build_pyramid_planar(planes[:4], planes[4],
+                                                    lods)
+    levels = [torch.stack(c) for c in colors[1:]]
+    got, level = push_cuda(colors[0], levels, return_level=True)
+    want, depth = holefill._push_planar(colors, depths)
+    _, want_level = holefill._push_level(colors, *shape)
+    torch.cuda.synchronize()
+    assert depth is depths[0]
+    assert torch.equal(level, want_level)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= FILL_COLOR_ATOL
+    # level-0 pixels keep their own r, g, b, alpha bits
+    keep = level == 0
+    for g, p in zip(got, planes[:4]):
+        assert torch.equal(g[keep], p[keep])
+    if kind == "mixed" and min(shape) > 8:
+        assert bool((level >= 2).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lods,kind", FILL_CASES)
+def test_holefill_fill_on_the_kernels(cuda, monkeypatch, shape, lods, kind):
+    """fill_colors_planar on CUDA tensors: L - 1 pull launches and one push
+    launch, within atol 1e-6 of fill_colors_plain on the card (depth the
+    input itself); the (H, W, 4) image's strided views give the bits of
+    contiguous planes; a second fill uploads no taps."""
+    from rgbd_recon_tpu_torch.kernels import holefill as fill_kernels
+
+    planes = _fill_inputs(shape, kind, cuda)
+    n_levels = len(holefill.pyramid_shapes(*shape, lods))
+    kernels.reset_launch_counts()
+    got, depth = holefill.fill_colors_planar(planes[:4], planes[4], lods)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["holefill_pull"] == n_levels - 1
+    assert kernels.launch_counts()["holefill_push"] == 1
+    want, want_depth = holefill.fill_colors_plain(planes[:4], planes[4],
+                                                  lods)
+    assert depth is planes[4] and torch.equal(want_depth, planes[4])
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= FILL_COLOR_ATOL
+
+    def no_upload(shapes):
+        raise AssertionError(f"taps of {shapes} built again")
+
+    monkeypatch.setattr(fill_kernels, "push_taps", no_upload)
+    rgba = torch.stack(planes[:4], dim=-1)
+    views = [rgba[..., i] for i in range(4)]
+    assert not views[0].is_contiguous()
+    again, _ = holefill.fill_colors_planar(views, planes[4], lods)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert _bits_equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("colorfill", [True, False])
+def test_render_fills_on_the_kernels(cuda, colorfill):
+    """A render on the card fills with the kernels: num_lods - 1 pulls
+    (64x48 at 3 LODs) and one push, none without colorfill."""
+    pipe, volume, maps, counts, cam, _ = _small_scene(cuda,
+                                                      colorfill=colorfill)
+    render = pipe.make_renderer(cam)
+    kernels.reset_launch_counts()
+    out = render(volume, maps, counts)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert launched["holefill_pull"] == 2 * colorfill
+    assert launched["holefill_push"] == int(colorfill)
+    assert bool(torch.isfinite(out.color).all())
+
+
+@pytest.mark.cuda
+def test_holefill_pull_refusal_raises(cuda):
+    """A launch the card refuses (a grid of more than 65,535 block rows)
+    raises; there is no fallback."""
+    from rgbd_recon_tpu_torch.kernels.holefill import pull_cuda
+
+    tall = [torch.zeros((1_100_000, 1), device=cuda) for _ in range(5)]
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="holefill_pull"):
+        pull_cuda(tall)
+    assert kernels.launch_counts()["holefill_pull"] == 0
