@@ -21,7 +21,13 @@ stage's rays, samples and longest ray printed. The fill kernels
 level bit-equal to ``_pull_planar``, the push's level bit-equal and its
 colours within 1e-6 of ``_push_planar`` (which resamples by cuBLAS
 products), the pull chain, the push and the whole fill timed beside their
-bounds by bytes and the plain versions. Then it drives four paths
+bounds by bytes and the plain versions. The hit kernels
+(``csrc/hits.cu``) are held and timed on the hit sets one fast and one
+parity frame hand to ``ops.hits.refine_hits`` and ``shade_hits``: the
+refined positions and shade mode 0's rgba bit-equal to the twins, the
+window depth and modes 1 and 2 within HIT_ATOL (bit-equal flags
+printed), each kernel's bound by the bytes its data needs. Then it drives
+four paths
 at reference scale through the entry points a user calls: 4 synthetic
 sensors at 512x424 depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm
 voxels (200x220x200), ``TsdfPipeline.fuse`` then ``make_renderer(camera)``
@@ -38,7 +44,8 @@ at 1280x720:
 For each path it checks which kernels launched (launch counts set to 0
 just before the path's fuse + render and read just after; the march once a
 stepwise march: ``PATH_MARCHES``; the fill's pull 6 times and its push
-once: ``FILL_LAUNCHES``), that the output
+once: ``FILL_LAUNCHES``; the hit kernels once a render, no refine in the
+trilinear full-screen render: ``PATH_HITS``), that the output
 is finite, and the surface RMSE against the analytic sphere (the accuracy
 oracle of bench.py). Timings (CUDA events) are printed for information.
 
@@ -172,7 +179,8 @@ SIDE_RMSE_LIMIT_MM = 7.0
 TPU_EXACT_RMSE_MM = 5.55
 # the kernels of the paths (the gather probe's four run on none)
 PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
-                "march", "holefill_pull", "holefill_push")
+                "march", "holefill_pull", "holefill_push", "hit_refine",
+                "hit_shade")
 # the fill kernels' launches a render with colorfill: a pull a level past
 # LOD 0 (a 1280x720 frame at 7 LODs: 6) and one push
 FILL_LAUNCHES = {"holefill_pull": 6, "holefill_push": 1}
@@ -184,6 +192,20 @@ FILL_COLOR_ATOL = 1e-6
 # config's coarse march, phase 1 and two tail stages; the parity config's
 # coarse and full march; the full-screen march without blocks
 PATH_MARCHES = {"fast": 4, "parity": 2, "parity_dense": 1, "fast_f32": 4}
+# the hit kernels' launches a render: one refine (none in the full-screen
+# render of a trilinear march, whose secant needs none) and one shade
+HIT_LAUNCHES = {"hit_refine": 1, "hit_shade": 1}
+PATH_HITS = {"fast": HIT_LAUNCHES, "parity": HIT_LAUNCHES,
+             "parity_dense": {"hit_refine": 0, "hit_shade": 1},
+             "fast_f32": HIT_LAUNCHES}
+# the hit kernels against their twins: the window depth and shade modes 1
+# and 2 within HIT_ATOL (tests/test_torch_kernels.py); the refined
+# positions and mode 0's rgba bit-equal
+HIT_ATOL = 1e-6
+# the hit kernels' bounds count bytes alone: a live hit's arithmetic
+# (about 100-400 f32 operations a refine, 500 a fast and 1,400 a parity
+# shade of 4 sensors, counted by hand from csrc/hits.cu) takes at most
+# about half its bytes' time at the card's f32 rate on either cell's hits
 # the stages of the marches phase 3 records, in the order the render runs
 # them
 MARCH_STAGES = {"fast": ("coarse", "phase1", "tail1", "tail2"),
@@ -230,7 +252,7 @@ SIDE_LAUNCHES = {
     "parity_dense": (("bilateral13", "quality13"), ("sentinel_bake",)),
     "fast_f32": (("bilateral13", "quality13", "surface_occ",
                   "sentinel_bake"), ()),
-}
+}  # and the hit kernels as PATH_HITS says
 # device time of a kernel (phase 3): torch.profiler over DEVICE_ITERS calls,
 # each after a write of FLUSH_BYTES that evicts the 50 MB L2 and a read of
 # FLUSH_BYTES more that evicts the written lines (cold: the call's inputs
@@ -239,6 +261,9 @@ SIDE_LAUNCHES = {
 DEVICE_ITERS = 20
 FLUSH_BYTES = 128 * 2 ** 20
 TRACE_TRIES = 3
+# the card's spin before a call timed between CUDA events: ~1 ms at the
+# H100's clocks, longer than the host takes to queue a call and its flush
+SPIN_CYCLES = 2_000_000
 # the device split of a time taken between CUDA events
 EVENTS_SPLIT = "all activities (CUDA events)"
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
@@ -262,7 +287,7 @@ SPLAT_MEDIAN_MM = 10.0
 APP_FRAMES = 2
 MODE1_FRAME = dict(bilateral13=1, quality13=1, surface_occ=1,
                    sentinel_bake=1, march=PATH_MARCHES["fast"],
-                   **FILL_LAUNCHES)
+                   **FILL_LAUNCHES, **HIT_LAUNCHES)
 APP_RUNS = {
     "app_mode0": (["--mode", "0"], dict(bilateral13=1, quality13=1)),
     "app_mode1": (["--mode", "1"], MODE1_FRAME),
@@ -274,7 +299,8 @@ APP_RUNS = {
                                 sentinel_bake=2,
                                 march=2 * PATH_MARCHES["fast"],
                                 **{k: 2 * n for k, n in
-                                   FILL_LAUNCHES.items()})),
+                                   {**FILL_LAUNCHES,
+                                    **HIT_LAUNCHES}.items()})),
     "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
                          MODE1_FRAME),
 }
@@ -408,10 +434,14 @@ def _short_name(name: str) -> str:
 def _events_ms(torch, fn, flush):
     """``fn``'s device time per call between CUDA events: (cold ms, warm
     ms). Cold: a pair of events around each of DEVICE_ITERS calls, each
-    after ``flush``; warm: one pair around the calls back to back."""
+    after ``flush``; warm: one pair around the calls back to back. Each
+    timed stretch is queued behind a spin of the card (SPIN_CYCLES a call)
+    that outlasts the host's launches, so the events time the device's
+    work and not the host's launch gaps."""
     torch.cuda.synchronize()
     pairs = []
     for _ in range(DEVICE_ITERS):
+        torch.cuda._sleep(SPIN_CYCLES)
         flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -423,6 +453,7 @@ def _events_ms(torch, fn, flush):
     cold = sum(s.elapsed_time(e) for s, e in pairs) / DEVICE_ITERS
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES * DEVICE_ITERS)
     start.record()
     for _ in range(DEVICE_ITERS):
         fn()
@@ -619,7 +650,7 @@ def _phase3_march(np, torch, pipe, frames, camera, renderer, card, flush):
             err = max(err, stage_err)
             num = want[1]
             nbytes, ops, samples = _march_work(args, kwargs, num)
-            bound_ms, bound_by = _bound_of(nbytes, ops)
+            bound_ms, bound_by = _bound_of(nbytes, 0)
             ms = event_ms(kern, iters=20, warmup=3)
             plain_ms = event_ms(plain, iters=3, warmup=1)
             device_ms, device_ms_warm, split, n = _device_ms(torch, kern,
@@ -861,6 +892,258 @@ def _phase3_fill(torch, pipe, camera, frames, card, flush):
                    replaces=("rgbd_recon_tpu/ops/holefill.py:56"
                              if name == "holefill_pull"
                              else "rgbd_recon_tpu/ops/holefill.py:223"),
+                   library_ms=None)
+        row.update(by_path["fast"], max_abs_err=errs[name],
+                   parity=by_path["parity"], trace_retakes=retakes)
+        out.append(row)
+    return out
+
+
+def _record_hits(torch, render_frame):
+    """{"refine": (args, kwargs), "shade": (args, kwargs)} as one render
+    called ``ops.hits.refine_hits`` and ``shade_hits`` (the pipeline calls
+    them through the module, so the recorder sees both)."""
+    from rgbd_recon_tpu_torch.ops import hits
+
+    calls, fns = {}, {"refine": hits.refine_hits, "shade": hits.shade_hits}
+
+    def recorder(key):
+        def record(*args, **kwargs):
+            calls[key] = (args, kwargs)
+            return fns[key](*args, **kwargs)
+        return record
+
+    hits.refine_hits, hits.shade_hits = (recorder("refine"),
+                                         recorder("shade"))
+    try:
+        render_frame()
+        torch.cuda.synchronize()
+    finally:
+        hits.refine_hits, hits.shade_hits = fns["refine"], fns["shade"]
+    return calls
+
+
+def _bits_equal(torch, got, want) -> bool:
+    return got.shape == want.shape and torch.equal(
+        got.contiguous().view(torch.int32),
+        want.contiguous().view(torch.int32))
+
+
+def _touched_bytes(torch, fn, tables):
+    """Bytes of the entries of ``tables`` ({name: (f32 tensor, bytes an
+    entry)}) that ``fn(leaves)``'s outputs depend on: the entries of
+    nonzero gradient of the outputs' sum, each counted once. A lower bound
+    of what a kernel must read: an entry read only to be compared, or
+    weighted by zero, counts nothing."""
+    leaves = {k: t.detach().clone().requires_grad_(True)
+              for k, (t, _) in tables.items()}
+    with torch.enable_grad():
+        outs = fn(leaves)
+        sum(o.sum() for o in outs).backward()
+    return {k: 0 if leaves[k].grad is None
+            else int((leaves[k].grad != 0).sum()) * size
+            for k, (_, size) in tables.items()}
+
+
+def _refine_work(torch, args, kwargs):
+    """(bytes, the touched table bytes, confirmed hits) of one hit_refine
+    on the recorded hits, by what each hit's result needs: the live byte
+    read and the position (3 f32) written, every hit; the march's position
+    (3 f32) read where it is the result (a hit not live, or live and its
+    crossing not confirmed); the ray and bracket (8 f32) read for a live
+    hit; the table entries the refined positions depend on
+    (``_touched_bytes``). A confirmed hit is one whose result is not the
+    march's position: finite where the twin is given NaN positions."""
+    from rgbd_recon_tpu_torch.ops import hits
+
+    hit, hit_pos = args[4], args[5]
+    n, live = hit.shape[0], int(hit.sum())
+    nan_pos = torch.full_like(hit_pos, float("nan"))
+    confirmed = int(torch.isfinite(hits.refine_hits_plain(
+        *args[:5], nan_pos, *args[6:], **kwargs)).all(dim=-1).sum())
+    oct = kwargs.get("oct")
+    table = oct.rows if oct is not None else kwargs["table"]
+
+    def refine(leaves):
+        kw = dict(kwargs)
+        if oct is not None:
+            kw["oct"] = dataclasses.replace(oct, rows=leaves["table"])
+        else:
+            kw["table"] = leaves["table"]
+        return (hits.refine_hits_plain(*args, **kw),)
+
+    touched = _touched_bytes(torch, refine, {
+        "table": (table.float(), table.element_size())})
+    nbytes = (n * (1 + 3 * 4) + (n - confirmed) * 3 * 4 + live * 8 * 4
+              + touched["table"])
+    return nbytes, touched, confirmed
+
+
+def _shade_work(torch, args, kwargs):
+    """(bytes, the touched bytes by table, the normal's and blend's names)
+    of one hit_shade on the recorded hits: the live byte read and rgba and
+    window depth (5 f32) written, every hit; the position (3 f32) read, a
+    live hit; the entries of the tables and maps the outputs depend on
+    (``_touched_bytes``: the oct or march table, the colour map read as
+    f32, depth and quality, the calibration volumes), the projection
+    models and the camera whole."""
+    from rgbd_recon_tpu_torch.ops import hits
+
+    (config, calib, bbox, hit, hit_pos, maps, models, cam, near, far, limit,
+     table, floor, oct) = args
+    n, live = hit.shape[0], int(hit.sum())
+    tab = oct.rows if oct is not None else table
+    tables = {"table": (tab.float(), tab.element_size()),
+              "color": (maps.color, 4), "depth": (maps.depth, 4),
+              "quality": (maps.quality, 4)}
+    if models is None:
+        tables.update(cv_xyz_inv=(calib.cv_xyz_inv, 4),
+                      cv_uv=(calib.cv_uv, 4))
+
+    def shade(leaves):
+        m = dataclasses.replace(maps, color=leaves["color"],
+                                depth=leaves["depth"],
+                                quality=leaves["quality"])
+        c = calib
+        if models is None:
+            c = dataclasses.replace(calib, cv_xyz_inv=leaves["cv_xyz_inv"],
+                                    cv_uv=leaves["cv_uv"])
+        o, t = oct, leaves["table"]
+        if oct is not None:
+            o, t = dataclasses.replace(oct, rows=leaves["table"]), table
+        return hits.shade_hits_plain(config, c, bbox, hit, hit_pos, m,
+                                     models, cam, near, far, limit, t, floor,
+                                     o)
+
+    touched = _touched_bytes(torch, shade, tables)
+    small = (0 if models is None else sum(
+        getattr(models, f.name).numel() * 4
+        for f in dataclasses.fields(models)))
+    nbytes = (n * (1 + 5 * 4) + live * 3 * 4 + sum(touched.values()) + small
+              + 15 * 4)
+    k = hits.shade_kernel_args(*args, **kwargs)
+    return nbytes, touched, k["normal"], k["blend"]
+
+
+def _phase3_hits(torch, pipe, camera, frames, card, flush):
+    """The hit kernels on the hit sets one fast and one parity frame hand
+    to ops.hits.refine_hits and shade_hits: the refined positions bit-equal
+    to refine_hits_plain; shade_hits_plain in modes 0, 1 and 2 (mode 0's
+    rgba bit-equal, the window depth and modes 1-2 within HIT_ATOL; each
+    bit-equal flag printed); each kernel timed (events, device time with a
+    cold and a warm L2, the plain version) beside its bound (the bytes its
+    data needs, ``_refine_work`` / ``_shade_work``). Returns the two
+    kernels' JSON rows: the fast frame's figures, the parity frame's under
+    "parity"."""
+    from rgbd_recon_tpu_torch.bench.trace import event_ms
+    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
+    from rgbd_recon_tpu_torch.ops import hits
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
+        pipe.config, **_side_paths()["parity"]), pipe.bbox)
+    rows = {"hit_refine": {}, "hit_shade": {}}
+    errs = {"hit_refine": 0.0, "hit_shade": 0.0}
+    retakes = 0
+    for path, p in (("fast", pipe), ("parity", ppipe)):
+        render = p.make_renderer(camera)
+        volume, maps, counts = p.fuse(frames)
+        render(volume, maps, counts)        # warm-up: fits the models
+        calls = _record_hits(torch, lambda: render(volume, maps, counts))
+        if set(calls) != {"refine", "shade"}:
+            raise AssertionError(f"{path} frame: hit path calls {set(calls)}")
+        rargs, rkw = calls["refine"]
+        sargs, skw = calls["shade"]
+        hit = rargs[4]
+        skernel = hits.shade_kernel_args(*sargs, **skw)
+        # the refine, bit for bit
+        got = refine_cuda(*rargs, **rkw)
+        want = hits.refine_hits_plain(*rargs, **rkw)
+        torch.cuda.synchronize()
+        r_err = _max_abs_err(torch, got, want)
+        if not _bits_equal(torch, got, want):
+            raise AssertionError(f"hit_refine {path}: differs from "
+                                 f"refine_hits_plain (max abs error {r_err})")
+        moved = int((want != rargs[5]).any(dim=-1).sum())
+        # the shade in modes 0, 1, 2
+        modes = {}
+        for mode in (0, 1, 2):
+            margs = (dataclasses.replace(sargs[0], shade_mode=mode),
+                     *sargs[1:])
+            g_rgba, g_depth = shade_cuda(**hits.shade_kernel_args(*margs,
+                                                                  **skw))
+            w_rgba, w_depth = hits.shade_hits_plain(*margs, **skw)
+            torch.cuda.synchronize()
+            modes[mode] = dict(
+                rgba_bit_equal=_bits_equal(torch, g_rgba, w_rgba),
+                depth_bit_equal=_bits_equal(torch, g_depth, w_depth),
+                rgba_max_abs_err=_max_abs_err(torch, g_rgba, w_rgba),
+                depth_max_abs_err=_max_abs_err(torch, g_depth, w_depth))
+            m = modes[mode]
+            ok = (m["depth_max_abs_err"] <= HIT_ATOL
+                  and _bits_equal(torch, g_rgba[:, 3], w_rgba[:, 3])
+                  and (m["rgba_bit_equal"] if mode == 0
+                       else m["rgba_max_abs_err"] <= HIT_ATOL))
+            print(f"hit_shade {path} mode {mode}: {m}", flush=True)
+            if not ok:
+                raise AssertionError(f"hit_shade {path} mode {mode}: {m}")
+        s_err = max(max(m["rgba_max_abs_err"], m["depth_max_abs_err"])
+                    for m in modes.values())
+        errs["hit_refine"] = max(errs["hit_refine"], r_err)
+        errs["hit_shade"] = max(errs["hit_shade"], s_err)
+        r_bytes, r_touched, confirmed = _refine_work(torch, rargs, rkw)
+        s_bytes, s_touched, normal, blend = _shade_work(torch, sargs, skw)
+        variant = dict(
+            hits=int(hit.numel()), live=int(hit.sum()),
+            sensors=int(maps.color.shape[0]), normal=normal, blend=blend,
+            refine=("oct" if rkw.get("oct") is not None else "table")
+            + (f", widened K = {rkw['widen_samples']}"
+               if rkw.get("oct") is not None and rkw.get("widen_steps", 0) > 0
+               else ""),
+            table=str((rkw.get("oct").rows if rkw.get("oct") is not None
+                       else rkw["table"]).dtype))
+        work = {
+            "hit_refine": (lambda: refine_cuda(*rargs, **rkw),
+                           lambda: hits.refine_hits_plain(*rargs, **rkw),
+                           r_bytes, r_err,
+                           dict(bit_equal=True, moved=moved,
+                                confirmed=confirmed,
+                                touched_bytes=r_touched)),
+            "hit_shade": (lambda: shade_cuda(**skernel),
+                          lambda: hits.shade_hits_plain(*sargs, **skw),
+                          s_bytes, s_err,
+                          dict(modes=modes, touched_bytes=s_touched)),
+        }
+        for name, (kern, plain, nbytes, err, extra) in work.items():
+            ms = event_ms(kern, iters=20, warmup=3)
+            plain_ms = event_ms(plain, iters=3, warmup=1)
+            device_ms, device_ms_warm, split, n = _device_ms(torch, kern,
+                                                             flush)
+            retakes += n
+            bound_ms, bound_by = _bound_of(nbytes, 0)
+            rows[name][path] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                device_ms=device_ms, device_ms_warm=device_ms_warm,
+                device_split=split, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, share_of_bound=bound_ms / device_ms,
+                **variant, **extra)
+            print(f"{name} {path}: {variant}; max|kernel - plain| {err!r} "
+                  f"(bound {0.0 if name == 'hit_refine' else HIT_ATOL}); "
+                  f"{ms!r} ms (events; plain {plain_ms!r}), device "
+                  f"{device_ms!r} ms cold L2, {device_ms_warm!r} warm "
+                  f"{split}, bound {bound_ms!r} ms by {bound_by} ({nbytes} "
+                  f"B), {bound_ms / device_ms:.1%} of it, on "
+                  f"{card}", flush=True)
+        del volume, maps, counts, calls, rargs, rkw, sargs, skw, skernel, work
+    del ppipe
+    torch.cuda.empty_cache()
+    out = []
+    for name, by_path in rows.items():
+        row = dict(name=name, route="cuda",
+                   source="rgbd_recon_tpu_torch/csrc/hits.cu",
+                   replaces=("rgbd_recon_tpu/ops/raymarch.py:409"
+                             if name == "hit_refine"
+                             else "rgbd_recon_tpu/recon/tsdf_pipeline.py:695"),
                    library_ms=None)
         row.update(by_path["fast"], max_abs_err=errs[name],
                    parity=by_path["parity"], trace_retakes=retakes)
@@ -1125,6 +1408,7 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
     the others held to the sphere like the fast path; fuse + render ms.
     Adds each variant's launches to ``by_path``."""
     from rgbd_recon_tpu_torch import kernels
+    from rgbd_recon_tpu_torch.ops import hits
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
     fast_hit, fast_depth = fast
@@ -1150,6 +1434,10 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
         want["march"] = (PATH_MARCHES["fast"]
                          - int(vpipe.config.march_chunk > 0))
         want.update(FILL_LAUNCHES if vpipe.config.colorfill else NO_FILL)
+        # the camera-influence view, the normal-weighted blends and the
+        # profiling switches shade on the twin; "refine" skips the refine
+        want["hit_shade"] = int(hits.kernel_shades(vpipe.config))
+        want["hit_refine"] = int("refine" not in vpipe.config.debug_skip)
         if launched != want:
             raise AssertionError(f"{name}: launched {launched}, expected "
                                  f"{want}")
@@ -1478,7 +1766,7 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         n = mesh.size
         want = dict(bilateral13=1, quality13=1, surface_occ=n,
                     sentinel_bake=n, march=PATH_MARCHES["fast"],
-                    **FILL_LAUNCHES)
+                    **FILL_LAUNCHES, **PATH_HITS["fast"])
         vol_sh, out_sh = counted(label, lambda: step(frames), want)
         same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
                 for f in ("hit", "depth")}
@@ -1520,7 +1808,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
                              dict(bilateral13=1, quality13=1, surface_occ=0,
                                   sentinel_bake=0,
                                   march=PATH_MARCHES["parity_dense"],
-                                  **FILL_LAUNCHES))
+                                  **FILL_LAUNCHES,
+                                  **PATH_HITS["parity_dense"]))
     same = {f: torch.equal(getattr(out_sh, f), getattr(dout, f))
             for f in ("hit", "depth")}
     same["volume"] = torch.equal(vol_sh.gather(), dvol)
@@ -2287,6 +2576,7 @@ def main(argv=None) -> int:
     results.append(_phase3_march(np, torch, pipe, frames, camera, renderer,
                                  card, flush))
     results += _phase3_fill(torch, pipe, camera, frames, card, flush)
+    results += _phase3_hits(torch, pipe, camera, frames, card, flush)
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 13. the gather-rate probe, right after phase 3: torch.profiler
@@ -2307,11 +2597,13 @@ def main(argv=None) -> int:
     missing = [k for k in PATH_KERNELS if launched[k] <= 0]
     extra = [k for k, n in launched.items() if n and k not in PATH_KERNELS]
     fills = {k: launched[k] for k in FILL_LAUNCHES}
+    hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
     if (missing or extra or launched["march"] != PATH_MARCHES["fast"]
-            or fills != FILL_LAUNCHES):
+            or fills != FILL_LAUNCHES or hit_launches != PATH_HITS["fast"]):
         raise AssertionError(f"fast path did not launch {missing}, "
                              f"launched {extra}, march "
-                             f"{launched['march']} times, fill {fills}")
+                             f"{launched['march']} times, fill {fills}, "
+                             f"hits {hit_launches}")
     by_path = {"fast": launched}
     # each path's oracle reading (phase 16's ablation must repeat them)
     oracle_by_path = {"fast": _check_render(torch, "fast", volume, out,
@@ -2354,11 +2646,14 @@ def main(argv=None) -> int:
         extra = [k for k, n in launched.items()
                  if n > 0 and (k in must_not or k not in PATH_KERNELS)]
         fills = {k: launched[k] for k in FILL_LAUNCHES}
+        hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
         if (missing or extra or launched["march"] != PATH_MARCHES[name]
-                or fills != FILL_LAUNCHES):
+                or fills != FILL_LAUNCHES
+                or hit_launches != PATH_HITS[name]):
             raise AssertionError(f"{name} path: not launched {missing}, "
                                  f"launched {extra}, march "
-                                 f"{launched['march']} times, fill {fills}")
+                                 f"{launched['march']} times, fill {fills}, "
+                                 f"hits {hit_launches}")
         by_path[name] = launched
         oracle_by_path[name] = _check_render(torch, name, volume, out,
                                              counts, ppipe.config, camera)

@@ -1,0 +1,920 @@
+// The render's per-hit stage: one launch refines every hit, one launch
+// shades every hit, one thread a hit in each.
+//
+// Replaces the hit path of the render: in the JAX package the part of the
+// one jitted render program at rgbd_recon_tpu/recon/tsdf_pipeline.py:
+// 1486-1505 (the refine, then _shade_hits at :695; raymarch.py:409
+// oct_refine_crossing, :809 refine_crossing, :312 OctVolume.gradient_p,
+// :852 gradient_normal, :1035 blend_colors_analytic, :1119 blend_colors,
+// :950 blend_colors_fast, :1307 shade; no Pallas kernel), in the port its
+// plain PyTorch twins (ops/hits.py refine_hits_plain and shade_hits_plain:
+// ~1,000 launches a fast render, ~2,000 a parity render).
+//
+// hit_refine, per hit (ops/raymarch.py oct_refine_crossing and
+// refine_crossing): a hit that is not live keeps its march position. From
+// the oct cell-corner table: the secant of the bracket's ends, or with the
+// widened bracket K samples over [lo - w, hi + w], the first rising sign
+// change and two secant iterations; from the march table: the secant of
+// the bracket's ends on pair_trilinear samples, each tap clamped from
+// below by the floor where one is given. The position of an unconfirmed
+// crossing is the march's.
+//
+// hit_shade, per hit (ops/hits.py shade_hits_plain): the normal (the oct
+// cell's analytic gradient with its toward-camera fallback off the table,
+// or the central difference of the march table at +-step, nearest or
+// trilinear taps, clamped by the floor), divided by the box size and
+// normalised; the world and view positions; the blend over the N sensors
+// (the analytic projection models with the bf16-rounded colour map and
+// nearest or bilinear depth/quality taps; the calibration volumes with
+// trilinear lookups and f32 bilinear fetches; or their nearest lookups
+// with the bf16 colour map and pair_bilinear fetches); shade modes 0
+// (textured), 1 (Blinn-Phong), 2 (normals); the window depth. A hit that
+// is not live gets rgba 0 and window depth 1.
+//
+// Numerics: exactly the twins' operations on the card, in their order
+// (IEEE f32, no FMA contraction: the library is compiled with --fmad=false
+// and without fast math, and every product and sum is an explicit
+// round-to-nearest intrinsic), with PyTorch's CUDA rules where they differ
+// from the written formula:
+//  - x / s for a Python number s is x * (1 / s), the reciprocal taken in
+//    f32 on the host (the wrapper passes it): the widened bracket's
+//    k / (K - 1) and span / (K - 1), the window depth's scale;
+//  - s / x is reciprocal(x) * s;
+//  - a sum over a last axis of 3 adds lanes 0 and 2, then lane 1 (the
+//    reduction splits 3 inputs over 2 lanes): sum3 below, for every norm
+//    and dot product;
+//  - x.to(bfloat16) rounds to nearest even (__float2bfloat16_rn);
+//  - the view transform's f32 product v @ rot (cuBLAS, TF32 off) is, for
+//    each output, a chain of fused multiply-adds over v's components in
+//    order, from v[0] * rot[0][j]: the intrinsics below.
+//
+// Bound on this card: bytes. Each hit reads a few texels of the oct or
+// march table and, per sensor, a few of the colour, depth and quality maps
+// (and of the calibration volumes), all gathered; the arithmetic is a few
+// hundred f32 operations a hit. Design: one thread a hit, 128 threads a
+// block (the render compacts the hits of 4x4 screen blocks next to each
+// other, so a warp's hits read neighbouring texels and share sectors);
+// every table and map read in place through the read-only path (__ldg),
+// bf16 entries loaded as 16 bits and shifted into an f32 (exact, as the
+// twin's .to(float32)); the colour map read as f32 and rounded to bf16 in
+// registers (no per-call bf16 copy), depth and quality read from their
+// own planes through their strides (no per-call stack), the camera and
+// the box's minimum read from their device tensors (no upload, no sync);
+// the per-hit inputs read through strides, so the render's column views
+// need no copy. A hit reads what its result needs: the live byte first,
+// then the ray and bracket only if it is live, the march's position only
+// where that is the result (not live, or the crossing not confirmed); the
+// shade reads nothing more of a hit that is not live. The sensor loop is
+// one loop in the thread.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 128;
+
+// refine inputs: pos0 x y z, dir x y z, lo_t, hi_t, hit_pos x y z
+constexpr int REFINE_IN = 11;
+constexpr int NORMAL_OCT = 0, NORMAL_NEAREST = 1, NORMAL_TRILINEAR = 2;
+constexpr int BLEND_ANALYTIC = 0, BLEND_VOLUME = 1, BLEND_VOLUME_FAST = 2;
+
+struct RefineParams {
+  const void* table;  // oct rows (M, 8) or the (D, H, W) march table
+  const int* slots;   // oct: flat brick id -> slot, -1 off the table
+  int table_f32;      // 1: f32 entries, 0: bf16
+  int oct;            // 1: the oct table, 0: the march table
+  int D, H, W;        // the volume's shape
+  int brick_vox;      // oct
+  int widen_k;        // oct: 0 the bracket's ends, >= 3 the widened window
+  int floor_on;       // march table: clamp each tap from below by floor
+  float neg_limit;    // oct: the value off the table, -limit
+  float floor;
+  float widen_lo;     // f32(widen_steps * sd)
+  float widen_span;   // f32(2 * widen_steps * sd)
+  float inv_km1;      // f32(1) / f32(K - 1)
+  const float* in[REFINE_IN];
+  long long stride[REFINE_IN];
+  const unsigned char* hit;
+  long long hit_stride;
+  float* out;  // (n, 3)
+  int n;
+};
+
+struct ShadeParams {
+  const unsigned char* hit;
+  long long hit_stride;
+  const float* pos[3];  // the hit position, volume-normalised
+  long long pos_stride[3];
+  int n;
+  // the normal
+  int normal;
+  const void* table;  // oct rows or the march table
+  const int* slots;
+  int table_f32;
+  int D, H, W;
+  int brick_vox;
+  int floor_on;
+  float floor;
+  float sd;  // the gradient's step, f32(limit) * 0.5
+  // the blend
+  int blend;
+  int dq_bilinear;
+  int N;
+  const float* color;  // (N, Hc, Wc, 3) f32
+  long long color_stride[4];
+  int Hc, Wc;
+  const float* depth;  // (N, Hd, Wd) normalised depth
+  long long depth_stride[3];
+  const float* quality;  // (N, Hd, Wd)
+  long long quality_stride[3];
+  int Hd, Wd;
+  // the projection models, contiguous: (N, 2, 3), (N, 2), (N, 3), (N, 3),
+  // (N,), (N, 2, 3), (N, 2), (N, 3)
+  const float* uv_num;
+  const float* uv_off;
+  const float* uv_den;
+  const float* d_lin;
+  const float* d_off;
+  const float* cuv_num;
+  const float* cuv_off;
+  const float* cuv_den;
+  const float* cv_inv;  // (N, iD, iH, iW, 4), contiguous
+  int iD, iH, iW;
+  const float* cv_uv;  // (N, uD, uH, uW, 2), contiguous
+  int uD, uH, uW;
+  float limit;
+  // shading and the window depth
+  int shade_mode;
+  const float* eye;       // (3,) world eye
+  const float* rot;       // (3, 3) camera-to-world rotation, row-major
+  const float* bbox_min;  // (3,)
+  float bbox_size[3];
+  float near_clamp;   // f32(near * 1.001)
+  float inv_near;     // f32(1 / near)
+  float depth_scale;  // f32(1) / f32(1 / near - 1 / far)
+  float* rgba;        // (n, 4)
+  float* depth_win;   // (n,)
+};
+
+__device__ __forceinline__ float load_entry(const float* t, long long i) {
+  return __ldg(t + i);
+}
+
+__device__ __forceinline__ float load_entry(const unsigned short* t,
+                                            long long i) {
+  return __uint_as_float(((unsigned int)__ldg(t + i)) << 16);
+}
+
+__device__ __forceinline__ int clamp_idx(int v, int n) {
+  return v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
+}
+
+// torch.clamp_min: NaN stays NaN
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return v < lo ? lo : v;
+}
+
+// torch.clamp(v, lo, hi): NaN stays NaN
+__device__ __forceinline__ float clamp_to(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float dvd(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+
+// a + b * t: the twins' position along a ray (a product, then a sum)
+__device__ __forceinline__ float along(float a, float b, float t) {
+  return add(a, mul(b, t));
+}
+
+// a * (1 - f) + b * f: every lerp of the twins
+__device__ __forceinline__ float lerp(float a, float b, float f) {
+  return add(mul(a, sub(1.0f, f)), mul(b, f));
+}
+
+// x.sum(dim=-1) over 3 lanes on the card: lanes 0 and 2, then lane 1,
+// each from +0.0
+__device__ __forceinline__ float sum3(float a, float b, float c) {
+  return add(add(add(0.0f, a), add(0.0f, c)), add(0.0f, b));
+}
+
+__device__ __forceinline__ float norm3(float x, float y, float z) {
+  return __fsqrt_rn(sum3(mul(x, x), mul(y, y), mul(z, z)));
+}
+
+// x / max(|x|, 1e-20), the twins' _unit
+__device__ __forceinline__ void unit3(float& x, float& y, float& z) {
+  const float n = clamp_min(norm3(x, y, z), 1e-20f);
+  x = dvd(x, n);
+  y = dvd(y, n);
+  z = dvd(z, n);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// ops/raymarch.py _secant_den
+__device__ __forceinline__ float secant_den(float d) {
+  return fabsf(d) < 1e-20f ? 1e-20f : d;
+}
+
+// ---- the march table ------------------------------------------------------
+
+// ops/raymarch.py sample_nearest_p, then clamp_min(floor) where floor_on
+template <typename T>
+__device__ float table_nearest(const T* table, float px, float py, float pz,
+                               int D, int H, int W, int floor_on,
+                               float floor) {
+  const int xi = clamp_idx((int)mul(px, (float)W), W);
+  const int yi = clamp_idx((int)mul(py, (float)H), H);
+  const int zi = clamp_idx((int)mul(pz, (float)D), D);
+  const float v = load_entry(table, ((long long)zi * H + yi) * W + xi);
+  return floor_on ? clamp_min(v, floor) : v;
+}
+
+// ops/sampling.py pair_trilinear with its clamp floor
+template <typename T>
+__device__ float table_trilinear(const T* table, float px, float py, float pz,
+                                 int D, int H, int W, int floor_on,
+                                 float floor) {
+  const float cx = sub(mul(px, (float)W), 0.5f);
+  const float cy = sub(mul(py, (float)H), 0.5f);
+  const float cz = sub(mul(pz, (float)D), 0.5f);
+  const float x0f = floorf(cx), y0f = floorf(cy), z0f = floorf(cz);
+  const float fx = x0f < 0.0f ? 0.0f : sub(cx, x0f);
+  const float fy = sub(cy, y0f);
+  const float fz = sub(cz, z0f);
+  const int x0 = clamp_idx((int)x0f, W);
+  const int x1 = min(x0 + 1, W - 1);
+  const int y0 = clamp_idx((int)y0f, H);
+  const int y1 = clamp_idx((int)add(y0f, 1.0f), H);
+  const int z0 = clamp_idx((int)z0f, D);
+  const int z1 = clamp_idx((int)add(z0f, 1.0f), D);
+  float pair[4];
+  const int zs[4] = {z0, z0, z1, z1};
+  const int ys[4] = {y0, y1, y0, y1};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long base = ((long long)zs[k] * H + ys[k]) * W;
+    float a = load_entry(table, base + x0);
+    float b = load_entry(table, base + x1);
+    if (floor_on) {
+      a = clamp_min(a, floor);
+      b = clamp_min(b, floor);
+    }
+    pair[k] = lerp(a, b, fx);
+  }
+  return lerp(lerp(pair[0], pair[1], fy), lerp(pair[2], pair[3], fy), fz);
+}
+
+// ---- the oct cell-corner table ---------------------------------------------
+
+struct Cell {
+  float c[8];
+  float fx, fy, fz;
+  bool valid;
+};
+
+// ops/raymarch.py OctVolume._cells: the anchor cell's eight corners
+template <typename T>
+__device__ Cell oct_cell(const T* rows, const int* slots, float px, float py,
+                         float pz, int D, int H, int W, int v) {
+  Cell cell;
+  const float cx = sub(mul(px, (float)W), 0.5f);
+  const float cy = sub(mul(py, (float)H), 0.5f);
+  const float cz = sub(mul(pz, (float)D), 0.5f);
+  const float x0f = floorf(cx), y0f = floorf(cy), z0f = floorf(cz);
+  cell.fx = x0f < 0.0f ? 0.0f : clamp_to(sub(cx, x0f), 0.0f, 1.0f);
+  cell.fy = y0f < 0.0f ? 0.0f : clamp_to(sub(cy, y0f), 0.0f, 1.0f);
+  cell.fz = z0f < 0.0f ? 0.0f : clamp_to(sub(cz, z0f), 0.0f, 1.0f);
+  const int x0 = clamp_idx((int)x0f, W);
+  const int y0 = clamp_idx((int)y0f, H);
+  const int z0 = clamp_idx((int)z0f, D);
+  const int Bx = W / v, By = H / v;
+  const int bid = ((z0 / v) * By + y0 / v) * Bx + x0 / v;
+  const int slot = __ldg(slots + bid);
+  cell.valid = slot >= 0;
+  if (cell.valid) {
+    const long long local = ((z0 % v) * v + y0 % v) * v + x0 % v;
+    const long long row = (long long)slot * (v * v * v) + local;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cell.c[k] = load_entry(rows, row * 8 + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cell.c[k] = 0.0f;
+  }
+  return cell;
+}
+
+// OctVolume.sample_p: the cell's trilinear value, fill off the table
+template <typename T>
+__device__ float oct_sample(const T* rows, const int* slots, float px,
+                            float py, float pz, int D, int H, int W, int v,
+                            float fill) {
+  const Cell e = oct_cell(rows, slots, px, py, pz, D, H, W, v);
+  if (!e.valid) return fill;
+  const float c00 = lerp(e.c[0], e.c[1], e.fx);
+  const float c01 = lerp(e.c[2], e.c[3], e.fx);
+  const float c10 = lerp(e.c[4], e.c[5], e.fx);
+  const float c11 = lerp(e.c[6], e.c[7], e.fx);
+  return lerp(lerp(c00, c01, e.fy), lerp(c10, c11, e.fy), e.fz);
+}
+
+// ---- hit_refine -----------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ float refine_sample(const RefineParams& a,
+                                               const T* table, float px,
+                                               float py, float pz) {
+  if (a.oct)
+    return oct_sample(table, a.slots, px, py, pz, a.D, a.H, a.W,
+                      a.brick_vox, a.neg_limit);
+  return table_trilinear(table, px, py, pz, a.D, a.H, a.W, a.floor_on,
+                         a.floor);
+}
+
+// the march's position, the result of a hit that is not live or whose
+// bracket does not confirm the crossing: read only for those
+__device__ __forceinline__ void keep_march_pos(const RefineParams& a,
+                                               long long r, float* out) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    out[k] = __ldg(a.in[8 + k] + r * a.stride[8 + k]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    refine_kernel(const RefineParams a) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= a.n) return;
+  const long long r = i;
+  float* out = a.out + r * 3;
+  if (!__ldg(a.hit + r * a.hit_stride)) {
+    keep_march_pos(a, r, out);
+    return;
+  }
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __ldg(a.in[k] + r * a.stride[k]);
+  const float p0x = v[0], p0y = v[1], p0z = v[2];
+  const float dx = v[3], dy = v[4], dz = v[5];
+  const float lo = v[6], hi = v[7];
+  const T* table = (const T*)a.table;
+  float tstar;
+  if (a.oct && a.widen_k >= 3) {
+    // the widened bracket: K samples, the first rising sign change
+    const float span_lo = sub(lo, a.widen_lo);
+    const float span = add(sub(hi, lo), a.widen_span);
+    float prev = 0.0f, d_lo = 0.0f, d_hi = 0.0f;
+    int kstar = -1;
+    for (int k = 0; k < a.widen_k; ++k) {
+      const float tk = add(span_lo, mul(mul((float)k, a.inv_km1), span));
+      const float d = refine_sample(a, table, along(p0x, dx, tk),
+                                    along(p0y, dy, tk), along(p0z, dz, tk));
+      if (k > 0 && d > 0.0f && prev <= 0.0f) {
+        kstar = k - 1;
+        d_lo = prev;
+        d_hi = d;
+        break;
+      }
+      prev = d;
+    }
+    if (kstar < 0) {
+      keep_march_pos(a, r, out);
+      return;
+    }
+    const float step = mul(span, a.inv_km1);
+    const float t_lo = add(span_lo, mul((float)kstar, step));
+    const float t_hi = add(t_lo, step);
+    const float ts = sub(t_hi, mul(sub(t_hi, t_lo),
+                                   dvd(d_hi, secant_den(sub(d_hi, d_lo)))));
+    const float dm = refine_sample(a, table, along(p0x, dx, ts),
+                                   along(p0y, dy, ts), along(p0z, dz, ts));
+    const bool up = dm > 0.0f;
+    const float t_lo2 = up ? t_lo : ts;
+    const float d_lo2 = up ? d_lo : dm;
+    const float t_hi2 = up ? ts : t_hi;
+    const float d_hi2 = up ? dm : d_hi;
+    tstar = sub(t_hi2, mul(sub(t_hi2, t_lo2),
+                           dvd(d_hi2, secant_den(sub(d_hi2, d_lo2)))));
+  } else {
+    // the secant of the bracket's ends
+    const float v1 = refine_sample(a, table, along(p0x, dx, hi),
+                                   along(p0y, dy, hi), along(p0z, dz, hi));
+    const float v0 = refine_sample(a, table, along(p0x, dx, lo),
+                                   along(p0y, dy, lo), along(p0z, dz, lo));
+    if (!(v1 > 0.0f && v0 <= 0.0f)) {
+      keep_march_pos(a, r, out);
+      return;
+    }
+    tstar = sub(hi, mul(sub(hi, lo), dvd(v1, secant_den(sub(v1, v0)))));
+  }
+  out[0] = along(p0x, dx, tstar);
+  out[1] = along(p0y, dy, tstar);
+  out[2] = along(p0z, dz, tstar);
+}
+
+// ---- hit_shade: the normal ------------------------------------------------
+
+// OctVolume.gradient_p, negated and normalised; the toward-camera
+// fallback off the table (ops/hits.py shade_hits_plain)
+template <typename T>
+__device__ void normal_oct(const ShadeParams& a, const T* rows, float px,
+                           float py, float pz, float g[3]) {
+  const Cell e = oct_cell(rows, a.slots, px, py, pz, a.D, a.H, a.W,
+                          a.brick_vox);
+  if (e.valid) {
+    const float* c = e.c;
+    const float wx0 = sub(1.0f, e.fx), wx1 = e.fx;
+    const float wy0 = sub(1.0f, e.fy), wy1 = e.fy;
+    const float wz0 = sub(1.0f, e.fz), wz1 = e.fz;
+    float gx = mul(sub(c[1], c[0]), wy0);
+    gx = add(mul(gx, wz0), mul(mul(sub(c[3], c[2]), wy1), wz0));
+    gx = add(gx, mul(mul(sub(c[5], c[4]), wy0), wz1));
+    gx = add(gx, mul(mul(sub(c[7], c[6]), wy1), wz1));
+    gx = mul(gx, (float)a.W);
+    const float gy = mul(
+        add(mul(add(mul(sub(c[2], c[0]), wx0), mul(sub(c[3], c[1]), wx1)),
+                wz0),
+            mul(add(mul(sub(c[6], c[4]), wx0), mul(sub(c[7], c[5]), wx1)),
+                wz1)),
+        (float)a.H);
+    const float gz = mul(
+        add(mul(add(mul(sub(c[4], c[0]), wx0), mul(sub(c[5], c[1]), wx1)),
+                wy0),
+            mul(add(mul(sub(c[6], c[2]), wx0), mul(sub(c[7], c[3]), wx1)),
+                wy1)),
+        (float)a.D);
+    const float n = clamp_min(norm3(gx, gy, gz), 1e-20f);
+    g[0] = dvd(-gx, n);
+    g[1] = dvd(-gy, n);
+    g[2] = dvd(-gz, n);
+    return;
+  }
+  const float q[3] = {px, py, pz};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float w = sub(__ldg(a.eye + k),
+                        add(mul(q[k], a.bbox_size[k]), __ldg(a.bbox_min + k)));
+    g[k] = mul(w, a.bbox_size[k]);
+  }
+  unit3(g[0], g[1], g[2]);
+}
+
+// ops/raymarch.py gradient_normal: the central difference at +-sd
+template <typename T>
+__device__ void normal_table(const ShadeParams& a, const T* table, float px,
+                             float py, float pz, float g[3]) {
+  const float p[3] = {px, py, pz};
+#pragma unroll
+  for (int axis = 0; axis < 3; ++axis) {
+    float hi[3] = {p[0], p[1], p[2]};
+    float lo[3] = {p[0], p[1], p[2]};
+    hi[axis] = add(p[axis], a.sd);
+    lo[axis] = sub(p[axis], a.sd);
+    float s_hi, s_lo;
+    if (a.normal == NORMAL_NEAREST) {
+      s_hi = table_nearest(table, hi[0], hi[1], hi[2], a.D, a.H, a.W,
+                           a.floor_on, a.floor);
+      s_lo = table_nearest(table, lo[0], lo[1], lo[2], a.D, a.H, a.W,
+                           a.floor_on, a.floor);
+    } else {
+      s_hi = table_trilinear(table, hi[0], hi[1], hi[2], a.D, a.H, a.W,
+                             a.floor_on, a.floor);
+      s_lo = table_trilinear(table, lo[0], lo[1], lo[2], a.D, a.H, a.W,
+                             a.floor_on, a.floor);
+    }
+    g[axis] = sub(s_hi, s_lo);
+  }
+  const float n = clamp_min(norm3(g[0], g[1], g[2]), 1e-20f);
+  g[0] = dvd(-g[0], n);
+  g[1] = dvd(-g[1], n);
+  g[2] = dvd(-g[2], n);
+}
+
+// ---- hit_shade: the sensor maps -------------------------------------------
+
+// a texel of sensor i's map of C channels at (y, x)
+__device__ __forceinline__ float texel(const float* m, const long long* s,
+                                       int i, int y, int x, int c) {
+  return __ldg(m + i * s[0] + y * s[1] + x * s[2] + c * s[3]);
+}
+
+__device__ __forceinline__ float plane(const float* m, const long long* s,
+                                       int i, int y, int x) {
+  return __ldg(m + i * s[0] + y * s[1] + x * s[2]);
+}
+
+struct Taps {
+  int x0, x1, y0, y1;
+  float fx, fy;
+};
+
+// ops/sampling.py quad_bilinear's taps: corners (x0|x0+1) x (y0|y0+1),
+// each +1 tap clamped to the edge, zero weight toward a tap left of or
+// above the first texel
+__device__ __forceinline__ Taps quad_taps(float u, float v, int H, int W) {
+  Taps t;
+  const float cx = sub(mul(u, (float)W), 0.5f);
+  const float cy = sub(mul(v, (float)H), 0.5f);
+  const float x0f = floorf(cx), y0f = floorf(cy);
+  t.fx = x0f < 0.0f ? 0.0f : sub(cx, x0f);
+  t.fy = y0f < 0.0f ? 0.0f : sub(cy, y0f);
+  t.x0 = clamp_idx((int)x0f, W);
+  t.y0 = clamp_idx((int)y0f, H);
+  t.x1 = min(t.x0 + 1, W - 1);
+  t.y1 = min(t.y0 + 1, H - 1);
+  return t;
+}
+
+// ops/sampling.py pair_bilinear's taps: the x pair of quad_bilinear, the
+// y taps floor and floor + 1, each truncated and clamped
+__device__ __forceinline__ Taps pair_taps(float u, float v, int H, int W) {
+  Taps t;
+  const float cx = sub(mul(u, (float)W), 0.5f);
+  const float cy = sub(mul(v, (float)H), 0.5f);
+  const float x0f = floorf(cx), y0f = floorf(cy);
+  t.fx = x0f < 0.0f ? 0.0f : sub(cx, x0f);
+  t.fy = sub(cy, y0f);
+  t.x0 = clamp_idx((int)x0f, W);
+  t.x1 = min(t.x0 + 1, W - 1);
+  t.y0 = clamp_idx((int)y0f, H);
+  t.y1 = clamp_idx((int)add(y0f, 1.0f), H);
+  return t;
+}
+
+// ops/sampling.py bilinear_2d's taps: floor and floor + 1 on both axes,
+// each truncated and clamped, no zero weight
+__device__ __forceinline__ Taps edge_taps(float u, float v, int H, int W) {
+  Taps t;
+  const float cx = sub(mul(u, (float)W), 0.5f);
+  const float cy = sub(mul(v, (float)H), 0.5f);
+  const float x0f = floorf(cx), y0f = floorf(cy);
+  t.fx = sub(cx, x0f);
+  t.fy = sub(cy, y0f);
+  t.x0 = clamp_idx((int)x0f, W);
+  t.x1 = clamp_idx((int)add(x0f, 1.0f), W);
+  t.y0 = clamp_idx((int)y0f, H);
+  t.y1 = clamp_idx((int)add(y0f, 1.0f), H);
+  return t;
+}
+
+// the blend of the four taps of a channel, rounding each to bf16 first
+// where bf16 is set (the twins' colors.to(torch.bfloat16))
+__device__ __forceinline__ float blend_taps(const float* m, const long long* s,
+                                            int i, const Taps& t, int c,
+                                            bool bf16) {
+  float r00 = texel(m, s, i, t.y0, t.x0, c);
+  float r01 = texel(m, s, i, t.y0, t.x1, c);
+  float r10 = texel(m, s, i, t.y1, t.x0, c);
+  float r11 = texel(m, s, i, t.y1, t.x1, c);
+  if (bf16) {
+    r00 = bf16_round(r00);
+    r01 = bf16_round(r01);
+    r10 = bf16_round(r10);
+    r11 = bf16_round(r11);
+  }
+  return lerp(lerp(r00, r01, t.fx), lerp(r10, r11, t.fx), t.fy);
+}
+
+__device__ __forceinline__ float blend_plane(const float* m,
+                                             const long long* s, int i,
+                                             const Taps& t) {
+  const float r00 = plane(m, s, i, t.y0, t.x0);
+  const float r01 = plane(m, s, i, t.y0, t.x1);
+  const float r10 = plane(m, s, i, t.y1, t.x0);
+  const float r11 = plane(m, s, i, t.y1, t.x1);
+  return lerp(lerp(r00, r01, t.fx), lerp(r10, r11, t.fx), t.fy);
+}
+
+// calib/sensors.py ProjectionModels._projective for sensor i: A (2, 3),
+// b (2,), c (3,)
+__device__ __forceinline__ void projective(const float* A, const float* b,
+                                           const float* c, float px, float py,
+                                           float pz, float& u, float& v) {
+  float den = add(add(add(mul(px, __ldg(c)), mul(py, __ldg(c + 1))),
+                      mul(pz, __ldg(c + 2))),
+                  1.0f);
+  den = fabsf(den) < 1e-8f ? 1e-8f : den;
+  const float inv = dvd(1.0f, den);
+  u = mul(add(add(add(mul(px, __ldg(A)), mul(py, __ldg(A + 1))),
+                  mul(pz, __ldg(A + 2))),
+              __ldg(b)),
+          inv);
+  v = mul(add(add(add(mul(px, __ldg(A + 3)), mul(py, __ldg(A + 4))),
+                  mul(pz, __ldg(A + 5))),
+              __ldg(b + 1)),
+          inv);
+}
+
+// trilinear_3d of sensor i's (D, H, W, C) volume at (x, y, z), channels
+// [0, nc)
+__device__ void volume_trilinear(const float* vol, int i, int D, int H,
+                                 int W, int C, int nc, float x, float y,
+                                 float z, float* out) {
+  const float cx = sub(mul(x, (float)W), 0.5f);
+  const float cy = sub(mul(y, (float)H), 0.5f);
+  const float cz = sub(mul(z, (float)D), 0.5f);
+  const float x0f = floorf(cx), y0f = floorf(cy), z0f = floorf(cz);
+  const float fx = sub(cx, x0f), fy = sub(cy, y0f), fz = sub(cz, z0f);
+  const int x0 = clamp_idx((int)x0f, W);
+  const int x1 = clamp_idx((int)add(x0f, 1.0f), W);
+  const int y0 = clamp_idx((int)y0f, H);
+  const int y1 = clamp_idx((int)add(y0f, 1.0f), H);
+  const int z0 = clamp_idx((int)z0f, D);
+  const int z1 = clamp_idx((int)add(z0f, 1.0f), D);
+  const float* base = vol + (long long)i * D * H * W * C;
+  for (int ch = 0; ch < nc; ++ch) {
+    auto g = [&](int zz, int yy, int xx) {
+      return __ldg(base + (((long long)zz * H + yy) * W + xx) * C + ch);
+    };
+    const float c00 = lerp(g(z0, y0, x0), g(z0, y0, x1), fx);
+    const float c01 = lerp(g(z0, y1, x0), g(z0, y1, x1), fx);
+    const float c10 = lerp(g(z1, y0, x0), g(z1, y0, x1), fx);
+    const float c11 = lerp(g(z1, y1, x0), g(z1, y1, x1), fx);
+    out[ch] = lerp(lerp(c00, c01, fy), lerp(c10, c11, fy), fz);
+  }
+}
+
+// nearest_3d of sensor i's (D, H, W, C) volume, channels [0, nc)
+__device__ void volume_nearest(const float* vol, int i, int D, int H, int W,
+                               int C, int nc, float x, float y, float z,
+                               float* out) {
+  const int xi = clamp_idx((int)mul(x, (float)W), W);
+  const int yi = clamp_idx((int)mul(y, (float)H), H);
+  const int zi = clamp_idx((int)mul(z, (float)D), D);
+  const float* p =
+      vol + ((((long long)i * D + zi) * H + yi) * W + xi) * C;
+  for (int ch = 0; ch < nc; ++ch) out[ch] = __ldg(p + ch);
+}
+
+struct Acc {
+  float c[3], w, c2[3], w2;
+};
+
+// one sensor's term of the blendColors fold (ops/raymarch.py
+// _blend_accumulate; the analytic blend's loop body)
+__device__ __forceinline__ void accumulate(Acc& acc, const float col[3],
+                                           float depth, float qual, float z,
+                                           bool in_frustum, float limit) {
+  const float dist = fabsf(sub(depth, z));
+  const float q = (dist < limit && in_frustum) ? qual : 0.0f;
+  const float w = dvd(q, add(dist, 0.01f));
+  const float w2 = in_frustum ? dvd(1.0f, clamp_min(dist, 1e-20f)) : 0.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    acc.c[j] = add(acc.c[j], mul(col[j], w));
+    acc.c2[j] = add(acc.c2[j], mul(col[j], w2));
+  }
+  acc.w = add(acc.w, w);
+  acc.w2 = add(acc.w2, w2);
+}
+
+// blend_colors_analytic at the world position -> rgba
+__device__ void blend_analytic(const ShadeParams& a, const float wp[3],
+                               float rgba[4]) {
+  Acc acc = {{0.0f, 0.0f, 0.0f}, 0.0f, {0.0f, 0.0f, 0.0f}, 0.0f};
+  for (int i = 0; i < a.N; ++i) {
+    float u, v, cu, cv;
+    projective(a.uv_num + i * 6, a.uv_off + i * 2, a.uv_den + i * 3, wp[0],
+               wp[1], wp[2], u, v);
+    const float* g = a.d_lin + i * 3;
+    const float d =
+        add(add(add(mul(wp[0], __ldg(g)), mul(wp[1], __ldg(g + 1))),
+                mul(wp[2], __ldg(g + 2))),
+            __ldg(a.d_off + i));
+    const bool in_frustum = u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                            v <= 1.0f && d >= 0.0f && d <= 1.0f;
+    projective(a.cuv_num + i * 6, a.cuv_off + i * 2, a.cuv_den + i * 3,
+               wp[0], wp[1], wp[2], cu, cv);
+    const Taps ct = quad_taps(cu, cv, a.Hc, a.Wc);
+    float col[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      col[j] = blend_taps(a.color, a.color_stride, i, ct, j, true);
+    float depth, qual;
+    if (a.dq_bilinear) {
+      const Taps dt = quad_taps(u, v, a.Hd, a.Wd);
+      depth = blend_plane(a.depth, a.depth_stride, i, dt);
+      qual = blend_plane(a.quality, a.quality_stride, i, dt);
+    } else {
+      const int xi = clamp_idx((int)mul(u, (float)a.Wd), a.Wd);
+      const int yi = clamp_idx((int)mul(v, (float)a.Hd), a.Hd);
+      depth = plane(a.depth, a.depth_stride, i, yi, xi);
+      qual = plane(a.quality, a.quality_stride, i, yi, xi);
+    }
+    accumulate(acc, col, depth, qual, d, in_frustum, a.limit);
+  }
+  const bool primary = acc.w > 0.0f;
+  const float inv_w = dvd(1.0f, clamp_min(acc.w, 1e-20f));
+  const float inv_w2 = dvd(1.0f, clamp_min(acc.w2, 1e-20f));
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    rgba[j] = primary ? mul(acc.c[j], inv_w) : mul(acc.c2[j], inv_w2);
+  rgba[3] = primary ? 1.0f : -1.0f;
+}
+
+// blend_colors (trilinear lookups, f32 bilinear fetches) or
+// blend_colors_fast (nearest lookups, pair_bilinear fetches of the bf16
+// colour map and the f32 depth and quality) at the volume position
+__device__ void blend_volume(const ShadeParams& a, const float hp[3],
+                             float rgba[4]) {
+  const bool fast = a.blend == BLEND_VOLUME_FAST;
+  Acc acc = {{0.0f, 0.0f, 0.0f}, 0.0f, {0.0f, 0.0f, 0.0f}, 0.0f};
+  for (int i = 0; i < a.N; ++i) {
+    float look[4], pc[2];
+    if (fast) {
+      volume_nearest(a.cv_inv, i, a.iD, a.iH, a.iW, 4, 4, hp[0], hp[1],
+                     hp[2], look);
+      volume_nearest(a.cv_uv, i, a.uD, a.uH, a.uW, 2, 2, look[0], look[1],
+                     look[2], pc);
+    } else {
+      volume_trilinear(a.cv_inv, i, a.iD, a.iH, a.iW, 4, 4, hp[0], hp[1],
+                       hp[2], look);
+      volume_trilinear(a.cv_uv, i, a.uD, a.uH, a.uW, 2, 2, look[0], look[1],
+                       look[2], pc);
+    }
+    const bool in_frustum = look[3] > 0.99f;
+    const Taps ct = fast ? pair_taps(pc[0], pc[1], a.Hc, a.Wc)
+                         : edge_taps(pc[0], pc[1], a.Hc, a.Wc);
+    float col[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      col[j] = blend_taps(a.color, a.color_stride, i, ct, j, fast);
+    const Taps dt = fast ? pair_taps(look[0], look[1], a.Hd, a.Wd)
+                         : edge_taps(look[0], look[1], a.Hd, a.Wd);
+    const float depth = blend_plane(a.depth, a.depth_stride, i, dt);
+    const float qual = blend_plane(a.quality, a.quality_stride, i, dt);
+    accumulate(acc, col, depth, qual, look[2], in_frustum, a.limit);
+  }
+  // ops/raymarch.py _blend_finalize: divisions
+  const bool primary = acc.w > 0.0f;
+  const float w = clamp_min(acc.w, 1e-20f);
+  const float w2 = clamp_min(acc.w2, 1e-20f);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    rgba[j] = primary ? dvd(acc.c[j], w) : dvd(acc.c2[j], w2);
+  rgba[3] = primary ? 1.0f : -1.0f;
+}
+
+// ops/raymarch.py shade, mode 1 (Blinn-Phong, shading.glsl:32-69)
+__device__ void blinn_phong(const float vp[3], const float vn[3],
+                            float rgb[3]) {
+  const float light[3] = {1.5f, 1.0f, 1.0f};
+  const float ld[3] = {1.0f, 0.9f, 0.7f};
+  float tl[3], tv[3], hv[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    tl[k] = sub(light[k], vp[k]);
+    tv[k] = -vp[k];
+  }
+  unit3(tl[0], tl[1], tl[2]);
+  const float la = sum3(mul(vn[0], tl[0]), mul(vn[1], tl[1]),
+                        mul(vn[2], tl[2]));
+  const bool lit = la > 0.0f;
+  float diff = clamp_min(la, 0.0f);
+  unit3(tv[0], tv[1], tv[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) hv[k] = add(tl[k], tv[k]);
+  unit3(hv[0], hv[1], hv[2]);
+  float spec = powf(clamp_min(sum3(mul(hv[0], vn[0]), mul(hv[1], vn[1]),
+                                   mul(hv[2], vn[2])),
+                              1e-20f),
+                    20.0f);
+  const float b = sub(1.0f, la);
+  const float s = mul(b, b);
+  spec = mul(spec, sub(1.0f, mul(s, mul(s, s))));
+  diff = lit ? diff : 0.0f;
+  spec = lit ? spec : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    // ld * 0.2 * 0.5 + ld * 0.5 * diff + ls * 0.5 * spec, ls = 1
+    const float ambient = mul(mul(ld[k], 0.2f), 0.5f);
+    rgb[k] = add(add(ambient, mul(mul(ld[k], 0.5f), diff)),
+                 mul(mul(1.0f, 0.5f), spec));
+  }
+}
+
+// v @ rot as the card's f32 product computes it: a fused multiply-add
+// chain over v's components in order
+__device__ __forceinline__ void to_view(const float* rot, const float v[3],
+                                        float out[3]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    out[j] = __fmaf_rn(v[2], __ldg(rot + 6 + j),
+                       __fmaf_rn(v[1], __ldg(rot + 3 + j),
+                                 mul(v[0], __ldg(rot + j))));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) shade_kernel(const ShadeParams a) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= a.n) return;
+  const long long r = i;
+  float* rgba_out = a.rgba + r * 4;
+  if (!__ldg(a.hit + r * a.hit_stride)) {
+    rgba_out[0] = rgba_out[1] = rgba_out[2] = rgba_out[3] = 0.0f;
+    a.depth_win[r] = 1.0f;
+    return;
+  }
+  float hp[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) hp[k] = __ldg(a.pos[k] + r * a.pos_stride[k]);
+  const T* table = (const T*)a.table;
+  float grad[3];
+  if (a.normal == NORMAL_OCT)
+    normal_oct(a, table, hp[0], hp[1], hp[2], grad);
+  else
+    normal_table(a, table, hp[0], hp[1], hp[2], grad);
+  // volume gradient -> world normal (the box scale's inverse transpose)
+  float nw[3], wp[3], d[3], vp[3], vn[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) nw[k] = dvd(grad[k], a.bbox_size[k]);
+  unit3(nw[0], nw[1], nw[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    wp[k] = add(mul(hp[k], a.bbox_size[k]), __ldg(a.bbox_min + k));
+    d[k] = sub(wp[k], __ldg(a.eye + k));
+  }
+  to_view(a.rot, d, vp);
+  to_view(a.rot, nw, vn);
+  float rgba[4];
+  if (a.blend == BLEND_ANALYTIC)
+    blend_analytic(a, wp, rgba);
+  else
+    blend_volume(a, hp, rgba);
+  if (a.shade_mode == 1) {
+    blinn_phong(vp, vn, rgba);
+  } else if (a.shade_mode == 2) {
+    rgba[0] = nw[0];
+    rgba[1] = nw[1];
+    rgba[2] = nw[2];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) rgba_out[k] = rgba[k];
+  // the window depth: (1 / near - 1 / z) / (1 / near - 1 / far), clamped
+  const float z = clamp_min(-vp[2], a.near_clamp);
+  const float inv_z = mul(dvd(1.0f, z), 1.0f);
+  a.depth_win[r] = clamp_to(mul(sub(a.inv_near, inv_z), a.depth_scale), 0.0f,
+                            1.0f);
+}
+
+int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
+
+}  // namespace
+
+extern "C" {
+
+// One refine launch over the hits of a RefineParams block. The table is
+// bf16 (table_f32 = 0) or f32; the oct table needs brick-aligned D, H, W.
+// n = 0 launches nothing.
+int rgbd_hit_refine(const void* params, void* stream) {
+  const RefineParams* p = (const RefineParams*)params;
+  if (p->n < 0) return (int)cudaErrorInvalidValue;
+  if (p->n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (p->table_f32)
+    refine_kernel<float><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+  else
+    refine_kernel<unsigned short><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+// One shade launch over the hits of a ShadeParams block; the table as for
+// rgbd_hit_refine.
+int rgbd_hit_shade(const void* params, void* stream) {
+  const ShadeParams* p = (const ShadeParams*)params;
+  if (p->n < 0 || p->normal < NORMAL_OCT || p->normal > NORMAL_TRILINEAR ||
+      p->blend < BLEND_ANALYTIC || p->blend > BLEND_VOLUME_FAST ||
+      p->shade_mode < 0 || p->shade_mode > 2)
+    return (int)cudaErrorInvalidValue;
+  if (p->n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (p->table_f32)
+    shade_kernel<float><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+  else
+    shade_kernel<unsigned short><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+// sizeof the parameter blocks: the wrapper checks its ctypes mirrors
+int rgbd_hit_params_sizes(int* out) {
+  out[0] = (int)sizeof(RefineParams);
+  out[1] = (int)sizeof(ShadeParams);
+  return 0;
+}
+
+}  // extern "C"

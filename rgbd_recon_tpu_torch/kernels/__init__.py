@@ -5,7 +5,7 @@ outputs with ``torch.empty``, launches on PyTorch's current stream, raises
 on a nonzero CUDA error code, and adds one to its entry of :data:`LAUNCHES`.
 The plain PyTorch twins and the CPU/CUDA dispatch live in ``ops/`` beside
 their callers (``ops/stencil13.py``, ``ops/bake.py``, ``ops/gather.py``,
-``ops/raymarch.py``, ``ops/holefill.py``).
+``ops/raymarch.py``, ``ops/holefill.py``, ``ops/hits.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ LAUNCHES = {
     "march": 0,
     "holefill_pull": 0,
     "holefill_push": 0,
+    "hit_refine": 0,
+    "hit_shade": 0,
     # the gather-rate probe's kernels (bench/gather_probe.py; on no path)
     "gather_flat": 0,
     "gather_flat_smem": 0,

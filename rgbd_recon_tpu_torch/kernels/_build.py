@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("stencil13.cu", "bake.cu",
                                               "gather.cu", "march.cu",
-                                              "holefill.cu"))
+                                              "holefill.cu", "hits.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
@@ -58,6 +58,10 @@ _SIGNATURES = {
     "rgbd_holefill_pull": (_LL, _LL, _LL, _P, _I, _I, _P),
     "rgbd_holefill_push": (_LL, _LL, _LL, _LL, ctypes.POINTER(_I), _I, _P,
                            _P, _P, _I, _I, _P),
+    # a pointer to the parameter block (kernels/hits.py) and the stream
+    "rgbd_hit_refine": (_P, _P),
+    "rgbd_hit_shade": (_P, _P),
+    "rgbd_hit_params_sizes": (ctypes.POINTER(_I),),
 }
 
 _lock = threading.Lock()

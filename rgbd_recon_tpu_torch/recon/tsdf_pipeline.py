@@ -33,6 +33,7 @@ from ..core.grid import BoundingBox, BrickGrid, VolumeGrid
 from ..device import DEFAULT, resolve
 from ..ops import bake as bake_ops
 from ..ops import bricks as brick_ops
+from ..ops import hits as hit_ops
 from ..ops import holefill, raymarch, tsdf
 from ..ops.preprocess import SensorMaps, preprocess_frames
 from ..ops.sampling import trilinear_3d
@@ -118,10 +119,6 @@ def _first_ids(mask: torch.Tensor, capacity: int) -> torch.Tensor:
     pad = torch.full((capacity - ids.shape[0],), n, dtype=ids.dtype,
                      device=mask.device)
     return torch.cat([ids, pad])
-
-
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((x * x).sum(dim=-1, keepdim=True))
 
 
 def _scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
@@ -522,84 +519,6 @@ class TsdfPipeline:
         return out
 
     # -- render ---------------------------------------------------------------
-
-    def _shade_hits(self, hit, hit_pos, maps: SensorMaps, proj_models,
-                    cam: CamParams, near: float, far: float, limit: float,
-                    table: torch.Tensor, clamp_floor=None,
-                    oct: Optional[raymarch.OctVolume] = None):
-        """Normal, color blend and shading at the hit positions. The normal
-        is the analytic oct-cell gradient with an oct table, else the
-        central-difference gradient of the march table; the blend goes
-        through the projection models when they fit, else through the
-        calibration volumes. ``shade_mode=3`` colors by camera influence,
-        unshaded; ``blend_mode`` "normal_deviation" / "best_two" weight the
-        sensors by normal agreement. The profiling switches of
-        ``debug_skip``: "grad" a fixed +z normal, "blend" a constant 0.7
-        rgba, unshaded. Returns (rgba, window depth)."""
-        c = self.config
-        calib = self.calib
-        dbg = set(filter(None, c.debug_skip.split(",")))
-        bbox_sz = torch.from_numpy(np.asarray(self.bbox.size, np.float32)
-                                   ).to(hit_pos.device)
-        if "grad" in dbg:
-            grad = torch.zeros_like(hit_pos)
-            grad[..., 2] = 1.0
-        elif oct is not None:
-            g, gvalid = oct.gradient_p(hit_pos[..., 0], hit_pos[..., 1],
-                                       hit_pos[..., 2])
-            grad = -g / torch.clamp_min(_norm(g), 1e-20)
-            # hits anchored off the oct table shade with a toward-camera
-            # normal
-            w = cam.eye_w - (hit_pos * bbox_sz + calib.bbox_min)
-            fb = w * bbox_sz
-            fb = fb / torch.clamp_min(_norm(fb), 1e-20)
-            grad = torch.where(gvalid[..., None], grad, fb)
-        else:
-            grad = raymarch.gradient_normal(table, hit_pos, limit,
-                                            mode=c.march_mode,
-                                            clamp_floor=clamp_floor)
-        n_world = grad / bbox_sz
-        n_world = n_world / torch.clamp_min(_norm(n_world), 1e-20)
-
-        world_pos = hit_pos * bbox_sz + calib.bbox_min
-        view_pos = (world_pos - cam.eye_w) @ cam.rot
-        view_normal = n_world @ cam.rot
-        if "blend" in dbg:
-            rgba = torch.full(hit_pos.shape[:-1] + (4,), 0.7,
-                              dtype=torch.float32, device=hit_pos.device)
-        elif c.shade_mode == 3:
-            rgb = raymarch.blend_cameras(hit_pos, calib.cv_xyz_inv,
-                                         maps.depth[..., 0], maps.quality,
-                                         limit)
-            rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-        else:
-            if c.blend_mode in ("normal_deviation", "best_two"):
-                rgba = raymarch.blend_colors_normal(
-                    hit_pos, world_pos, grad, proj_models, calib.cv_xyz_inv,
-                    calib.cv_uv, maps.color, maps.depth[..., 0], maps.normal,
-                    limit, variant=("best_two" if c.blend_mode == "best_two"
-                                    else "deviation"))
-            elif proj_models is not None:
-                rgba = raymarch.blend_colors_analytic(
-                    world_pos, proj_models, maps.color, maps.depth[..., 0],
-                    maps.quality, limit, dq_taps=c.integrate_taps)
-            else:
-                blend = (raymarch.blend_colors_fast
-                         if c.march_mode == "nearest"
-                         else raymarch.blend_colors)
-                rgba = blend(hit_pos, calib.cv_xyz_inv, calib.cv_uv,
-                             maps.color, maps.depth[..., 0], maps.quality,
-                             limit)
-            shaded = raymarch.shade(view_pos, view_normal, rgba[..., :3],
-                                    shade_mode=c.shade_mode,
-                                    world_normal=n_world)
-            rgba = torch.cat([shaded, rgba[..., 3:]], dim=-1)
-        view_z = torch.clamp_min(-view_pos[..., 2], near * 1.001)
-        depth_win = torch.clamp(
-            (1.0 / near - 1.0 / view_z) / (1.0 / near - 1.0 / far), 0.0, 1.0)
-        depth_win = torch.where(hit, depth_win, 1.0)
-        rgba = torch.where(hit[..., None], rgba, 0.0)
-        return rgba, depth_win
 
     def make_render_fn(self, camera: raymarch.ViewCamera,
                        max_steps: Optional[int] = None):
@@ -1014,18 +933,17 @@ class TsdfPipeline:
                                      for i in range(3)], dim=-1)
             if "refine" in c.debug_skip:
                 hp = hit_pos_h        # the march's own secant position
-            elif oct is not None:
-                hp = raymarch.oct_refine_crossing(
-                    oct, pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h,
-                    hit_pos_h, limit, widen_steps=c.refine_widen_steps,
-                    widen_samples=c.refine_widen_samples)
             else:
-                hp = raymarch.refine_crossing(
-                    table, pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h,
-                    hit_pos_h, clamp_floor=floor)
-            rgba_h, depth_h = self._shade_hits(
-                live_h, hp, maps, proj_models, cam, near, far, limit, table,
-                clamp_floor=floor, oct=oct)
+                # the oct table's refine where there is one, else the
+                # march table's
+                hp = hit_ops.refine_hits(
+                    pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h, hit_pos_h,
+                    limit, oct=oct, table=table, clamp_floor=floor,
+                    widen_steps=c.refine_widen_steps,
+                    widen_samples=c.refine_widen_samples)
+            rgba_h, depth_h = hit_ops.shade_hits(
+                c, self.calib, self.bbox, live_h, hp, maps, proj_models, cam,
+                near, far, limit, table, floor, oct)
 
             hit6 = torch.cat([rgba_h, depth_h[:, None],
                               live_h.to(torch.float32)[:, None]], dim=-1)
@@ -1058,8 +976,8 @@ class TsdfPipeline:
             parity/debug path): every pixel's ray from its unit-cube entry,
             a trilinear secant refine after a nearest march, shading. Of
             the ``debug_skip`` switches, "grad" and "blend" act here (in
-            _shade_hits) and "refine" does not, as in the JAX package's
-            render_dense, whose march always refines."""
+            ops/hits.py shade_hits) and "refine" does not, as in the JAX
+            package's render_dense, whose march always refines."""
             dn = ray_dirs(cam, H, W)
             pos0, length = raymarch.unit_cube_entry(cam.eye_vol, dn, limit)
             hit, num, st = raymarch.march(
@@ -1068,11 +986,11 @@ class TsdfPipeline:
             hit_pos = torch.stack([pos0[i] + dn[i] * st[5] for i in range(3)],
                                   dim=-1)
             if c.march_mode == "nearest":
-                hit_pos = raymarch.refine_crossing(
-                    volume, pos0, dn, st[3], st[4], hit, hit_pos)
-            rgba, depth_win = self._shade_hits(
-                hit, hit_pos, maps, proj_models, cam, near, far, limit,
-                volume)
+                hit_pos = hit_ops.refine_hits(pos0, dn, st[3], st[4], hit,
+                                              hit_pos, limit, table=volume)
+            rgba, depth_win = hit_ops.shade_hits(
+                c, self.calib, self.bbox, hit, hit_pos, maps, proj_models,
+                cam, near, far, limit, volume, None, None)
             overflow = torch.zeros(4, dtype=torch.int32, device=dev)
             return finalize(rgba, depth_win, hit, num, overflow)
 

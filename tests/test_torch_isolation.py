@@ -92,6 +92,7 @@ def test_module_list_is_whole():
                  "viz/navigation.py", "viz/preview.py", "viz/jpeg.py",
                  "kernels/gather.py", "ops/gather.py", "kernels/raymarch.py",
                  "kernels/holefill.py", "ops/holefill.py",
+                 "kernels/hits.py", "ops/hits.py",
                  "bench/gather_probe.py", "bench/headline.py",
                  "bench/oracle.py", "bench/trace.py", "bench/ablation.py",
                  "bench/render_sweep.py", "bench/stages.py"):

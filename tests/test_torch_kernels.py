@@ -21,6 +21,7 @@ import torch
 from rgbd_recon_tpu_torch import kernels
 from rgbd_recon_tpu_torch.ops import bake, holefill, stencil13
 
+from hit_cases import record_hits
 from holefill_cases import fill_planes
 
 torch.set_num_threads(2)
@@ -139,10 +140,10 @@ def test_cpu_pipeline_launches_no_kernel():
     assert all(n == 0 for n in kernels.launch_counts().values())
 
 
-def _small_scene(device, brick_size=0.4, **cfg):
-    """A 2-sensor sphere scene fused on ``device``: (pipeline, volume,
-    maps, counts, camera, frames), 10 cm voxels in 40 cm bricks (4 voxels)
-    unless ``brick_size`` says otherwise."""
+def _small_scene(device, brick_size=0.4, num_sensors=2, **cfg):
+    """A sphere scene of ``num_sensors`` sensors fused on ``device``:
+    (pipeline, volume, maps, counts, camera, frames), 10 cm voxels in 40 cm
+    bricks (4 voxels) unless ``brick_size`` says otherwise."""
     from rgbd_recon_tpu_torch.calib.sensors import build_synthetic_calibration
     from rgbd_recon_tpu_torch.core import BoundingBox, PipelineConfig
     from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
@@ -154,7 +155,7 @@ def _small_scene(device, brick_size=0.4, **cfg):
     )
 
     bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
-    rig = default_test_rig(num_sensors=2, bbox=bbox)
+    rig = default_test_rig(num_sensors=num_sensors, bbox=bbox)
     calib = build_synthetic_calibration(rig, bbox, cv_res=(16, 24, 16),
                                         inv_res=(20, 22, 20), device=device)
     frames = render_rig_frames(
@@ -307,6 +308,97 @@ def test_cuda_wrappers_reject_cpu_tensors():
         quality13_cuda(torch.zeros(1, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         surface_occ_cuda(torch.zeros(8, 8, 8), 4)
+
+
+def test_hit_wrappers_reject_cpu_tensors():
+    """The hit kernels' wrappers take CUDA tensors only, and the normals,
+    blends and shade modes the kernel draws: no fallback, nothing
+    counted."""
+    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
+
+    kernels.reset_launch_counts()
+    x = torch.zeros(4)
+    hit_pos = torch.zeros(4, 3)
+    hit = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        refine_cuda((x, x, x), (x, x, x), x, x, hit, hit_pos, 0.01,
+                    table=torch.zeros(4, 4, 4))
+    with pytest.raises(ValueError, match="float32"):
+        refine_cuda((x, x, x), (x, x, x), x, x, hit, hit_pos.double(), 0.01,
+                    table=torch.zeros(4, 4, 4))
+    plane = torch.zeros(1, 4, 4)
+    shade = dict(hit=hit, hit_pos=hit_pos, color=torch.zeros(1, 4, 4, 3),
+                 depth=plane, quality=plane, normal="nearest",
+                 blend="volume_fast", shade_mode=0, limit=0.01, eye=x[:3],
+                 rot=torch.eye(3), bbox_min=x[:3], bbox_size=(1.0, 1.0, 1.0),
+                 near=0.1, far=20.0, table=torch.zeros(4, 4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        shade_cuda(**shade)
+    with pytest.raises(ValueError, match="shade modes 0-2"):
+        shade_cuda(**dict(shade, shade_mode=3))
+    with pytest.raises(ValueError, match="blend"):
+        shade_cuda(**dict(shade, blend="normal_deviation"))
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+@pytest.mark.parametrize("config", [{}, dict(oct_hit_table=False),
+                                    dict(shade_mode=3)])
+def test_hits_cpu_dispatch_takes_the_twins(config):
+    """On CPU tensors refine_hits and shade_hits are their plain twins,
+    bit for bit, and count no launch."""
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume, maps, counts, cam = _hit_scene("cpu", **config)
+    render = pipe.make_renderer(cam)
+    calls = record_hits(lambda: render(volume, maps, counts))
+    kernels.reset_launch_counts()
+    args, kwargs = calls["refine"]
+    assert torch.equal(hits.refine_hits(*args, **kwargs),
+                       hits.refine_hits_plain(*args, **kwargs))
+    args, kwargs = calls["shade"]
+    for g, w in zip(hits.shade_hits(*args, **kwargs),
+                    hits.shade_hits_plain(*args, **kwargs)):
+        assert torch.equal(g, w)
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+# the normal, blend and dq taps the shade kernel draws under each of
+# HIT_CONFIGS (ops/hits.py shade_kernel_args)
+SHADE_CODES = {
+    "fast": ("oct", "analytic", False),
+    "oct_no_widen": ("oct", "analytic", False),
+    "no_oct": ("nearest", "analytic", False),
+    "parity": ("trilinear", "volume", True),
+    "no_proj": ("oct", "volume_fast", False),
+    "bilinear_taps": ("oct", "analytic", True),
+    "f32_tables": ("oct", "analytic", False),
+    "dense_nearest": ("nearest", "analytic", False),
+    "dense_trilinear": ("trilinear", "volume", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHADE_CODES))
+def test_shade_kernel_args_resolve_the_config(name):
+    """ops.hits.shade_kernel_args turns each config's shade call into the
+    kernel's normal, blend and dq taps, its table (the oct table or the
+    march table, never both) and the maps' planes, read in place."""
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume, maps, counts, cam = _hit_scene("cpu", **HIT_CONFIGS[name])
+    render = pipe.make_renderer(cam)
+    calls = record_hits(lambda: render(volume, maps, counts))
+    args, kwargs = calls["shade"]
+    k = hits.shade_kernel_args(*args, **kwargs)
+    assert (k["normal"], k["blend"], k["dq_bilinear"]) == SHADE_CODES[name]
+    assert (k["oct"] is None) == (k["table"] is not None)
+    assert (k["oct"] is None) == (k["normal"] != "oct")
+    assert (k["proj_models"] is None) == (k["blend"] != "analytic")
+    m = args[5]
+    assert k["color"] is m.color and k["quality"] is m.quality
+    assert k["depth"].data_ptr() == m.depth.data_ptr()
+    assert k["depth"].shape == m.depth.shape[:-1]
+    assert k["shade_mode"] == args[0].shade_mode
+    assert k["bbox_size"] == tuple(pipe.bbox.size)
 
 
 def test_gauss_space_table_matches_plain():
@@ -1289,3 +1381,217 @@ def test_holefill_pull_refusal_raises(cuda):
     with pytest.raises(RuntimeError, match="holefill_pull"):
         pull_cuda(tall)
     assert kernels.launch_counts()["holefill_pull"] == 0
+
+
+# ---- the hit path ----------------------------------------------------------
+
+# the configurations of the hit kernels' variants (the small scene's
+# defaults are the fast config): the oct table with and without the widened
+# bracket; the bf16 sentinel table's refine with the clamp floor and its
+# nearest gradient; the parity path (f32 raw table, trilinear gradient,
+# the calibration volumes' trilinear blend); the volumes' nearest blend;
+# bilinear depth/quality taps; f32 oct and sentinel tables; the full-screen
+# render without blocks, nearest (refine on the raw volume) and trilinear
+# (no refine)
+HIT_CONFIGS = {
+    "fast": {},
+    "oct_no_widen": dict(refine_widen_steps=0.0),
+    "no_oct": dict(oct_hit_table=False),
+    "parity": dict(march_mode="trilinear", march_empty_skip=False,
+                   integrate_taps="bilinear", projection_model=False,
+                   march_dtype="float32"),
+    "no_proj": dict(projection_model=False),
+    "bilinear_taps": dict(integrate_taps="bilinear"),
+    "f32_tables": dict(march_dtype="float32"),
+    "dense_nearest": dict(ray_compaction=0.0),
+    "dense_trilinear": dict(march_mode="trilinear", march_empty_skip=False,
+                            projection_model=False, march_dtype="float32",
+                            bricking=False, skip_space=False),
+}
+# the configurations that refine and shade with the oct table
+OCT_CONFIGS = ("fast", "oct_no_widen", "no_proj", "bilinear_taps",
+               "f32_tables")
+# the window depth and shade modes 1 and 2 against the twin; the refined
+# positions and mode 0's rgba are bit-equal
+HIT_ATOL = 1e-6
+
+
+def _hit_scene(device, num_sensors=2, **cfg):
+    """_small_scene in 20 cm bricks (2 voxels: a brick-aligned volume, so
+    the fast config builds its oct table) and a 160x120 camera: (pipeline,
+    volume, maps, counts, camera)."""
+    from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
+
+    pipe, volume, maps, counts, _, _ = _small_scene(
+        device, brick_size=0.2, num_sensors=num_sensors, **cfg)
+    return pipe, volume, maps, counts, ViewCamera(width=160, height=120)
+
+
+def _shade_args(args, **config):
+    """shade_hits' arguments with ``config`` changed."""
+    return (dataclasses.replace(args[0], **config),) + tuple(args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensors", [1, 4])
+@pytest.mark.parametrize("name", sorted(HIT_CONFIGS))
+def test_hit_kernels_match_plain(cuda, name, sensors):
+    """The refine kernel bit for bit against refine_hits_plain, and the
+    shade kernel against shade_hits_plain in shade modes 0, 1 and 2 (mode
+    0's rgba bit for bit, the window depth and modes 1-2 within HIT_ATOL,
+    alpha bit for bit), on the hits one render records: compacted hit sets
+    padded past the live hits, bf16 and f32 tables, 1 and 4 sensors."""
+    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume, maps, counts, cam = _hit_scene(
+        cuda, num_sensors=sensors, **HIT_CONFIGS[name])
+    render = pipe.make_renderer(cam)
+    calls = record_hits(lambda: render(volume, maps, counts))
+    assert ("refine" in calls) == (name != "dense_trilinear")
+    assert (calls["shade"][0][13] is not None) == (name in OCT_CONFIGS)
+    if "refine" in calls:
+        args, kwargs = calls["refine"]
+        live = args[4]
+        assert 0 < int(live.sum())
+        if not name.startswith("dense"):
+            assert not bool(live.all())          # padded hit ids
+        kernels.reset_launch_counts()
+        got = refine_cuda(*args, **kwargs)
+        assert kernels.launch_counts()["hit_refine"] == 1
+        want = hits.refine_hits_plain(*args, **kwargs)
+        assert _bits_equal(got, want)
+        if name != "parity":
+            # the refine moved hits (the trilinear march's own secant is
+            # already the refine's on the raw volume)
+            assert bool((want != args[5]).any())
+    args, kwargs = calls["shade"]
+    for mode in (0, 1, 2):
+        margs = _shade_args(args, shade_mode=mode)
+        kernels.reset_launch_counts()
+        rgba, depth = shade_cuda(**hits.shade_kernel_args(*margs, **kwargs))
+        assert kernels.launch_counts()["hit_shade"] == 1
+        want_rgba, want_depth = hits.shade_hits_plain(*margs, **kwargs)
+        assert rgba.shape == want_rgba.shape
+        assert depth.shape == want_depth.shape
+        torch.testing.assert_close(depth, want_depth, rtol=0, atol=HIT_ATOL)
+        assert _bits_equal(rgba[..., 3], want_rgba[..., 3])
+        if mode == 0:
+            assert _bits_equal(rgba, want_rgba)
+        else:
+            torch.testing.assert_close(rgba, want_rgba, rtol=0,
+                                       atol=HIT_ATOL)
+    if sensors == 4:
+        assert bool((want_rgba[..., 3] == 1.0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+def test_hit_kernels_trilinear_taps_with_floor(cuda, table_dtype):
+    """The variant no path takes: the central-difference normal with
+    trilinear taps clamped by the floor, on the no-oct fast path's
+    sentinel table (bf16, and its values in f32); the refine of the same
+    table with and without the floor."""
+    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume, maps, counts, cam = _hit_scene(cuda, oct_hit_table=False)
+    render = pipe.make_renderer(cam)
+    calls = record_hits(lambda: render(volume, maps, counts))
+    args, kwargs = calls["refine"]
+    kwargs = dict(kwargs, table=kwargs["table"].to(table_dtype))
+    assert kwargs["clamp_floor"] is not None
+    for floor in (kwargs["clamp_floor"], None):
+        kw = dict(kwargs, clamp_floor=floor)
+        assert _bits_equal(refine_cuda(*args, **kw),
+                           hits.refine_hits_plain(*args, **kw))
+    args, kwargs = calls["shade"]
+    args = _shade_args(args, march_mode="trilinear")
+    args = args[:11] + (args[11].to(table_dtype),) + args[12:]
+    rgba, depth = shade_cuda(**hits.shade_kernel_args(*args, **kwargs))
+    want_rgba, want_depth = hits.shade_hits_plain(*args, **kwargs)
+    assert _bits_equal(rgba, want_rgba)
+    torch.testing.assert_close(depth, want_depth, rtol=0, atol=HIT_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,refines", [("fast", 1), ("parity", 1),
+                                          ("dense_nearest", 1),
+                                          ("dense_trilinear", 0)])
+def test_render_hits_on_the_kernels(cuda, monkeypatch, name, refines):
+    """A render on the card refines with one hit_refine launch (none where
+    the full-screen march is trilinear) and shades with one hit_shade
+    launch, and equals the same render on the twins: hit mask, step
+    counts and overflow bit for bit, window depth within HIT_ATOL; the
+    colour without the fill within HIT_ATOL."""
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume, maps, counts, cam = _hit_scene(
+        cuda, colorfill=False, **HIT_CONFIGS[name])
+    render = pipe.make_renderer(cam)
+    kernels.reset_launch_counts()
+    out = render(volume, maps, counts)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert (launched["hit_refine"], launched["hit_shade"]) == (refines, 1)
+    monkeypatch.setattr(hits, "refine_hits", hits.refine_hits_plain)
+    monkeypatch.setattr(hits, "shade_hits", hits.shade_hits_plain)
+    kernels.reset_launch_counts()
+    want = render(volume, maps, counts)
+    launched = kernels.launch_counts()
+    assert (launched["hit_refine"], launched["hit_shade"]) == (0, 0)
+    for field in ("hit", "num_samples", "overflow"):
+        assert torch.equal(getattr(out, field), getattr(want, field)), field
+    torch.testing.assert_close(out.depth, want.depth, rtol=0, atol=HIT_ATOL)
+    torch.testing.assert_close(out.color, want.color, rtol=0, atol=HIT_ATOL)
+    assert int(out.hit.sum()) > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [dict(shade_mode=3),
+                                    dict(blend_mode="best_two"),
+                                    dict(debug_skip="grad")])
+def test_render_shades_off_the_kernel_by_config(cuda, config):
+    """The configurations the shade kernel does not draw (the
+    camera-influence view, the normal-weighted blends, the profiling
+    switches) shade on the twin on the card: no hit_shade launch; the
+    refine still launches."""
+    pipe, volume, maps, counts, cam, _ = _small_scene(cuda, **config)
+    kernels.reset_launch_counts()
+    out = pipe.make_renderer(cam)(volume, maps, counts)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert (launched["hit_refine"], launched["hit_shade"]) == (1, 0)
+    assert bool(torch.isfinite(out.color).all())
+
+
+@pytest.mark.cuda
+def test_hit_wrappers_raise_on_the_card(cuda):
+    """On CUDA tensors of a wrong type or layout the wrappers raise and
+    launch nothing: there is no fallback."""
+    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume, maps, counts, cam = _hit_scene(cuda)
+    render = pipe.make_renderer(cam)
+    calls = record_hits(lambda: render(volume, maps, counts))
+    kernels.reset_launch_counts()
+    args, kwargs = calls["refine"]
+    with pytest.raises(ValueError, match="float32"):
+        refine_cuda(*args[:5], args[5].double(), *args[6:], **kwargs)
+    with pytest.raises(ValueError, match="bool"):
+        refine_cuda(*args[:4], args[4].to(torch.uint8), *args[5:], **kwargs)
+    bad = dataclasses.replace(kwargs["oct"],
+                              rows=kwargs["oct"].rows.to(torch.float16))
+    with pytest.raises(ValueError, match="table"):
+        refine_cuda(*args, **dict(kwargs, oct=bad))
+    args, kwargs = calls["shade"]
+    shade = hits.shade_kernel_args(*args, **kwargs)
+    with pytest.raises(ValueError, match="colour map"):
+        shade_cuda(**dict(shade, color=shade["color"].double()))
+    with pytest.raises(ValueError, match="shade modes 0-2"):
+        shade_cuda(**dict(shade, shade_mode=3))
+    with pytest.raises(ValueError, match="oct table"):
+        shade_cuda(**dict(shade, oct=None))
+    assert kernels.launch_counts()["hit_refine"] == 0
+    assert kernels.launch_counts()["hit_shade"] == 0
