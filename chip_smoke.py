@@ -177,10 +177,16 @@ PARITY_CELL = "tsdf_parity_4kinect2_1cm"
 SIDE_RMSE_LIMIT_MM = 7.0
 # BENCH_r05.json: the JAX reference-exact path's RMSE, measured on a TPU
 TPU_EXACT_RMSE_MM = 5.55
+# the preprocess chain's kernels (csrc/preprocess.cu): each once a fuse on
+# the pixel models; the four that read the calibration launch 0 times
+# through the calibration volumes (ops/preprocess.py kernel_passes)
+PRE_LAUNCHES = {"morph": 1, "lab": 1, "depth2": 1, "boundary": 1,
+                "normals": 1, "quality": 1}
+PRE_CALIB = ("lab", "depth2", "normals", "quality")
 # the kernels of the paths (the gather probe's four run on none)
 PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
                 "march", "holefill_pull", "holefill_push", "hit_refine",
-                "hit_shade")
+                "hit_shade", *PRE_LAUNCHES)
 # the fill kernels' launches a render with colorfill: a pull a level past
 # LOD 0 (a 1280x720 frame at 7 LODs: 6) and one push
 FILL_LAUNCHES = {"holefill_pull": 6, "holefill_push": 1}
@@ -252,7 +258,7 @@ SIDE_LAUNCHES = {
     "parity_dense": (("bilateral13", "quality13"), ("sentinel_bake",)),
     "fast_f32": (("bilateral13", "quality13", "surface_occ",
                   "sentinel_bake"), ()),
-}  # and the hit kernels as PATH_HITS says
+}  # the hit kernels as PATH_HITS says, the preprocess's as PRE_LAUNCHES
 # device time of a kernel (phase 3): torch.profiler over DEVICE_ITERS calls,
 # each after a write of FLUSH_BYTES that evicts the 50 MB L2 and a read of
 # FLUSH_BYTES more that evicts the written lines (cold: the call's inputs
@@ -280,27 +286,33 @@ SPLAT_DILATE_PX = 3
 SPLAT_OUTSIDE_FRAC = 0.01
 SPLAT_MEDIAN_MM = 10.0
 # phase 8: frames per app run, and the kernel launches each run must make
-# (a mode's per-frame counts: all seven kernels in mode 1, the march four
-# times and the fill's pull six, twice the bake, march and fill kernels
-# with stereo, the two stencils elsewhere, bilateral13 a second time in
-# the MVT render)
+# (a mode's per-frame counts: every path kernel in mode 1, the march four
+# times and the fill's pull six, twice the bake, march, fill and hit
+# kernels with stereo, the two stencils and the preprocess's six
+# elsewhere, bilateral13 a second time in the MVT render, whose depth
+# pass reads the calibration volumes and runs its twin)
 APP_FRAMES = 2
 MODE1_FRAME = dict(bilateral13=1, quality13=1, surface_occ=1,
                    sentinel_bake=1, march=PATH_MARCHES["fast"],
-                   **FILL_LAUNCHES, **HIT_LAUNCHES)
+                   **FILL_LAUNCHES, **HIT_LAUNCHES, **PRE_LAUNCHES)
 APP_RUNS = {
-    "app_mode0": (["--mode", "0"], dict(bilateral13=1, quality13=1)),
+    "app_mode0": (["--mode", "0"], dict(bilateral13=1, quality13=1,
+                                        **PRE_LAUNCHES)),
     "app_mode1": (["--mode", "1"], MODE1_FRAME),
-    "app_mode2": (["--mode", "2"], dict(bilateral13=1, quality13=1)),
-    "app_mode3": (["--mode", "3"], dict(bilateral13=2, quality13=1)),
-    "app_mode4": (["--mode", "4"], dict(bilateral13=1, quality13=1)),
+    "app_mode2": (["--mode", "2"], dict(bilateral13=1, quality13=1,
+                                        **PRE_LAUNCHES)),
+    "app_mode3": (["--mode", "3"], dict(bilateral13=2, quality13=1,
+                                        **PRE_LAUNCHES)),
+    "app_mode4": (["--mode", "4"], dict(bilateral13=1, quality13=1,
+                                        **PRE_LAUNCHES)),
     "app_mode1_anaglyph": (["--mode", "1", "--stereo", "anaglyph"],
                            dict(bilateral13=1, quality13=1, surface_occ=2,
                                 sentinel_bake=2,
                                 march=2 * PATH_MARCHES["fast"],
                                 **{k: 2 * n for k, n in
                                    {**FILL_LAUNCHES,
-                                    **HIT_LAUNCHES}.items()})),
+                                    **HIT_LAUNCHES}.items()},
+                                **PRE_LAUNCHES)),
     "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
                          MODE1_FRAME),
 }
@@ -311,7 +323,8 @@ REFINE_LINE = "refined sensor poses; translation corrections (mm):"
 # path's render bit-equal. 16 rounds past 10-voxel bricks take the plain
 # bake (the JAX package's rule: its Pallas bake only when brick_vox >=
 # skip_fine_rounds); 20 rounds in 20-voxel bricks take the kernel, in two
-# dilation launches
+# dilation launches; without the pixel models the preprocess reads the
+# calibration volumes, and its four calibration passes run their twins
 VARIANTS = {
     "shade_mode_3": dict(shade_mode=3),
     "best_two": dict(blend_mode="best_two"),
@@ -323,6 +336,7 @@ VARIANTS = {
     "skip_fine_rounds_16": dict(skip_fine_rounds=16),
     "bricks_20_rounds_20": dict(brick_size=0.2, skip_fine_rounds=20),
     "colorfill_off": dict(colorfill=False),
+    "pixel_ray_model_off": dict(pixel_ray_model=False),
 }
 COLOR_VARIANTS = ("shade_mode_3", "best_two", "normal_deviation",
                   "colorfill_off")
@@ -1151,6 +1165,171 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
     return out
 
 
+# the preprocess kernels (csrc/preprocess.cu): the public pass that
+# launches each, its twin, and the JAX function it ports; f32 operations a
+# pixel counted by hand from the source (a pow, a square root or a
+# division as one): morph's two 3x3 passes, the LAB's texcoords, 4 pair
+# taps of 3 channels and conversion, the bilateral finish and cull, the
+# boundary's 25 taps, the normal's 4 neighbours and cross product, the
+# quality's powers and view angle
+PRE_PASSES = {
+    "morph": ("morph_dilate", "rgbd_recon_tpu/ops/preprocess.py:85", 134),
+    "lab": ("lab_colors", "rgbd_recon_tpu/ops/preprocess.py:453", 125),
+    "depth2": ("bilateral_lab", "rgbd_recon_tpu/ops/preprocess.py:124", 22),
+    "boundary": ("boundary", "rgbd_recon_tpu/ops/preprocess.py:244", 385),
+    "normals": ("normals", "rgbd_recon_tpu/ops/preprocess.py:300", 65),
+    "quality": ("quality", "rgbd_recon_tpu/ops/preprocess.py:364", 40),
+}
+
+
+def _record_preprocess(torch, fuse):
+    """{pass: (args, kwargs)} as one fuse called each public pass of
+    ops/preprocess.py (preprocess_frames calls them through the module, so
+    the recorder sees every call)."""
+    from rgbd_recon_tpu_torch.ops import preprocess as pre
+
+    calls = {}
+    fns = {name: getattr(pre, name) for name, _, _ in PRE_PASSES.values()}
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            calls[name] = (args, kwargs)
+            return fns[name](*args, **kwargs)
+        return record
+
+    for name in fns:
+        setattr(pre, name, recorder(name))
+    try:
+        fuse()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in fns.items():
+            setattr(pre, name, fn)
+    return calls
+
+
+def _pre_reads(kname, a):
+    """The tensors the preprocess kernel ``kname`` reads, from its pass's
+    arguments by name ``a`` (the LAB's colour frame apart: its taps are
+    counted by ``_lab_taps_bytes``)."""
+    pm = a.get("pixel_models")
+    if kname == "morph":
+        return [a["depth"]]
+    if kname == "lab":
+        return [a["depth_norm"], pm.uv_p, pm.uv_q, pm.uv_r]
+    if kname == "depth2":
+        return [a["depth_m"], a["bbox_min"], a["bbox_max"],
+                a["depth_limits"], pm.ray_a, pm.ray_b,
+                *(a["bf_sums"] or ())]
+    if kname == "boundary":
+        return [a["depth2"], a["lab"]]
+    if kname == "normals":
+        return [a["depth2"], pm.ray_a, pm.ray_b]
+    return [a["depth2"], a["normal"], a["camera_positions"], *a["q_sums"],
+            pm.ray_a, pm.ray_b]
+
+
+def _lab_taps_bytes(torch, colors, depth_norm, models, z_far):
+    """Bytes of the colour texels the LAB pass reads (the 4 pair taps of
+    each pixel, each texel once): the colour frame it needs, not the whole
+    frame."""
+    N, Hc, Wc, _ = colors.shape
+    z = torch.where((depth_norm <= 0.0) | (depth_norm >= 1.0), z_far,
+                    depth_norm)[..., None]
+    uv = (models.uv_p + models.uv_q * z) / (1.0 + models.uv_r * z)
+    x0f = torch.floor(uv[..., 0] * Wc - 0.5)
+    y0f = torch.floor(uv[..., 1] * Hc - 0.5)
+    x0 = torch.clamp(x0f.to(torch.int32), 0, Wc - 1).long()
+    x1 = torch.clamp_max(x0 + 1, Wc - 1)
+    y0 = torch.clamp(y0f.to(torch.int32), 0, Hc - 1).long()
+    y1 = torch.clamp((y0f + 1.0).to(torch.int32), 0, Hc - 1).long()
+    base = torch.arange(N, device=colors.device).view(N, 1, 1) * Hc
+    taps = torch.cat([((base + y) * Wc + x).reshape(-1)
+                      for y in (y0, y1) for x in (x0, x1)])
+    return int(torch.unique(taps).numel()) * 3 * 4
+
+
+def _phase3_preprocess(torch, pipe, frames, card, flush):
+    """The preprocess kernels on the arguments one fast fuse hands to each
+    public pass of ops/preprocess.py: each bit-equal to its twin, timed
+    (events around the public pass, device time with a cold and a warm L2,
+    the twin) beside its bound by bytes (its inputs read once, its outputs
+    written once; the LAB's colour frame by the texels its taps read).
+    Returns the six kernels' JSON rows."""
+    import inspect
+
+    from rgbd_recon_tpu_torch import kernels
+    from rgbd_recon_tpu_torch.bench.trace import event_ms
+    from rgbd_recon_tpu_torch.ops import preprocess as pre
+
+    calls = _record_preprocess(torch, lambda: pipe.fuse(frames))
+    names = {fn for fn, _, _ in PRE_PASSES.values()}
+    if set(calls) != names:
+        raise AssertionError(f"the fast fuse called {set(calls)}, expected "
+                             f"{names}")
+    rows = []
+    for kname, (fname, replaces, ops_px) in PRE_PASSES.items():
+        args, kwargs = calls[fname]
+        public = getattr(pre, fname)
+        plain = getattr(pre, fname + "_plain")
+
+        def kern():
+            return public(*args, **kwargs)
+
+        def twin():
+            return plain(*args, **kwargs)
+
+        kernels.reset_launch_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        if launched != {kname: 1}:
+            raise AssertionError(f"{fname}: launched {launched}, expected "
+                                 f"{{'{kname}': 1}}")
+        want = twin()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        equal = all(_bits_equal(torch, g, w) for g, w in zip(got, want))
+        err = _max_abs_err(torch, got, want)
+        print(f"{kname}: max|kernel - plain| = {err!r}, bit-equal {equal} "
+              f"(bound 0)", flush=True)
+        if not equal:
+            raise AssertionError(f"{kname} differs from {fname}_plain: max "
+                                 f"abs error {err}")
+        a = inspect.signature(plain).bind(*args, **kwargs).arguments
+        reads = _pre_reads(kname, a)
+        taps_bytes = None
+        if kname == "lab":
+            taps_bytes = _lab_taps_bytes(torch, a["colors"], a["depth_norm"],
+                                         a["pixel_models"],
+                                         pre._far_plane(a["cv_uv"]))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*reads, *got)) + (taps_bytes or 0)
+        pixels = got[0].shape[0] * got[0].shape[1] * got[0].shape[2]
+        ops = ops_px * pixels
+        ms = event_ms(kern, iters=20, warmup=3)
+        plain_ms = event_ms(twin, iters=5, warmup=1)
+        device_ms, device_ms_warm, split, n = _device_ms(torch, kern, flush)
+        bound_ms, bound_by = _bound_of(nbytes, ops)
+        row = dict(name=kname, route="cuda",
+                   source="rgbd_recon_tpu_torch/csrc/preprocess.cu",
+                   replaces=replaces, max_abs_err=err, bit_equal=equal,
+                   ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+                   device_ms_warm=device_ms_warm, device_split=split,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   ops=ops, share_of_bound=bound_ms / device_ms,
+                   library_ms=None, trace_retakes=n)
+        if taps_bytes is not None:
+            row["color_taps_bytes"] = taps_bytes
+        rows.append(row)
+        print(f"{kname}: {ms!r} ms (events; plain {plain_ms!r}, library "
+              f"none), device {device_ms!r} ms cold L2, {device_ms_warm!r} "
+              f"warm {split}, bound {bound_ms!r} ms by {bound_by} ({nbytes} "
+              f"B, {ops} ops), {bound_ms / device_ms:.1%} of it, on {card}",
+              flush=True)
+    return rows
+
+
 def _check_render(torch, label, volume, out, counts, cfg, camera):
     """Finite volume, color and depth, a 1280x720 image, and the oracle's
     gate (bench/oracle.py) that the path ``label`` holds (``_gate``): the
@@ -1438,6 +1617,10 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
         # profiling switches shade on the twin; "refine" skips the refine
         want["hit_shade"] = int(hits.kernel_shades(vpipe.config))
         want["hit_refine"] = int("refine" not in vpipe.config.debug_skip)
+        # through the calibration volumes the four calibration passes run
+        # their twins (ops/preprocess.py kernel_passes)
+        if vpipe._get_pixel_models(frames.depths.shape[1:3]) is None:
+            want.update({k: 0 for k in PRE_CALIB})
         if launched != want:
             raise AssertionError(f"{name}: launched {launched}, expected "
                                  f"{want}")
@@ -1766,7 +1949,7 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         n = mesh.size
         want = dict(bilateral13=1, quality13=1, surface_occ=n,
                     sentinel_bake=n, march=PATH_MARCHES["fast"],
-                    **FILL_LAUNCHES, **PATH_HITS["fast"])
+                    **FILL_LAUNCHES, **PATH_HITS["fast"], **PRE_LAUNCHES)
         vol_sh, out_sh = counted(label, lambda: step(frames), want)
         same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
                 for f in ("hit", "depth")}
@@ -1809,7 +1992,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
                                   sentinel_bake=0,
                                   march=PATH_MARCHES["parity_dense"],
                                   **FILL_LAUNCHES,
-                                  **PATH_HITS["parity_dense"]))
+                                  **PATH_HITS["parity_dense"],
+                                  **PRE_LAUNCHES))
     same = {f: torch.equal(getattr(out_sh, f), getattr(dout, f))
             for f in ("hit", "depth")}
     same["volume"] = torch.equal(vol_sh.gather(), dvol)
@@ -1833,7 +2017,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         run(frames)                                   # warm-up
         smaps, scounts = counted(f"preprocess{n}", lambda: run(frames),
                                  dict(bilateral13=n, quality13=n,
-                                      surface_occ=0, sentinel_bake=0))
+                                      surface_occ=0, sentinel_bake=0,
+                                      **{k: n for k in PRE_LAUNCHES}))
         errs = {k: float((getattr(smaps, k) - getattr(ref_maps, k)).abs()
                          .max()) for k in MAP_TOLS}
         print(f"preprocess{n}: counts equal "
@@ -2577,6 +2762,7 @@ def main(argv=None) -> int:
                                  card, flush))
     results += _phase3_fill(torch, pipe, camera, frames, card, flush)
     results += _phase3_hits(torch, pipe, camera, frames, card, flush)
+    results += _phase3_preprocess(torch, pipe, frames, card, flush)
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 13. the gather-rate probe, right after phase 3: torch.profiler
@@ -2598,12 +2784,15 @@ def main(argv=None) -> int:
     extra = [k for k, n in launched.items() if n and k not in PATH_KERNELS]
     fills = {k: launched[k] for k in FILL_LAUNCHES}
     hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
+    pre_launches = {k: launched[k] for k in PRE_LAUNCHES}
     if (missing or extra or launched["march"] != PATH_MARCHES["fast"]
-            or fills != FILL_LAUNCHES or hit_launches != PATH_HITS["fast"]):
+            or fills != FILL_LAUNCHES or hit_launches != PATH_HITS["fast"]
+            or pre_launches != PRE_LAUNCHES):
         raise AssertionError(f"fast path did not launch {missing}, "
                              f"launched {extra}, march "
                              f"{launched['march']} times, fill {fills}, "
-                             f"hits {hit_launches}")
+                             f"hits {hit_launches}, preprocess "
+                             f"{pre_launches}")
     by_path = {"fast": launched}
     # each path's oracle reading (phase 16's ablation must repeat them)
     oracle_by_path = {"fast": _check_render(torch, "fast", volume, out,
@@ -2647,13 +2836,16 @@ def main(argv=None) -> int:
                  if n > 0 and (k in must_not or k not in PATH_KERNELS)]
         fills = {k: launched[k] for k in FILL_LAUNCHES}
         hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
+        pre_launches = {k: launched[k] for k in PRE_LAUNCHES}
         if (missing or extra or launched["march"] != PATH_MARCHES[name]
                 or fills != FILL_LAUNCHES
-                or hit_launches != PATH_HITS[name]):
+                or hit_launches != PATH_HITS[name]
+                or pre_launches != PRE_LAUNCHES):
             raise AssertionError(f"{name} path: not launched {missing}, "
                                  f"launched {extra}, march "
                                  f"{launched['march']} times, fill {fills}, "
-                                 f"hits {hit_launches}")
+                                 f"hits {hit_launches}, preprocess "
+                                 f"{pre_launches}")
         by_path[name] = launched
         oracle_by_path[name] = _check_render(torch, name, volume, out,
                                              counts, ppipe.config, camera)

@@ -5,7 +5,8 @@ outputs with ``torch.empty``, launches on PyTorch's current stream, raises
 on a nonzero CUDA error code, and adds one to its entry of :data:`LAUNCHES`.
 The plain PyTorch twins and the CPU/CUDA dispatch live in ``ops/`` beside
 their callers (``ops/stencil13.py``, ``ops/bake.py``, ``ops/gather.py``,
-``ops/raymarch.py``, ``ops/holefill.py``, ``ops/hits.py``).
+``ops/raymarch.py``, ``ops/holefill.py``, ``ops/hits.py``,
+``ops/preprocess.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,13 @@ LAUNCHES = {
     "holefill_push": 0,
     "hit_refine": 0,
     "hit_shade": 0,
+    # the preprocess chain's passes (csrc/preprocess.cu)
+    "morph": 0,
+    "lab": 0,
+    "depth2": 0,
+    "boundary": 0,
+    "normals": 0,
+    "quality": 0,
     # the gather-rate probe's kernels (bench/gather_probe.py; on no path)
     "gather_flat": 0,
     "gather_flat_smem": 0,

@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("stencil13.cu", "bake.cu",
                                               "gather.cu", "march.cu",
-                                              "holefill.cu", "hits.cu"))
+                                              "holefill.cu", "hits.cu",
+                                              "preprocess.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
@@ -62,6 +63,13 @@ _SIGNATURES = {
     "rgbd_hit_refine": (_P, _P),
     "rgbd_hit_shade": (_P, _P),
     "rgbd_hit_params_sizes": (ctypes.POINTER(_I),),
+    "rgbd_pre_morph": (_P, _P, _I, _I, _I, _P),
+    "rgbd_pre_lab": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
+    "rgbd_pre_depth2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P),
+    "rgbd_pre_boundary": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rgbd_pre_normals": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rgbd_pre_quality": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -8,6 +8,14 @@ edge-padded maps at integer offsets, which is what GL texture lookups with
 clamp-to-edge resolve to. The two 13x13 window reductions come from
 ``ops/stencil13.py`` (CUDA kernels on the card, plain folds on the CPU).
 
+Each pass (``morph_dilate``, ``lab_colors``, ``bilateral_lab``,
+``boundary``, ``normals``, ``quality``) runs its plain PyTorch twin
+(``<name>_plain``) on CPU tensors and one launch of its kernel in
+csrc/preprocess.cu on CUDA tensors. The four passes that read the
+calibration (``lab_colors``, ``bilateral_lab``, ``normals``, ``quality``)
+launch only with the pixel models (:func:`kernel_passes`); through the
+calibration volumes they run the twin on the card too.
+
 Maps: raw/morphed depth in meters (0 = invalid); processed depth (N, H, W, 2)
 holds normalized depth (0 culled, -1 invalidated) and a reliability flag.
 """
@@ -59,6 +67,12 @@ def _pow6(x):
     return x2 * (x2 * x2)
 
 
+def _far_plane(cv_uv) -> float:
+    """Where the pixel models evaluate a degenerate depth: the last texel
+    plane of the calibration volumes (their GL clamp of z = 1.0)."""
+    return 1.0 - 0.5 / cv_uv.shape[1] if cv_uv is not None else 1.0
+
+
 def _texcoords(H: int, W: int, device):
     u = (np.arange(W, dtype=np.float32) + 0.5) / W
     v = (np.arange(H, dtype=np.float32) + 0.5) / H
@@ -66,7 +80,7 @@ def _texcoords(H: int, W: int, device):
     return (torch.from_numpy(uu).to(device), torch.from_numpy(vv).to(device))
 
 
-def morph_dilate(depth: torch.Tensor) -> torch.Tensor:
+def morph_dilate_plain(depth: torch.Tensor) -> torch.Tensor:
     """Morphological dilate (pre_morph.fs:73-112): invalid pixels take the
     two-pass outlier-rejecting mean of their valid 3x3 neighbors."""
     N, H, W = depth.shape
@@ -96,8 +110,8 @@ def morph_dilate(depth: torch.Tensor) -> torch.Tensor:
     return torch.where(valid_c, depth, filled)
 
 
-def bilateral_lab(depth_m, bbox_min, bbox_max, depth_limits, bf_sums,
-                  pixel_models=None, cv_xyz=None) -> torch.Tensor:
+def bilateral_lab_plain(depth_m, bbox_min, bbox_max, depth_limits, bf_sums,
+                        pixel_models=None, cv_xyz=None) -> torch.Tensor:
     """Bilateral depth filter + bbox cull (pre_depth.fs). The LAB half of the
     pass is :func:`lab_colors`. ``bf_sums`` are the 13x13 window sums of
     stencil13.bilateral13, or None for the unfiltered depth (filter off).
@@ -136,7 +150,8 @@ def bilateral_lab(depth_m, bbox_min, bbox_max, depth_limits, bf_sums,
     return torch.where(in_box[..., None], depth2, 0.0)   # :143-146
 
 
-def boundary(depth2: torch.Tensor, lab: torch.Tensor, refine: bool = True):
+def boundary_plain(depth2: torch.Tensor, lab: torch.Tensor,
+                   refine: bool = True):
     """Silhouette extraction + color-consistent boundary refinement
     (pre_boundary.fs:86-118). Returns (depth2', silhouette). Flags in
     channel 1: 0 valid interior, 1 refine-kept boundary, 0.1 invalidated
@@ -174,8 +189,8 @@ def boundary(depth2: torch.Tensor, lab: torch.Tensor, refine: bool = True):
     return torch.stack([new_d, new_q], dim=-1), sil
 
 
-def normals(depth2: torch.Tensor, pixel_models=None,
-            cv_xyz=None) -> torch.Tensor:
+def normals_plain(depth2: torch.Tensor, pixel_models=None,
+                  cv_xyz=None) -> torch.Tensor:
     """Central-difference world-space normals (pre_normal.fs:26-56); invalid
     neighbors are replaced by the center depth."""
     N, H, W = depth2.shape[:3]
@@ -221,8 +236,8 @@ def normals(depth2: torch.Tensor, pixel_models=None,
                         for c in (nx, ny, nz)], dim=-1)
 
 
-def quality(depth2, normal, camera_positions, q_sums, pixel_models=None,
-            cv_xyz=None) -> torch.Tensor:
+def quality_plain(depth2, normal, camera_positions, q_sums,
+                  pixel_models=None, cv_xyz=None) -> torch.Tensor:
     """Per-pixel fusion weight (pre_quality.fs:65-119):
     (1 - border_frac)^6 * (mean range weight)^6 / (depth * 6.5)
     * cos(view angle)^2; ``q_sums`` are the 13x13 census sums of
@@ -251,14 +266,14 @@ def quality(depth2, normal, camera_positions, q_sums, pixel_models=None,
     return torch.where(inside, q, 0.0)
 
 
-def lab_colors(colors, depth_norm, pixel_models=None, cv_uv=None):
+def lab_colors_plain(colors, depth_norm, pixel_models=None, cv_uv=None):
     """(N, H, W, 3) LAB color at depth resolution (pre_depth.fs:129-137).
     The color table is rounded to bf16 as the reference's fast path stores
     it. Degenerate-depth pixels sample at the far plane: z = 1.0 through the
     volumes, the last texel plane through the analytic models."""
     N, H, W = depth_norm.shape
     col = colors.to(torch.bfloat16)
-    z_far = 1.0 - 0.5 / cv_uv.shape[1] if cv_uv is not None else 1.0
+    z_far = _far_plane(cv_uv)
     z = torch.where((depth_norm <= 0.0) | (depth_norm >= 1.0),
                     1.0 if pixel_models is None else z_far, depth_norm)
     if pixel_models is not None:
@@ -277,12 +292,91 @@ def lab_colors(colors, depth_norm, pixel_models=None, cv_uv=None):
     ])
 
 
+def kernel_passes(x: torch.Tensor, pixel_models) -> bool:
+    """Whether a pass that reads the calibration launches its kernel: on a
+    CUDA tensor with the pixel models. The calibration volumes' trilinear
+    lookups (``pixel_models=None``) have no kernel: their twins run."""
+    return x.device.type != "cpu" and pixel_models is not None
+
+
+def morph_dilate(depth: torch.Tensor) -> torch.Tensor:
+    """:func:`morph_dilate_plain`: one launch of csrc/preprocess.cu on a
+    CUDA tensor, the twin on a CPU tensor."""
+    if depth.device.type == "cpu":
+        return morph_dilate_plain(depth)
+    from ..kernels.preprocess import morph_cuda
+
+    return morph_cuda(depth.contiguous())
+
+
+def lab_colors(colors, depth_norm, pixel_models=None, cv_uv=None):
+    """:func:`lab_colors_plain`: one launch of csrc/preprocess.cu on CUDA
+    tensors with the pixel models (:func:`kernel_passes`), else the twin."""
+    if not kernel_passes(depth_norm, pixel_models):
+        return lab_colors_plain(colors, depth_norm, pixel_models, cv_uv)
+    from ..kernels.preprocess import lab_cuda
+
+    return lab_cuda(colors.contiguous(), depth_norm.contiguous(),
+                    pixel_models, _far_plane(cv_uv))
+
+
+def bilateral_lab(depth_m, bbox_min, bbox_max, depth_limits, bf_sums,
+                  pixel_models=None, cv_xyz=None) -> torch.Tensor:
+    """:func:`bilateral_lab_plain`: one launch of csrc/preprocess.cu on CUDA
+    tensors with the pixel models (:func:`kernel_passes`), else the twin."""
+    if not kernel_passes(depth_m, pixel_models):
+        return bilateral_lab_plain(depth_m, bbox_min, bbox_max, depth_limits,
+                                   bf_sums, pixel_models, cv_xyz)
+    from ..kernels.preprocess import depth2_cuda
+
+    dev = depth_m.device
+    box = [torch.as_tensor(b, dtype=torch.float32, device=dev).contiguous()
+           for b in (bbox_min, bbox_max)]
+    return depth2_cuda(depth_m.contiguous(), *box, depth_limits.contiguous(),
+                       bf_sums, pixel_models)
+
+
+def boundary(depth2: torch.Tensor, lab: torch.Tensor, refine: bool = True):
+    """:func:`boundary_plain`: one launch of csrc/preprocess.cu on CUDA
+    tensors, the twin on CPU tensors."""
+    if depth2.device.type == "cpu":
+        return boundary_plain(depth2, lab, refine)
+    from ..kernels.preprocess import boundary_cuda
+
+    return boundary_cuda(depth2.contiguous(), lab.contiguous(), refine)
+
+
+def normals(depth2: torch.Tensor, pixel_models=None,
+            cv_xyz=None) -> torch.Tensor:
+    """:func:`normals_plain`: one launch of csrc/preprocess.cu on CUDA
+    tensors with the pixel models (:func:`kernel_passes`), else the twin."""
+    if not kernel_passes(depth2, pixel_models):
+        return normals_plain(depth2, pixel_models, cv_xyz)
+    from ..kernels.preprocess import normals_cuda
+
+    return normals_cuda(depth2.contiguous(), pixel_models)
+
+
+def quality(depth2, normal, camera_positions, q_sums, pixel_models=None,
+            cv_xyz=None) -> torch.Tensor:
+    """:func:`quality_plain`: one launch of csrc/preprocess.cu on CUDA
+    tensors with the pixel models (:func:`kernel_passes`), else the twin."""
+    if not kernel_passes(depth2, pixel_models):
+        return quality_plain(depth2, normal, camera_positions, q_sums,
+                             pixel_models, cv_xyz)
+    from ..kernels.preprocess import quality_cuda
+
+    return quality_cuda(depth2.contiguous(), normal.contiguous(),
+                        camera_positions.contiguous(), q_sums, pixel_models)
+
+
 def preprocess_frames(depths, colors, cv_xyz, cv_uv, bbox_min, bbox_max,
                       depth_limits, camera_positions, morph: bool = True,
                       bilateral: bool = True, refine: bool = True,
                       pixel_models=None) -> SensorMaps:
     """The whole chain over all sensors. The two 13x13 window reductions
-    run through stencil13 (CUDA kernels for CUDA tensors)."""
+    run through stencil13 and every other pass through its dispatcher
+    (CUDA kernels for CUDA tensors)."""
     N = depths.shape[0]
     d_m = morph_dilate(depths) if morph else depths
     d_m = d_m.contiguous()

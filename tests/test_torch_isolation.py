@@ -93,6 +93,7 @@ def test_module_list_is_whole():
                  "kernels/gather.py", "ops/gather.py", "kernels/raymarch.py",
                  "kernels/holefill.py", "ops/holefill.py",
                  "kernels/hits.py", "ops/hits.py",
+                 "kernels/preprocess.py", "ops/preprocess.py",
                  "bench/gather_probe.py", "bench/headline.py",
                  "bench/oracle.py", "bench/trace.py", "bench/ablation.py",
                  "bench/render_sweep.py", "bench/stages.py"):

@@ -23,6 +23,7 @@ from rgbd_recon_tpu_torch.ops import bake, holefill, stencil13
 
 from hit_cases import record_hits
 from holefill_cases import fill_planes
+import preprocess_cases
 
 torch.set_num_threads(2)
 
@@ -445,6 +446,8 @@ def test_port_imports_without_jax():
         "import rgbd_recon_tpu_torch.kernels.bake\n"
         "import rgbd_recon_tpu_torch.kernels.gather\n"
         "import rgbd_recon_tpu_torch.kernels.holefill\n"
+        "import rgbd_recon_tpu_torch.kernels.hits\n"
+        "import rgbd_recon_tpu_torch.kernels.preprocess\n"
         "import rgbd_recon_tpu_torch.profile_slice\n"
         "import rgbd_recon_tpu_torch.bench.headline\n"
     )
@@ -1595,3 +1598,193 @@ def test_hit_wrappers_raise_on_the_card(cuda):
         shade_cuda(**dict(shade, oct=None))
     assert kernels.launch_counts()["hit_refine"] == 0
     assert kernels.launch_counts()["hit_shade"] == 0
+
+
+# ---- the preprocess chain's passes (csrc/preprocess.cu) -------------------
+
+# (sensors, depth h, w, colour h, w): the reference's 4 x 424 x 512 with a
+# 1080 x 1280 colour frame, and odd sides that leave partial blocks
+PRE_SHAPES = [(4, 424, 512, 1080, 1280), (3, 37, 53, 41, 67)]
+
+
+def _pre_inputs(shape, device, seed=31):
+    """One seeded frame of tests/preprocess_cases.py on ``device``: ({name:
+    tensor}, PixelModels, a cv_uv stand-in of CV_DEPTH planes)."""
+    from rgbd_recon_tpu_torch.calib.sensors import PixelModels
+
+    n = shape[0]
+    inp = {k: torch.from_numpy(v).to(device)
+           for k, v in preprocess_cases.chain_inputs(seed, *shape).items()}
+    pm = PixelModels(**{k: inp[k]
+                        for k in preprocess_cases.PIXEL_MODEL_FIELDS})
+    cv_uv = torch.zeros((n, preprocess_cases.CV_DEPTH, 2, 2, 2),
+                        device=device)
+    return inp, pm, cv_uv
+
+
+def _pre_case(fn, shape, seed, device):
+    return torch.from_numpy(fn(seed, *shape[:3])).to(device)
+
+
+def _all_bits_equal(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(_bits_equal(g, w)
+                                         for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [True, False])
+@pytest.mark.parametrize("shape", PRE_SHAPES)
+def test_preprocess_kernels_match_twins(cuda, shape, on):
+    """Each kernel of csrc/preprocess.cu bit-equal to its twin on the card,
+    on the chain's own maps and on the seeded edge cases (degenerate
+    depths, culled and invalidated pixels, confidences at 0.65), with the
+    bilateral filter and the refine on and off."""
+    from rgbd_recon_tpu_torch.kernels import preprocess as kp
+    from rgbd_recon_tpu_torch.ops import preprocess as pre
+
+    inp, pm, cv_uv = _pre_inputs(shape, cuda)
+    n = shape[0]
+    limits, box = inp["depth_limits"], (inp["bbox_min"], inp["bbox_max"])
+    kernels.reset_launch_counts()
+    d_m = pre.morph_dilate_plain(inp["depths"])
+    assert _bits_equal(kp.morph_cuda(inp["depths"]), d_m)
+    near, far = limits[:, 0].view(n, 1, 1), limits[:, 1].view(n, 1, 1)
+    z_far = 1.0 - 0.5 / preprocess_cases.CV_DEPTH
+    # colours of 8-bit values (x 255) reach both pow branches of the LAB
+    # conversion, which [0, 1] colours (divided by 255 again) never do
+    for dn, colors in (
+            ((d_m - near) / (far - near), inp["colors"]),
+            (_pre_case(preprocess_cases.depth_norm_cases, shape, 1, cuda),
+             inp["colors"]),
+            ((d_m - near) / (far - near), inp["colors"] * 255.0)):
+        want = pre.lab_colors_plain(colors, dn, pm, cv_uv)
+        assert _bits_equal(kp.lab_cuda(colors, dn, pm, z_far), want)
+    lab = pre.lab_colors_plain(inp["colors"], (d_m - near) / (far - near),
+                               pm, cv_uv)
+    sums = stencil13.bilateral13(d_m, limits) if on else None
+    d2 = pre.bilateral_lab_plain(d_m, *box, limits, sums, pm)
+    assert _bits_equal(kp.depth2_cuda(d_m, *box, limits, sums, pm), d2)
+    for d2_in, lab_in in ((d2, lab), (
+            _pre_case(preprocess_cases.depth2_cases, shape, 2, cuda),
+            _pre_case(preprocess_cases.lab_cases, shape, 3, cuda))):
+        want = pre.boundary_plain(d2_in, lab_in, on)
+        assert _all_bits_equal(kp.boundary_cuda(d2_in, lab_in, on), want)
+    d2b, _ = pre.boundary_plain(d2, lab, on)
+    d2s = _pre_case(preprocess_cases.depth2_cases, shape, 4, cuda)
+    for d2_in in (d2b, d2s):
+        assert _bits_equal(kp.normals_cuda(d2_in, pm),
+                           pre.normals_plain(d2_in, pm))
+    nrm = pre.normals_plain(d2b, pm)
+    cams = inp["camera_positions"]
+    q_sums = stencil13.quality13(d2b[..., 0].contiguous())
+    syn = tuple(torch.from_numpy(s).to(cuda) for s in
+                preprocess_cases.quality_sums(5, *shape[:3]))
+    nrm_s = _pre_case(preprocess_cases.normal_cases, shape, 6, cuda)
+    for args in ((d2b, nrm, cams, q_sums, pm), (d2s, nrm_s, cams, syn, pm)):
+        assert _bits_equal(kp.quality_cuda(*args), pre.quality_plain(*args))
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert {k: launched[k] for k in ("morph", "lab", "depth2", "boundary",
+                                     "normals", "quality")} == {
+        "morph": 1, "lab": 3, "depth2": 1, "boundary": 2, "normals": 2,
+        "quality": 2}
+
+
+_PRE_PASSES = ("morph_dilate", "lab_colors", "bilateral_lab", "boundary",
+               "normals", "quality")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [True, False])
+@pytest.mark.parametrize("pixel", [True, False])
+def test_preprocess_frames_on_the_kernels(cuda, monkeypatch, on, pixel):
+    """The whole chain on the card at the reference's shape against the
+    chain of twins on the card, field by field, bit for bit: with the pixel
+    models every pass launches once (morph only when on); through the
+    calibration volumes the four passes that read them run their twins
+    (launched 0 times) and morph and boundary still launch."""
+    from rgbd_recon_tpu_torch.ops import preprocess as pre
+
+    shape = PRE_SHAPES[0]
+    n = shape[0]
+    inp, pm, cv_uv = _pre_inputs(shape, cuda)
+    rng = np.random.default_rng(7)
+    cv_xyz = torch.from_numpy(rng.uniform(-1.2, 2.4, (
+        n, preprocess_cases.CV_DEPTH, 12, 16, 3)).astype(np.float32)).to(cuda)
+    cv_uv = torch.from_numpy(rng.uniform(-0.05, 1.05, (
+        n, preprocess_cases.CV_DEPTH, 12, 16, 2)).astype(np.float32)).to(cuda)
+
+    def run():
+        return pre.preprocess_frames(
+            inp["depths"], inp["colors"], cv_xyz, cv_uv, inp["bbox_min"],
+            inp["bbox_max"], inp["depth_limits"], inp["camera_positions"],
+            morph=on, bilateral=on, refine=on,
+            pixel_models=pm if pixel else None)
+
+    kernels.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    calib = int(pixel)
+    assert {k: launched[k] for k in ("morph", "bilateral13", "lab", "depth2",
+                                     "boundary", "normals", "quality13",
+                                     "quality")} == {
+        "morph": int(on), "bilateral13": int(on), "lab": calib,
+        "depth2": calib, "boundary": 1, "normals": calib, "quality13": 1,
+        "quality": calib}
+    for name in _PRE_PASSES:
+        monkeypatch.setattr(pre, name, getattr(pre, name + "_plain"))
+    want = run()
+    for field in ("depth", "lab", "silhouette", "normal", "quality",
+                  "raw_depth"):
+        assert _bits_equal(getattr(got, field), getattr(want, field)), field
+    assert bool((got.depth[..., 0] > 0.0).any())
+
+
+@pytest.mark.cuda
+def test_fuse_launches_each_preprocess_kernel_once(cuda):
+    """A fuse of the small scene on the card launches morph and boundary
+    once, and the four calibration passes once when the pixel models fit
+    (0 times through the volumes)."""
+    pipe, volume, maps, counts, cam, frames = _small_scene(cuda)
+    pm = pipe._get_pixel_models(frames.depths.shape[1:3])
+    kernels.reset_launch_counts()
+    pipe.fuse(frames)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    calib = int(pm is not None)
+    assert {k: launched[k] for k in ("morph", "lab", "depth2", "boundary",
+                                     "normals", "quality")} == {
+        "morph": 1, "lab": calib, "depth2": calib, "boundary": 1,
+        "normals": calib, "quality": calib}
+
+
+@pytest.mark.cuda
+def test_preprocess_wrappers_raise_on_the_card(cuda):
+    """On CUDA tensors of a wrong type, shape or layout the wrappers raise
+    and launch nothing; a launch the card refuses (more sensors than a
+    grid's z side) raises too: there is no fallback."""
+    from rgbd_recon_tpu_torch.kernels import preprocess as kp
+
+    shape = PRE_SHAPES[1]
+    inp, pm, _ = _pre_inputs(shape, cuda)
+    d2 = _pre_case(preprocess_cases.depth2_cases, shape, 2, cuda)
+    lab = _pre_case(preprocess_cases.lab_cases, shape, 3, cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="float32"):
+        kp.morph_cuda(inp["depths"].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        kp.morph_cuda(inp["depths"].transpose(1, 2))
+    with pytest.raises(ValueError, match="lab"):
+        kp.boundary_cuda(d2, lab[..., :2].contiguous())
+    with pytest.raises(ValueError, match="ray_a"):
+        kp.normals_cuda(d2, dataclasses.replace(pm, ray_a=pm.ray_a[:1]))
+    with pytest.raises(ValueError, match="bf_sums"):
+        kp.depth2_cuda(inp["depths"], inp["bbox_min"], inp["bbox_max"],
+                       inp["depth_limits"], (inp["depths"],), pm)
+    assert all(v == 0 for v in kernels.launch_counts().values())
+    with pytest.raises(RuntimeError, match="morph"):
+        kp.morph_cuda(torch.zeros((70_000, 1, 1), device=cuda))
+    assert kernels.launch_counts()["morph"] == 0
