@@ -11,11 +11,18 @@ kernel (CUDA events around the wrapper, and its own device time under
 between CUDA events once the profiler records no device activity)
 beside its bound (bytes or operations of this run's inputs at the H100's
 peak rates) and, where one PyTorch call computes the same function, that
-call. The march kernel (``csrc/march.cu``) is held and timed on the
-recorded arguments of every stepwise march of one fast frame (the coarse
-march, phase 1, two tail stages) and one parity frame (the coarse and the
-full march): its eight outputs bit-equal to ``march_plain``'s, each
-stage's rays, samples and longest ray printed. The fill kernels
+call. The render's stage kernels (``csrc/compact.cu``,
+``csrc/render_stages.cu`` and ``csrc/march.cu``'s row march) are held and
+timed on the recorded inputs of every stage call of one fast frame (the
+scan, the block set-up, four compactions, the coarse march, the bracket,
+phase 1, two tail stages, the hit gather, the compose) and one parity
+frame (the coarse and the full march, two compactions): every output and
+every array a stage updates in place bit-equal to its plain twin's, each
+march stage's rays, samples and longest ray printed; then the whole
+``render_from_baked`` on the kernels against it on the twins (hit mask,
+window depth, march steps, overflow, pre-fill planes, colour, bit for
+bit), once under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+sync after the bake), and its host ms split by part. The fill kernels
 (``csrc/holefill.cu``) are held and timed on the recorded pre-fill planes
 (the render's strided views) of one fast and one parity frame: each pull
 level bit-equal to ``_pull_planar``, the push's level bit-equal and its
@@ -45,7 +52,9 @@ For each path it checks which kernels launched (launch counts set to 0
 just before the path's fuse + render and read just after; the march once a
 stepwise march: ``PATH_MARCHES``; the fill's pull 6 times and its push
 once: ``FILL_LAUNCHES``; the hit kernels once a render, no refine in the
-trilinear full-screen render: ``PATH_HITS``), that the output
+trilinear full-screen render: ``PATH_HITS``; the block stages once a
+render of the block path, the compaction once a list:
+``PATH_STAGES``), that the output
 is finite, and the surface RMSE against the analytic sphere (the accuracy
 oracle of bench.py). Timings (CUDA events) are printed for information.
 
@@ -183,10 +192,20 @@ TPU_EXACT_RMSE_MM = 5.55
 PRE_LAUNCHES = {"morph": 1, "lab": 1, "depth2": 1, "boundary": 1,
                 "normals": 1, "quality": 1}
 PRE_CALIB = ("lab", "depth2", "normals", "quality")
+# the render's block stages (csrc/compact.cu, csrc/render_stages.cu): each
+# once a render of the block path but the compaction, which makes the
+# block list, a list a tail stage (the fast config: two) and the hit list
+STAGE_KERNELS = ("compact", "scan", "block_setup", "bracket", "hit_gather",
+                 "compose")
+FAST_STAGES = dict(compact=4, scan=1, block_setup=1, bracket=1,
+                   hit_gather=1, compose=1)
+PATH_STAGES = {"fast": FAST_STAGES, "parity": dict(FAST_STAGES, compact=2),
+               "parity_dense": {k: 0 for k in STAGE_KERNELS},
+               "fast_f32": FAST_STAGES}
 # the kernels of the paths (the gather probe's four run on none)
 PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
                 "march", "holefill_pull", "holefill_push", "hit_refine",
-                "hit_shade", *PRE_LAUNCHES)
+                "hit_shade", *PRE_LAUNCHES, *STAGE_KERNELS)
 # the fill kernels' launches a render with colorfill: a pull a level past
 # LOD 0 (a 1280x720 frame at 7 LODs: 6) and one push
 FILL_LAUNCHES = {"holefill_pull": 6, "holefill_push": 1}
@@ -294,7 +313,8 @@ SPLAT_MEDIAN_MM = 10.0
 APP_FRAMES = 2
 MODE1_FRAME = dict(bilateral13=1, quality13=1, surface_occ=1,
                    sentinel_bake=1, march=PATH_MARCHES["fast"],
-                   **FILL_LAUNCHES, **HIT_LAUNCHES, **PRE_LAUNCHES)
+                   **FILL_LAUNCHES, **HIT_LAUNCHES, **PRE_LAUNCHES,
+                   **FAST_STAGES)
 APP_RUNS = {
     "app_mode0": (["--mode", "0"], dict(bilateral13=1, quality13=1,
                                         **PRE_LAUNCHES)),
@@ -310,8 +330,8 @@ APP_RUNS = {
                                 sentinel_bake=2,
                                 march=2 * PATH_MARCHES["fast"],
                                 **{k: 2 * n for k, n in
-                                   {**FILL_LAUNCHES,
-                                    **HIT_LAUNCHES}.items()},
+                                   {**FILL_LAUNCHES, **HIT_LAUNCHES,
+                                    **FAST_STAGES}.items()},
                                 **PRE_LAUNCHES)),
     "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
                          MODE1_FRAME),
@@ -482,16 +502,19 @@ def _events_ms(torch, fn, flush):
 _PROFILER_LOST = []
 
 
-def _device_ms(torch, fn, flush):
+def _device_ms(torch, fn, flush, keep=None):
     """``fn``'s own device time per call: (cold ms, warm ms, {activity:
     cold ms}, traces retaken). Cold: ``flush`` (which evicts the L2) before
     each of DEVICE_ITERS calls, its own activities left out; warm: the calls
-    back to back. Under torch.profiler, a trace that comes back with no
-    device activity, or with fewer of the calls' activities than they
-    launched, is taken again, at most TRACE_TRIES times in all, and counted
-    in the fourth value. When none of them records them all, the times are
-    taken between CUDA events (``_events_ms``), and the split names that
-    timer in the place of the activities."""
+    back to back. ``keep`` (a test of an activity's short name) leaves out
+    the activities of ``fn`` it refuses (a copy that restores an input the
+    kernel updates in place). Under torch.profiler, a trace that comes back
+    with no device activity, or with fewer of the calls' activities than
+    they launched, is taken again, at most TRACE_TRIES times in all, and
+    counted in the fourth value. When none of them records them all, the
+    times are taken between CUDA events (``_events_ms``, every activity of
+    ``fn``), and the split names that timer in the place of the
+    activities."""
     from torch.profiler import ProfilerActivity, profile
 
     from rgbd_recon_tpu_torch.bench.trace import device_us, on_device
@@ -533,6 +556,11 @@ def _device_ms(torch, fn, flush):
     if names & {e.name for e in flushing}:
         raise AssertionError(f"the L2 flush runs a kernel of the timed call: "
                              f"{names}")
+    if keep is not None:
+        names = {n for n in names if keep(_short_name(n))}
+        own = [e for e in own if e.name in names]
+        if not names:
+            raise AssertionError("keep refuses every activity of the call")
 
     def per_call(cold):
         def body():
@@ -564,161 +592,434 @@ def _device_ms(torch, fn, flush):
     return cold[0], warm[0], cold[1], retakes[0]
 
 
-def _record_marches(torch, render_frame):
-    """The arguments of every stepwise march one render makes, in order:
-    [(args, kwargs)] as ``ops.raymarch.march`` received them (the render
-    calls it through the module, so the recorder sees every call)."""
+# the activity name and source file of each render stage's kernel (the
+# stages' dispatches and twins: rgbd_recon_tpu_torch/ops/stage_calls.py)
+STAGE_KERNEL_OF = {
+    "scan": ("scan_kernel", "render_stages.cu"),
+    "block_setup": ("block_setup_kernel", "render_stages.cu"),
+    "compact": ("compact_kernel", "compact.cu"),
+    "march_grid": ("march_rows_kernel", "march.cu"),
+    "bracket": ("bracket_kernel", "render_stages.cu"),
+    "march_rows": ("march_rows_kernel", "march.cu"),
+    "hit_gather": ("hit_gather_kernel", "render_stages.cu"),
+    "compose": ("compose_kernel", "render_stages.cu"),
+}
+# the JAX package's code each new kernel replaces (no Pallas kernel: XLA
+# ops of its jitted render_from_baked)
+STAGE_REPLACES = {
+    "compact": "rgbd_recon_tpu/recon/tsdf_pipeline.py:1292",
+    "scan": "rgbd_recon_tpu/recon/tsdf_pipeline.py:920",
+    "block_setup": "rgbd_recon_tpu/recon/tsdf_pipeline.py:1253",
+    "bracket": "rgbd_recon_tpu/recon/tsdf_pipeline.py:1327",
+    "hit_gather": "rgbd_recon_tpu/recon/tsdf_pipeline.py:1472",
+    "compose": "rgbd_recon_tpu/recon/tsdf_pipeline.py:1521",
+}
+# f32 operations of one scan sample (the arc length, three axes' product,
+# sum, scale, truncation, floor division and clamp, the index, the field's
+# tests, the three selections and extremes) and of one scan ray beyond its
+# samples (the direction, the slab test, the spacing), counted by hand
+# from csrc/render_stages.cu; the other stages are bound by bytes
+SCAN_SAMPLE_OPS = 34
+SCAN_RAY_OPS = 60
+# the fast config with 2,048 block slots (of the 8,780 active blocks), a
+# 5-step first march (a tail list of a third of the 32,768 rays, where most
+# rays are still short of the surface) and 32 hit slots (0.1%): it drops
+# blocks, tail rays and hits
+OVERFLOW_CONFIG = dict(ray_compaction=0.01, march_phase1_steps=5,
+                       hit_compaction=0.001)
+
+
+def _differing_err(torch, got, want) -> float:
+    """max |got - want| over the entries whose bits differ (0.0 where all
+    are bit-equal; infinities and NaNs of equal bits count 0)."""
+    if got.shape != want.shape:
+        return float("inf")
+    if got.dtype != torch.float32:
+        return (0.0 if torch.equal(got, want)
+                else float((got.float() - want.float()).abs().max()))
+    g = got.contiguous().view(torch.int32)
+    w = want.contiguous().view(torch.int32)
+    differ = g != w
+    if not bool(differ.any()):
+        return 0.0
+    return float((got[differ] - want[differ]).abs().max())
+
+
+def _stage_call(stage, args, kwargs, plain):
+    """A function that runs ``stage``'s kernel (its dispatch on CUDA
+    tensors) or twin on working copies of the recorded inputs, and those
+    copies; a march that resumes listed rows in place restores them first,
+    so every call does the recorded work."""
+    import torch
+
+    from rgbd_recon_tpu_torch.ops import stage_calls
+
+    fn = stage_calls.stage_fn(stage, plain)
+    a, kw = stage_calls.copy(args), stage_calls.copy(kwargs)
+    if stage == "march_rows" and kw.get("ids") is not None:
+        st0, fl0 = kw["st8"].clone(), kw["flags"].clone()
+
+        def run():
+            kw["st8"].copy_(st0)
+            kw["flags"].copy_(fl0)
+            return fn(*a, **kw)
+    else:
+        def run():
+            return fn(*a, **kw)
+    return run, (a, kw)
+
+
+def _march_samples(torch, stage, args, kwargs):
+    """(rays, samples, longest ray, hits) of a recorded row march, from its
+    plain twin's state rows (the coarse march: from march_plain on the
+    listed blocks' rows)."""
     from rgbd_recon_tpu_torch.ops import raymarch
 
-    calls, march = [], raymarch.march
+    if stage == "march_grid":
+        table, limit, steps, blk, ids, _ = args
+        NB = blk.shape[0]
+        rows = blk[torch.clamp_max(ids, NB - 1)]
+        length = torch.where(ids < NB, rows[:, 6], 0.0)
+        hit, num, _ = raymarch.march_plain(
+            table, limit, steps, ((rows[:, 0], rows[:, 1], rows[:, 2]),
+                                  length),
+            (rows[:, 3], rows[:, 4], rows[:, 5]), **kwargs)
+        return int((ids < NB).sum()), int(num.sum()), int(num.max()), int(
+            hit.sum())
+    run, _ = _stage_call(stage, args, kwargs, plain=True)
+    st8, _ = run()
+    before = kwargs["st8"][:, 7] if kwargs.get("ids") is not None else 0.0
+    num = st8[:, 7] - before
+    rays = (int((kwargs["ids"] < st8.shape[0]).sum())
+            if kwargs.get("ids") is not None else st8.shape[0])
+    return rays, int(num.sum()), int(num.max()), int((st8[:, 6] > 0.5).sum())
 
-    def record(*args, **kwargs):
-        calls.append((args, kwargs))
-        return march(*args, **kwargs)
 
-    raymarch.march = record
+def _stage_bytes(stage, args, kwargs, out, march=None):
+    """(bytes, operations) a stage call's data needs: each input element
+    it reads once, each output written once (the bracket: the listed
+    blocks' columns and their windows' grid cells; a march: the listed
+    rays' rows and the table entries its samples read, MARCH_STEP_OPS a
+    sample; the scan: SCAN_*_OPS)."""
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    if stage == "compact":
+        flags, _, cap, _, _ = args[:5]
+        slot = out[1]
+        return flags.numel() + cap * 8 + (nb(slot) if slot is not None
+                                          else 0) + 4, 0
+    if stage == "scan":
+        g, occ, bsafe = args[:3]
+        rays = g.Hs * g.Ws
+        return (nb(occ, bsafe, out) + 4 + 48,
+                rays * (SCAN_RAY_OPS + g.n_scan * SCAN_SAMPLE_OPS))
+    if stage == "block_setup":
+        return nb(args[1], *out) + 48, 0
+    if stage == "bracket":
+        # the listed blocks' interval columns (blk's length and start, the
+        # interval end, the flags) and the grid cells of their 3x3 windows
+        # (edge-padded, so inside the grid), padding reading block NB - 1
+        import torch
+        import torch.nn.functional as F
+
+        g, grid, blk, s_end, flags, blk_idx = args[:6]
+        NB = blk.shape[0]
+        listed = torch.zeros(NB, dtype=torch.float32, device=blk.device)
+        listed[torch.clamp_max(blk_idx, NB - 1)] = 1.0
+        window = F.max_pool2d(listed.reshape(1, 1, g.Hb, g.Wb), 3, 1, 1)
+        blocks, cells = int(listed.sum()), int(window.sum())
+        return (nb(blk_idx, out) + blocks * (2 * 4 + 4 + 1)
+                + cells * 3 * 4 + 48), 0
+    if stage == "hit_gather":
+        ray8, st8, hit_idx = args
+        live = int((hit_idx < ray8.shape[0]).sum())
+        return nb(hit_idx, *out) + live * (6 + 3) * 4, 0
+    if stage == "compose":
+        g, blk_slot, hit_slot = args[:3]
+        listed = int((blk_slot >= 0).sum()) * g.B2
+        hits = int((hit_slot >= 0).sum())
+        return (nb(blk_slot, *out[:4]) + 16 + listed * (4 + 4)
+                + hits * (16 + 4) + 5 * 4), 0
+    # the row marches
+    rays, samples, _, hits = march
+    table = args[0]
+    taps = 8 if kwargs.get("mode") == "trilinear" else 1
+    entries = min(samples * taps, table.numel()) * table.element_size()
+    ops = samples * MARCH_STEP_OPS[kwargs.get("mode", "nearest")]
+    if stage == "march_grid":
+        return entries + rays * (8 * 4 + 8) + hits * 3 * 4, ops
+    resumed = kwargs.get("ids") is not None
+    return (entries + rays * (7 * 4 + (4 * 4 + 8) * resumed + 8 * 4 + 1),
+            ops)
+
+
+def _time_stage(torch, stage, args, kwargs, flush):
+    """(events ms, plain ms, device ms cold, warm, split, retakes) of the
+    kernel of a recorded stage call, its device time counting its own
+    activity only."""
+    from rgbd_recon_tpu_torch.bench.trace import event_ms
+
+    kern, _ = _stage_call(stage, args, kwargs, plain=False)
+    plain, _ = _stage_call(stage, args, kwargs, plain=True)
+    act = STAGE_KERNEL_OF[stage][0]
+    ms = event_ms(kern, iters=20, warmup=3)
+    plain_ms = event_ms(plain, iters=3, warmup=1)
+    cold, warm, split, n = _device_ms(torch, kern, flush,
+                                      keep=lambda name: act in name)
+    return ms, plain_ms, cold, warm, split, n
+
+
+def _render_host_split(torch, render_from_baked, args, reps=5):
+    """The host ms of each part of render_from_baked (the stages, the
+    hit kernels, the fill) and of the whole call, medians of ``reps``
+    renders: a host clock around each part's call (no part waits for the
+    device), the whole call ended by a synchronize. What is left is the
+    render's own Python and allocations."""
+    from rgbd_recon_tpu_torch.ops import hits, holefill, stage_calls
+
+    parts = [(mod, name) for mod, name, _ in stage_calls.STAGES.values()]
+    parts += [(hits, "refine_hits"), (hits, "shade_hits"),
+              (holefill, "fill_colors_planar")]
+    samples = {f"{m.__name__.rsplit('.', 1)[1]}.{n}": [] for m, n in parts}
+    samples["render_from_baked"] = []
+    saved = []
+    for m, name in parts:
+        fn = getattr(m, name)
+        saved.append((m, name, fn))
+        key = f"{m.__name__.rsplit('.', 1)[1]}.{name}"
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            acc[_key] = acc.get(_key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(m, name, timed)
     try:
-        render_frame()
+        for _ in range(reps):
+            acc = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_from_baked(*args)
+            torch.cuda.synchronize()
+            samples["render_from_baked"].append(
+                (time.perf_counter() - t0) * 1e3)
+            for k in acc:
+                samples[k].append(acc[k])
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    med = {k: sorted(v)[len(v) // 2] for k, v in samples.items() if v}
+    med["rest"] = med["render_from_baked"] - sum(
+        v for k, v in med.items() if k != "render_from_baked")
+    return med
+
+
+def _render_vs_twins(torch, render, args, label, stages, marches):
+    """render_from_baked(*args) on the kernels against it on the stage
+    twins (the hit kernels and the fill run in both): hit mask, window
+    depth, march steps, overflow, colour and the pre-fill rgba planes bit
+    for bit; the stage kernels launched ``stages`` times and the march
+    ``marches``. Returns the overflow vector."""
+    from rgbd_recon_tpu_torch import kernels
+    from rgbd_recon_tpu_torch.ops import holefill, stage_calls
+
+    fills = []
+    fill = holefill.fill_colors_planar
+
+    def record_fill(planes, depth, lods):
+        fills.append([q.clone() for q in planes])
+        return fill(planes, depth, lods)
+
+    holefill.fill_colors_planar = record_fill
+    try:
+        kernels.reset_launch_counts()
+        got = render.render_from_baked(*args)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        with stage_calls.plain_stages():
+            want = render.render_from_baked(*args)
         torch.cuda.synchronize()
     finally:
-        raymarch.march = march
-    return calls
+        holefill.fill_colors_planar = fill
+    same = {f: _bits_equal(torch, getattr(got, f), getattr(want, f))
+            for f in ("hit", "depth", "num_samples", "overflow", "color")}
+    same["prefill_planes"] = all(
+        _bits_equal(torch, g.contiguous(), w.contiguous())
+        for g, w in zip(fills[0], fills[1]))
+    stage_launches = {k: launched[k] for k in stages}
+    overflow = got.overflow.tolist()
+    print(f"render_from_baked {label}: the kernels' render bit-equal to the "
+          f"twins' {same}; {int(got.hit.sum())} hits; overflow {overflow} "
+          f"(int32 {got.overflow.dtype == torch.int32}); stage launches "
+          f"{stage_launches}, march {launched['march']}", flush=True)
+    if (not all(same.values()) or stage_launches != stages
+            or launched["march"] != marches
+            or got.overflow.dtype != torch.int32):
+        raise AssertionError(f"render_from_baked {label}: {same}, launches "
+                             f"{launched}")
+    return overflow
 
 
-def _march_outputs(result):
-    hit, num, state = result
-    return (hit, num, *state)
-
-
-def _march_bits_differ(torch, got, want):
-    """The names of the march outputs that are not bit-equal."""
-    names = ("hit", "num", "t", "prev_t", "prev", "lo_t", "hi_t", "hit_t")
-    return [n for n, g, w in zip(names, _march_outputs(got),
-                                 _march_outputs(want))
-            if not (g.shape == w.shape and torch.equal(
-                g.view(torch.int32) if g.dtype == torch.float32 else g,
-                w.view(torch.int32) if w.dtype == torch.float32 else w))]
-
-
-def _march_work(args, kwargs, num):
-    """(bytes, operations, samples) one march needs on its data: each per-ray
-    input read once (7 f32, 3 more when resumed) and each output written
-    once (hit, num, 6 f32); the table entries its samples read (a tap an
-    entry, at most the table once); MARCH_STEP_OPS a sample."""
-    table = args[0]
-    mode = kwargs.get("mode", "nearest")
-    resumed = kwargs.get("resume") is not None
-    n = num.numel()
-    samples = int(num.sum())
-    taps = 8 if mode == "trilinear" else 1
-    entries = min(samples * taps, table.numel())
-    nbytes = (entries * table.element_size() + n * 4 * (7 + 3 * resumed)
-              + n * (1 + 4 + 6 * 4))
-    return nbytes, samples * MARCH_STEP_OPS[mode], samples
-
-
-def _phase3_march(np, torch, pipe, frames, camera, renderer, card, flush):
-    """The march kernel on the recorded arguments of every stepwise march
-    of one fast and one parity frame (MARCH_STAGES): hit, num and the six
-    state tensors bit-equal to march_plain's, each stage timed like the
-    kernels above (events, device time with a cold and a warm L2, the
-    plain version) beside its bound, with the rays' samples and the
-    longest ray's steps. Returns the kernel's JSON row: the fast frame's
-    stages summed, the parity frame's under "parity", every stage under
-    "stages"."""
-    from rgbd_recon_tpu_torch.bench.trace import event_ms
-    from rgbd_recon_tpu_torch.kernels.raymarch import march_cuda
-    from rgbd_recon_tpu_torch.ops.raymarch import march_plain
+def _phase3_render(torch, pipe, frames, camera, card, flush):
+    """The render's stage kernels (csrc/compact.cu, csrc/render_stages.cu,
+    csrc/march.cu's row march) on the inputs one fast and one parity frame
+    hand each stage: each call bit-equal to its plain twin (every output
+    and every array updated in place), timed (events, device time with a
+    cold and a warm L2 counting its own activity, the plain version)
+    beside its bound; the whole render_from_baked on the kernels bit-equal
+    to it on the twins (hit mask, window depth, march steps, overflow,
+    pre-fill planes, colour), free of host syncs under
+    torch.cuda.set_sync_debug_mode("error"), its launches counted and its
+    host ms split by part. Returns the JSON rows of the march and of the
+    six stage kernels: the fast frame's calls summed, the parity frame's
+    under "parity", each call under "calls". Last, OVERFLOW_CONFIG's render
+    on the kernels against the twins: its overflow vector must drop
+    blocks, tail rays and hits."""
+    from rgbd_recon_tpu_torch.ops import stage_calls
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
     ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
         pipe.config, **_side_paths()["parity"]), pipe.bbox)
-    paths = {"fast": (pipe, renderer),
-             "parity": (ppipe, ppipe.make_renderer(camera))}
-    stages, frame_sums, retakes, err = [], {}, 0, 0.0
-    for path, (p, render) in paths.items():
+    names = ("march", *STAGE_KERNELS)
+    sums = {n: {} for n in names}
+    calls_out = {n: [] for n in names}
+    errs = {n: 0.0 for n in names}
+    retakes = 0
+    for path, p in (("fast", pipe), ("parity", ppipe)):
+        render, cam = p.make_render_fn(camera)
         volume, maps, counts = p.fuse(frames)
-        render(volume, maps, counts)        # warm-up: fits the models
-        calls = _record_marches(torch, lambda: render(volume, maps, counts))
-        if len(calls) != PATH_MARCHES[path]:
-            raise AssertionError(f"{path} frame: {len(calls)} marches, "
+        baked = render.bake(volume, counts)
+        args = (baked, maps, cam, p._get_projection_models(), p._limit)
+        render.render_from_baked(*args)           # warm-up: fits the models
+        calls = stage_calls.record_stages(
+            lambda: render.render_from_baked(*args))
+        torch.cuda.synchronize()
+        marches = [c for c in calls if c[0].startswith("march")]
+        if len(marches) != PATH_MARCHES[path]:
+            raise AssertionError(f"{path} frame: {len(marches)} marches, "
                                  f"expected {PATH_MARCHES[path]}")
-        sums = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, device_ms_warm=0.0,
-                    bytes=0, ops=0, samples=0, longest_chain=0)
-        for label, (args, kwargs) in zip(MARCH_STAGES[path], calls):
-            def kern(args=args, kwargs=kwargs):
-                return march_cuda(*args, **kwargs)
-
-            def plain(args=args, kwargs=kwargs):
-                return march_plain(*args, **kwargs)
-
+        labels = iter(MARCH_STAGES[path])
+        per = {n: dict(ms=0.0, plain_ms=0.0, device_ms=0.0,
+                       device_ms_warm=0.0, bytes=0, ops=0, calls=0)
+               for n in names}
+        for stage, a, kw, _ in calls:
+            kern, (ka, kkw) = _stage_call(stage, a, kw, plain=False)
+            plain, (pa, pkw) = _stage_call(stage, a, kw, plain=True)
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            differ = _march_bits_differ(torch, got, want)
-            stage_err = _max_abs_err(torch, _march_outputs(got),
-                                     _march_outputs(want))
-            if differ:
-                raise AssertionError(f"march {path}/{label}: {differ} differ "
-                                     f"from march_plain's (max abs error "
-                                     f"{stage_err})")
-            err = max(err, stage_err)
-            num = want[1]
-            nbytes, ops, samples = _march_work(args, kwargs, num)
-            bound_ms, bound_by = _bound_of(nbytes, 0)
-            ms = event_ms(kern, iters=20, warmup=3)
-            plain_ms = event_ms(plain, iters=3, warmup=1)
-            device_ms, device_ms_warm, split, n = _device_ms(torch, kern,
-                                                             flush)
+            same = (stage_calls.all_bits_equal(got, want)
+                    and stage_calls.all_bits_equal((ka, kkw), (pa, pkw)))
+            err = max([_differing_err(torch, g, w) for g, w in zip(
+                stage_calls.tensors((got, ka, kkw)),
+                stage_calls.tensors((want, pa, pkw)))
+                if g.is_floating_point()] or [0.0])
+            name = "march" if stage.startswith("march") else stage
+            label = next(labels) if name == "march" else stage
+            if not same:
+                raise AssertionError(f"{name} {path}/{label}: the kernel "
+                                     f"differs from its twin (max abs "
+                                     f"error {err})")
+            errs[name] = max(errs[name], err)
+            march = (_march_samples(torch, stage, a, kw) if name == "march"
+                     else None)
+            nbytes, ops = _stage_bytes(stage, a, kw, want, march)
+            ms, plain_ms, cold, warm, split, n = _time_stage(
+                torch, stage, a, kw, flush)
             retakes += n
-            inputs = [*args[3][0], args[3][1], *args[4],
-                      *(kwargs.get("resume") or ())]
-            stage = dict(
-                path=path, stage=label, rays=num.numel(), max_steps=args[2],
-                mode=kwargs.get("mode"), table=str(args[0].dtype),
-                sentinel_skip=kwargs.get("sentinel_skip"),
-                resumed=kwargs.get("resume") is not None,
-                strided_inputs=sum(not x.is_contiguous() for x in inputs),
-                hits=int(want[0].sum()), samples=samples,
-                longest_ray=int(num.max()), max_abs_err=stage_err, ms=ms,
-                plain_ms=plain_ms, device_ms=device_ms,
-                device_ms_warm=device_ms_warm, device_split=split,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
-                share_of_bound=bound_ms / device_ms)
-            stages.append(stage)
-            print(f"march {path}/{label}: {stage['rays']} rays, budget "
-                  f"{args[2]}, {stage['mode']} on {stage['table']}, "
-                  f"{stage['strided_inputs']} strided inputs; {samples} "
-                  f"samples, longest ray {stage['longest_ray']} steps, "
-                  f"{stage['hits']} hits; max|kernel - plain| {stage_err!r} "
-                  f"(bit-equal, bound 0); {ms!r} ms (events; plain "
-                  f"{plain_ms!r}), device {device_ms!r} ms cold L2, "
-                  f"{device_ms_warm!r} warm, bound {bound_ms!r} ms by "
-                  f"{bound_by}, {bound_ms / device_ms:.1%} of it, on {card}",
-                  flush=True)
+            bound_ms, bound_by = _bound_of(nbytes, ops)
+            row = dict(path=path, stage=label, max_abs_err=err,
+                       bit_equal=True, ms=ms, plain_ms=plain_ms,
+                       device_ms=cold, device_ms_warm=warm,
+                       device_split=split, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, ops=ops,
+                       share_of_bound=bound_ms / cold)
+            if march is not None:
+                row.update(rays=march[0], samples=march[1],
+                           longest_ray=march[2], hits=march[3],
+                           max_steps=a[2], mode=kw.get("mode"),
+                           table=str(a[0].dtype),
+                           resumed=kw.get("ids") is not None)
+            calls_out[name].append(row)
             for k in ("ms", "plain_ms", "device_ms", "device_ms_warm",
-                      "bytes", "ops", "samples"):
-                sums[k] += stage[k]
-            sums["longest_chain"] += stage["longest_ray"]
-        sums["bound_ms"], sums["bound_by"] = _bound_of(sums["bytes"],
-                                                       sums["ops"])
-        frame_sums[path] = sums
-        print(f"march, the {path} frame's {len(calls)} launches: {sums} "
-              f"on {card}", flush=True)
-        del volume, maps, counts, calls
-    del ppipe, paths
+                      "bytes", "ops"):
+                per[name][k] += row[k]
+            per[name]["calls"] += 1
+            print(f"{name} {path}/{label}: bit-equal to its twin (max abs "
+                  f"error {err!r}); {ms!r} ms (events; plain {plain_ms!r}), "
+                  f"device {cold!r} ms cold L2, {warm!r} warm, bound "
+                  f"{bound_ms!r} ms by {bound_by} ({nbytes} B, {ops} ops), "
+                  f"{bound_ms / cold:.1%} of it"
+                  + (f"; {march[0]} rays, {march[1]} samples, longest "
+                     f"{march[2]}, {march[3]} hits" if march else "")
+                  + f", on {card}", flush=True)
+            del kern, plain, got, want, ka, kkw, pa, pkw
+        for name in names:
+            r = per[name]
+            r["bound_ms"], r["bound_by"] = _bound_of(r["bytes"], r["ops"])
+            r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
+            sums[name][path] = r
+            print(f"{name}, the {path} frame's {r['calls']} calls: {r} on "
+                  f"{card}", flush=True)
+
+        # the whole render on the kernels against it on the twins
+        _render_vs_twins(torch, render, args, path, PATH_STAGES[path],
+                         PATH_MARCHES[path])
+        # no host sync between the bake and the fill's end
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            render.render_from_baked(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        split = _render_host_split(torch, render.render_from_baked, args)
+        print(f"render_from_baked {path}: no host sync under "
+              "set_sync_debug_mode('error'); host ms by part (medians of 5, "
+              f"host clock) {split} on {card}", flush=True)
+        sums["march"].setdefault("host_split", {})[path] = split
+        del volume, maps, counts, baked, args, calls
+    # a configuration that overflows the block list, a tail stage's list
+    # and the hit list: the overflow vector on the kernels equal to the
+    # twins'
+    opipe = TsdfPipeline(pipe.calib, dataclasses.replace(
+        pipe.config, **OVERFLOW_CONFIG), pipe.bbox)
+    render, cam = opipe.make_render_fn(camera)
+    volume, maps, counts = opipe.fuse(frames)
+    args = (render.bake(volume, counts), maps, cam,
+            opipe._get_projection_models(), opipe._limit)
+    render.render_from_baked(*args)               # warm-up
+    overflow = _render_vs_twins(torch, render, args, "overflow",
+                                PATH_STAGES["fast"], PATH_MARCHES["fast"])
+    if not all(n > 0 for n in overflow[:3]):
+        raise AssertionError(f"the overflow config dropped {overflow}: "
+                             "not each of blocks, tail rays and hits")
+    print(f"overflow config {OVERFLOW_CONFIG}: blocks, tail rays and hits "
+          f"dropped {overflow[:3]}", flush=True)
+    del ppipe, opipe, render, volume, maps, counts, args
     torch.cuda.empty_cache()
-    fast = frame_sums["fast"]
-    return dict(
-        name="march", route="cuda",
-        source="rgbd_recon_tpu_torch/csrc/march.cu",
-        replaces="rgbd_recon_tpu/ops/raymarch.py:501", max_abs_err=err,
-        ms=fast["ms"], plain_ms=fast["plain_ms"],
-        device_ms=fast["device_ms"], device_ms_warm=fast["device_ms_warm"],
-        bound_ms=fast["bound_ms"], bound_by=fast["bound_by"],
-        share_of_bound=fast["bound_ms"] / fast["device_ms"],
-        library_ms=None, samples=fast["samples"],
-        longest_chain=fast["longest_chain"], parity=frame_sums["parity"],
-        stages=stages, trace_retakes=retakes)
+    out = []
+    for name in names:
+        fast = sums[name]["fast"]
+        src = ("march.cu" if name == "march"
+               else STAGE_KERNEL_OF[name][1])
+        row = dict(
+            name=name, route="cuda",
+            source=f"rgbd_recon_tpu_torch/csrc/{src}",
+            replaces=("rgbd_recon_tpu/ops/raymarch.py:501" if name == "march"
+                      else STAGE_REPLACES[name]),
+            max_abs_err=errs[name], ms=fast["ms"], plain_ms=fast["plain_ms"],
+            device_ms=fast["device_ms"],
+            device_ms_warm=fast["device_ms_warm"],
+            bound_ms=fast["bound_ms"], bound_by=fast["bound_by"],
+            share_of_bound=fast["share_of_bound"], library_ms=None,
+            parity=sums[name]["parity"], calls=calls_out[name],
+            trace_retakes=retakes)
+        if name == "march":
+            row["host_split"] = sums["march"]["host_split"]
+        out.append(row)
+    return out
 
 
 def _record_fills(torch, render_frame):
@@ -779,6 +1080,7 @@ def _phase3_fill(torch, pipe, camera, frames, card, flush):
     from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.kernels.holefill import pull_cuda, push_cuda
     from rgbd_recon_tpu_torch.ops import holefill
+    from rgbd_recon_tpu_torch.ops import stage_calls
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
     ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
@@ -938,9 +1240,13 @@ def _record_hits(torch, render_frame):
 
 
 def _bits_equal(torch, got, want) -> bool:
-    return got.shape == want.shape and torch.equal(
-        got.contiguous().view(torch.int32),
-        want.contiguous().view(torch.int32))
+    """Same shape, type and bits (float32 compared as int32)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype == torch.float32:
+        return torch.equal(got.contiguous().view(torch.int32),
+                           want.contiguous().view(torch.int32))
+    return torch.equal(got, want)
 
 
 def _touched_bytes(torch, fn, tables):
@@ -1052,6 +1358,7 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
     from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
     from rgbd_recon_tpu_torch.ops import hits
+    from rgbd_recon_tpu_torch.ops import stage_calls
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
     ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
@@ -1607,6 +1914,7 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
         print(f"{name}: setup + 2 frames {time.perf_counter() - t0:.1f} s; "
               f"launches {launched}", flush=True)
         want = {k: int(k in PATH_KERNELS) for k in launched}
+        want.update(FAST_STAGES)
         if vpipe.config.skip_fine_rounds > vpipe.brick_vox:
             want["sentinel_bake"] = 0        # the plain bake, as in JAX
         # with march_chunk, phase 1 is the chunked march (no kernel)
@@ -1949,7 +2257,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         n = mesh.size
         want = dict(bilateral13=1, quality13=1, surface_occ=n,
                     sentinel_bake=n, march=PATH_MARCHES["fast"],
-                    **FILL_LAUNCHES, **PATH_HITS["fast"], **PRE_LAUNCHES)
+                    **FILL_LAUNCHES, **PATH_HITS["fast"], **PRE_LAUNCHES,
+                    **FAST_STAGES)
         vol_sh, out_sh = counted(label, lambda: step(frames), want)
         same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
                 for f in ("hit", "depth")}
@@ -2758,8 +3067,7 @@ def main(argv=None) -> int:
                   f"device activity and were taken again", flush=True)
         results.append(row)
 
-    results.append(_phase3_march(np, torch, pipe, frames, camera, renderer,
-                                 card, flush))
+    results += _phase3_render(torch, pipe, frames, camera, card, flush)
     results += _phase3_fill(torch, pipe, camera, frames, card, flush)
     results += _phase3_hits(torch, pipe, camera, frames, card, flush)
     results += _phase3_preprocess(torch, pipe, frames, card, flush)
@@ -2785,14 +3093,16 @@ def main(argv=None) -> int:
     fills = {k: launched[k] for k in FILL_LAUNCHES}
     hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
     pre_launches = {k: launched[k] for k in PRE_LAUNCHES}
+    stage_launches = {k: launched[k] for k in STAGE_KERNELS}
     if (missing or extra or launched["march"] != PATH_MARCHES["fast"]
             or fills != FILL_LAUNCHES or hit_launches != PATH_HITS["fast"]
-            or pre_launches != PRE_LAUNCHES):
+            or pre_launches != PRE_LAUNCHES
+            or stage_launches != PATH_STAGES["fast"]):
         raise AssertionError(f"fast path did not launch {missing}, "
                              f"launched {extra}, march "
                              f"{launched['march']} times, fill {fills}, "
                              f"hits {hit_launches}, preprocess "
-                             f"{pre_launches}")
+                             f"{pre_launches}, stages {stage_launches}")
     by_path = {"fast": launched}
     # each path's oracle reading (phase 16's ablation must repeat them)
     oracle_by_path = {"fast": _check_render(torch, "fast", volume, out,
@@ -2837,15 +3147,17 @@ def main(argv=None) -> int:
         fills = {k: launched[k] for k in FILL_LAUNCHES}
         hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
         pre_launches = {k: launched[k] for k in PRE_LAUNCHES}
+        stage_launches = {k: launched[k] for k in STAGE_KERNELS}
         if (missing or extra or launched["march"] != PATH_MARCHES[name]
                 or fills != FILL_LAUNCHES
                 or hit_launches != PATH_HITS[name]
-                or pre_launches != PRE_LAUNCHES):
+                or pre_launches != PRE_LAUNCHES
+                or stage_launches != PATH_STAGES[name]):
             raise AssertionError(f"{name} path: not launched {missing}, "
                                  f"launched {extra}, march "
                                  f"{launched['march']} times, fill {fills}, "
                                  f"hits {hit_launches}, preprocess "
-                                 f"{pre_launches}")
+                                 f"{pre_launches}, stages {stage_launches}")
         by_path[name] = launched
         oracle_by_path[name] = _check_render(torch, name, volume, out,
                                              counts, ppipe.config, camera)

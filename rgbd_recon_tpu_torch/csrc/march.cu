@@ -1,5 +1,10 @@
 // Stepwise ray march: one thread a ray, each stepping its own ray until it
-// hits, passes its length or spends the step budget.
+// hits, passes its length or spends the step budget. Two entry points:
+// rgbd_march over per-ray input tensors read through their strides (the
+// full-screen march, tests), and rgbd_march_rows, the render's march over
+// its row arrays by an id list (march_rows_kernel below: it reads and
+// writes rays by id, in place of the render's row gathers, state stacks
+// and scatters).
 //
 // Replaces the march loop of the render: in the JAX package the XLA
 // while-loop of rgbd_recon_tpu/ops/raymarch.py march (:501, :661; no
@@ -128,25 +133,21 @@ __device__ __forceinline__ float sample_trilinear(const T* table, float px,
   return __fadd_rn(__fmul_rn(c0, wz), __fmul_rn(c1, fz));
 }
 
-template <typename T, bool TRILINEAR, bool SKIP, bool RESUME>
-__global__ void __launch_bounds__(MARCH_THREADS)
-    march_kernel(const T* __restrict__ table, MarchArgs a) {
-  const int i = blockIdx.x * MARCH_THREADS + threadIdx.x;
-  if (i >= a.n) return;
-  const long long r = i;
-  const float p0x = __ldg(a.in[0] + r * a.stride[0]);
-  const float p0y = __ldg(a.in[1] + r * a.stride[1]);
-  const float p0z = __ldg(a.in[2] + r * a.stride[2]);
-  const float dx = __ldg(a.in[3] + r * a.stride[3]);
-  const float dy = __ldg(a.in[4] + r * a.stride[4]);
-  const float dz = __ldg(a.in[5] + r * a.stride[5]);
-  const float len = __ldg(a.in[6] + r * a.stride[6]);
-  float t = 0.0f, prev_t = 0.0f, prev = a.neg_limit;
-  if (RESUME) {
-    t = __ldg(a.in[7] + r * a.stride[7]);
-    prev_t = __ldg(a.in[8] + r * a.stride[8]);
-    prev = __ldg(a.in[9] + r * a.stride[9]);
-  }
+// One ray's march from (t, prev_t, prev): the loop of the header, the
+// twin's arithmetic step for step.
+struct RayState {
+  float t, prev_t, prev, lo_t, hi_t, hit_t;
+  bool hit;
+  int num;
+};
+
+template <typename T, bool TRILINEAR, bool SKIP>
+__device__ __forceinline__ void march_ray(const T* __restrict__ table,
+                                          const MarchArgs& a, float p0x,
+                                          float p0y, float p0z, float dx,
+                                          float dy, float dz, float len,
+                                          RayState& s) {
+  float t = s.t, prev_t = s.prev_t, prev = s.prev;
   float lo_t = 0.0f, hi_t = 0.0f, hit_t = 0.0f;
   bool hit = false;
   int num = 0;
@@ -184,14 +185,114 @@ __global__ void __launch_bounds__(MARCH_THREADS)
       break;
     }
   }
-  a.hit[i] = hit;
-  a.num[i] = num;
-  a.state[0][i] = t;
-  a.state[1][i] = prev_t;
-  a.state[2][i] = prev;
-  a.state[3][i] = lo_t;
-  a.state[4][i] = hi_t;
-  a.state[5][i] = hit_t;
+  s.t = t;
+  s.prev_t = prev_t;
+  s.prev = prev;
+  s.lo_t = lo_t;
+  s.hi_t = hi_t;
+  s.hit_t = hit_t;
+  s.hit = hit;
+  s.num = num;
+}
+
+template <typename T, bool TRILINEAR, bool SKIP, bool RESUME>
+__global__ void __launch_bounds__(MARCH_THREADS)
+    march_kernel(const T* __restrict__ table, MarchArgs a) {
+  const int i = blockIdx.x * MARCH_THREADS + threadIdx.x;
+  if (i >= a.n) return;
+  const long long r = i;
+  RayState s{0.0f, 0.0f, a.neg_limit, 0.0f, 0.0f, 0.0f, false, 0};
+  if (RESUME) {
+    s.t = __ldg(a.in[7] + r * a.stride[7]);
+    s.prev_t = __ldg(a.in[8] + r * a.stride[8]);
+    s.prev = __ldg(a.in[9] + r * a.stride[9]);
+  }
+  march_ray<T, TRILINEAR, SKIP>(
+      table, a, __ldg(a.in[0] + r * a.stride[0]),
+      __ldg(a.in[1] + r * a.stride[1]), __ldg(a.in[2] + r * a.stride[2]),
+      __ldg(a.in[3] + r * a.stride[3]), __ldg(a.in[4] + r * a.stride[4]),
+      __ldg(a.in[5] + r * a.stride[5]), __ldg(a.in[6] + r * a.stride[6]),
+      s);
+  a.hit[i] = s.hit;
+  a.num[i] = s.num;
+  a.state[0][i] = s.t;
+  a.state[1][i] = s.prev_t;
+  a.state[2][i] = s.prev;
+  a.state[3][i] = s.lo_t;
+  a.state[4][i] = s.hi_t;
+  a.state[5][i] = s.hit_t;
+}
+
+// The render's march over its row arrays (the redesign of the stage,
+// ops/raymarch.py march_rows_plain / march_grid_plain): ray i is row
+// r = ids[i] (r = i without ids) of ray8 (pos0 x y z, dir x y z, full
+// length, bracket length; the coarse march's block rows: pos0, dir,
+// length, interval start); ids at or past `rows` are the list's padding
+// and do nothing.
+//  ROWS_FRESH:  every row from the start, length column len_col; writes
+//               st8[r] = (t, prev_t, prev, lo_t, hi_t, hit_t, hit, num)
+//               and flags[r] (bit 0 hit, bit 1 unfinished: no hit,
+//               t <= full length, full length > 0);
+//  ROWS_RESUME: the listed rows from st8[r]'s (t, prev_t, prev), their
+//               full length; writes st8[r] with num = st8[r][7] + num, and
+//               flags[r];
+//  GRID:        the listed block rows from the start; a hit writes the
+//               block's grid entries (1, start + lo_t, start + hi_t) of
+//               the (3, rows) hit / lo / hi grids.
+enum RowMode { ROWS_FRESH = 0, ROWS_RESUME = 1, GRID = 2 };
+
+struct RowArgs {
+  const float* ray8;
+  float* st8;
+  unsigned char* flags;
+  const long long* ids;
+  float* grid;
+  int n;
+  int rows;
+  int len_col;
+};
+
+template <typename T, bool TRILINEAR, bool SKIP, int MODE>
+__global__ void __launch_bounds__(MARCH_THREADS)
+    march_rows_kernel(const T* __restrict__ table, MarchArgs a, RowArgs b) {
+  const int i = blockIdx.x * MARCH_THREADS + threadIdx.x;
+  if (i >= b.n) return;
+  const long long r = b.ids != nullptr ? __ldg(b.ids + i) : (long long)i;
+  if (r >= b.rows) return;
+  const float* ray = b.ray8 + r * 8;
+  RayState s{0.0f, 0.0f, a.neg_limit, 0.0f, 0.0f, 0.0f, false, 0};
+  float* st = MODE == GRID ? nullptr : b.st8 + r * 8;
+  if (MODE == ROWS_RESUME) {
+    s.t = st[0];
+    s.prev_t = st[1];
+    s.prev = st[2];
+  }
+  march_ray<T, TRILINEAR, SKIP>(table, a, __ldg(ray + 0), __ldg(ray + 1),
+                                __ldg(ray + 2), __ldg(ray + 3),
+                                __ldg(ray + 4), __ldg(ray + 5),
+                                __ldg(ray + b.len_col), s);
+  if (MODE == GRID) {
+    if (s.hit) {
+      const float start = __ldg(ray + 7);
+      b.grid[r] = 1.0f;
+      b.grid[b.rows + r] = __fadd_rn(start, s.lo_t);
+      b.grid[2 * (long long)b.rows + r] = __fadd_rn(start, s.hi_t);
+    }
+    return;
+  }
+  const float fnum = (float)s.num;
+  const float num = MODE == ROWS_RESUME ? __fadd_rn(st[7], fnum) : fnum;
+  st[0] = s.t;
+  st[1] = s.prev_t;
+  st[2] = s.prev;
+  st[3] = s.lo_t;
+  st[4] = s.hi_t;
+  st[5] = s.hit_t;
+  st[6] = s.hit ? 1.0f : 0.0f;
+  st[7] = num;
+  const float full = __ldg(ray + 6);
+  const bool unfinished = !s.hit && s.t <= full && full > 0.0f;
+  b.flags[r] = (unsigned char)((s.hit ? 1 : 0) | (unfinished ? 2 : 0));
 }
 
 template <typename T, bool TRILINEAR, bool SKIP>
@@ -216,6 +317,36 @@ int launch_typed(const void* table, const MarchArgs& a, int trilinear,
                          : launch_resume<T, true, false>(tab, a, resume, s);
   return sentinel_skip ? launch_resume<T, false, true>(tab, a, resume, s)
                        : launch_resume<T, false, false>(tab, a, resume, s);
+}
+
+template <typename T, bool TRILINEAR, bool SKIP>
+int launch_rows_mode(const T* table, const MarchArgs& a, const RowArgs& b,
+                     int mode, cudaStream_t s) {
+  const int blocks = (b.n + MARCH_THREADS - 1) / MARCH_THREADS;
+  if (mode == ROWS_FRESH)
+    march_rows_kernel<T, TRILINEAR, SKIP, ROWS_FRESH>
+        <<<blocks, MARCH_THREADS, 0, s>>>(table, a, b);
+  else if (mode == ROWS_RESUME)
+    march_rows_kernel<T, TRILINEAR, SKIP, ROWS_RESUME>
+        <<<blocks, MARCH_THREADS, 0, s>>>(table, a, b);
+  else
+    march_rows_kernel<T, TRILINEAR, SKIP, GRID>
+        <<<blocks, MARCH_THREADS, 0, s>>>(table, a, b);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rows_typed(const void* table, const MarchArgs& a,
+                      const RowArgs& b, int trilinear, int sentinel_skip,
+                      int mode, cudaStream_t s) {
+  const T* tab = (const T*)table;
+  if (trilinear)
+    return sentinel_skip
+               ? launch_rows_mode<T, true, true>(tab, a, b, mode, s)
+               : launch_rows_mode<T, true, false>(tab, a, b, mode, s);
+  return sentinel_skip
+             ? launch_rows_mode<T, false, true>(tab, a, b, mode, s)
+             : launch_rows_mode<T, false, false>(tab, a, b, mode, s);
 }
 
 }  // namespace
@@ -257,6 +388,45 @@ int rgbd_march(const void* table, int table_f32, int D, int H, int W,
     return launch_typed<float>(table, a, trilinear, sentinel_skip, resume, s);
   return launch_typed<unsigned short>(table, a, trilinear, sentinel_skip,
                                       resume, s);
+}
+
+// The render's march over its rows (march_rows_kernel): mode 0 fresh rows
+// (ids null: n = rows), 1 resumed listed rows, 2 the coarse march's block
+// grids. ray8 and st8 are contiguous (rows, 8) f32, flags (rows,) bytes,
+// ids (n,) int64 or null, grid (3, rows) f32. n = 0 launches nothing.
+int rgbd_march_rows(const void* table, int table_f32, int D, int H, int W,
+                    int mode, const void* ray8, void* st8, void* flags,
+                    const void* ids, void* grid, int n, int rows,
+                    int len_col, int max_steps, int trilinear,
+                    int sentinel_skip, float neg_limit, float sd,
+                    float scale, void* stream) {
+  if (n < 0 || rows < 0 || max_steps < 0 || mode < 0 || mode > 2 ||
+      len_col < 0 || len_col > 7)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  MarchArgs a = {};
+  a.max_steps = max_steps;
+  a.D = D;
+  a.H = H;
+  a.W = W;
+  a.neg_limit = neg_limit;
+  a.sd = sd;
+  a.scale = scale;
+  RowArgs b;
+  b.ray8 = (const float*)ray8;
+  b.st8 = (float*)st8;
+  b.flags = (unsigned char*)flags;
+  b.ids = (const long long*)ids;
+  b.grid = (float*)grid;
+  b.n = n;
+  b.rows = rows;
+  b.len_col = len_col;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (table_f32)
+    return launch_rows_typed<float>(table, a, b, trilinear, sentinel_skip,
+                                    mode, s);
+  return launch_rows_typed<unsigned short>(table, a, b, trilinear,
+                                           sentinel_skip, mode, s);
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@ on a nonzero CUDA error code, and adds one to its entry of :data:`LAUNCHES`.
 The plain PyTorch twins and the CPU/CUDA dispatch live in ``ops/`` beside
 their callers (``ops/stencil13.py``, ``ops/bake.py``, ``ops/gather.py``,
 ``ops/raymarch.py``, ``ops/holefill.py``, ``ops/hits.py``,
-``ops/preprocess.py``).
+``ops/preprocess.py``, ``ops/compact.py``, ``ops/render_stages.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,13 @@ LAUNCHES = {
     "surface_occ": 0,
     "sentinel_bake": 0,
     "march": 0,
+    # the render's block stages (csrc/compact.cu, csrc/render_stages.cu)
+    "compact": 0,
+    "scan": 0,
+    "block_setup": 0,
+    "bracket": 0,
+    "hit_gather": 0,
+    "compose": 0,
     "holefill_pull": 0,
     "holefill_push": 0,
     "hit_refine": 0,

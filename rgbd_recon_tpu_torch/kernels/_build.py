@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("stencil13.cu", "bake.cu",
                                               "gather.cu", "march.cu",
                                               "holefill.cu", "hits.cu",
-                                              "preprocess.cu"))
+                                              "preprocess.cu", "compact.cu",
+                                              "render_stages.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
@@ -56,6 +57,17 @@ _SIGNATURES = {
     "rgbd_gather_cols": (_P, _P, _P, _I, _I, _I, _P),
     "rgbd_march": (_P, _I, _I, _I, _I, _LL, _LL, _I, _LL, _I, _I, _I, _I,
                    _F, _F, _F, _P),
+    "rgbd_march_rows": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _I, _F, _F, _F, _P),
+    "rgbd_compact": (_P, _I, _I, _I, _P, _P, _P, _P),
+    # a pointer to the parameter block (kernels/render_stages.py) and the
+    # stream
+    "rgbd_render_scan": (_P, _P),
+    "rgbd_render_block_setup": (_P, _P),
+    "rgbd_render_bracket": (_P, _P),
+    "rgbd_render_hit_gather": (_P, _P),
+    "rgbd_render_compose": (_P, _P),
+    "rgbd_render_params_size": (ctypes.POINTER(_I),),
     "rgbd_holefill_pull": (_LL, _LL, _LL, _P, _I, _I, _P),
     "rgbd_holefill_push": (_LL, _LL, _LL, _LL, ctypes.POINTER(_I), _I, _P,
                            _P, _P, _I, _I, _P),

@@ -1,12 +1,13 @@
 """TSDF raymarching pieces of the render (counterpart of
 rgbd_recon_tpu/ops/raymarch.py): the view camera, the march (nearest or
 trilinear taps, with or without skip sentinels; on the card one launch of
-csrc/march.cu, on the CPU its plain twin) and its chunked nearest form,
-the oct cell-corner hit table with its secant refine and gradient, the
-table-based secant refine and central-difference gradient, the color
-blends (calibration volumes, their nearest-lookup variant, analytic
-projection models, the normal-weighted blends, the camera-influence view)
-and Blinn-Phong shading.
+csrc/march.cu, on the CPU its plain twin), the render's row march over its
+ray and block rows by id (``march_rows``, ``march_grid``) and its chunked
+nearest form, the oct cell-corner hit table with its secant refine and
+gradient, the table-based secant refine and central-difference gradient,
+the color blends (calibration volumes, their nearest-lookup variant,
+analytic projection models, the normal-weighted blends, the
+camera-influence view) and Blinn-Phong shading.
 
 Marching happens in volume-normalized coordinates [0, 1]^3 with step
 tsdf_limit / 2 (glsl/tsdf_raymarch.fs:34). A march table is a (Z, Y, X)
@@ -415,6 +416,131 @@ def march_plain(table: torch.Tensor, limit: float, max_steps: int,
         t = torch.where(active, t + advance, t)
         hit = hit | found
     return hit, num, (t, prev_t, prev, lo_t, hi_t, hit_t)
+
+
+def state_rows(hit, num, state, num_base=None) -> torch.Tensor:
+    """(N, 8) state rows of a march's (hit, num, state): t, prev_t, prev,
+    lo_t, hi_t, hit_t, hit as 0/1, num as f32 (plus ``num_base``)."""
+    n = num.to(torch.float32)
+    if num_base is not None:
+        n = num_base + n
+    return torch.stack([*state, hit.to(torch.float32), n], dim=-1)
+
+
+def row_flags(st8: torch.Tensor, ray8: torch.Tensor) -> torch.Tensor:
+    """(N,) uint8 flags of the state rows ``st8`` of the rays ``ray8``
+    (pos0, dir, full length, bracket length): bit 0 the ray hit, bit 1 it
+    is unfinished (no hit, t within its full length, a length > 0)."""
+    full = ray8[:, 6]
+    hit = st8[:, 6] > 0.5
+    unfinished = (st8[:, 6] < 0.5) & (st8[:, 0] <= full) & (full > 0.0)
+    return hit.to(torch.uint8) | (unfinished.to(torch.uint8) << 1)
+
+
+def _put_rows(buf: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor):
+    """buf[ids] = rows in place, dropping ids past the end (the padding of
+    a list): written through a spare row, without a host sync."""
+    n = buf.shape[0]
+    ext = torch.cat([buf, buf.new_zeros((1,) + buf.shape[1:])])
+    ext[torch.clamp_max(ids, n)] = rows
+    buf.copy_(ext[:n])
+    return buf
+
+
+def march_rows_plain(table: torch.Tensor, limit: float, max_steps: int,
+                     ray8: torch.Tensor, len_col: int = 6, *,
+                     mode: str = "nearest", sentinel_skip: bool = True,
+                     sentinel_scale: float = 1.0, st8=None, flags=None,
+                     ids=None):
+    """The render's march over its (R, 8) ray rows ``ray8`` (pos0, dir,
+    full length, bracket length), :func:`march_plain` per ray. Without
+    ``ids``: every row from its start over column ``len_col``; returns new
+    (st8 (R, 8) state rows, flags (R,) uint8: :func:`row_flags`). With
+    ``ids`` (a list padded with R): the listed rows resumed from ``st8``'s
+    (t, prev_t, prev) over column ``len_col``; their rows of ``st8`` (num
+    added to the earlier count) and ``flags`` are updated in place, and
+    (st8, flags) returned."""
+    R = ray8.shape[0]
+    kw = dict(mode=mode, sentinel_skip=sentinel_skip,
+              sentinel_scale=sentinel_scale)
+    if ids is None:
+        hit, num, st = march_plain(
+            table, limit, max_steps,
+            ((ray8[:, 0], ray8[:, 1], ray8[:, 2]), ray8[:, len_col]),
+            (ray8[:, 3], ray8[:, 4], ray8[:, 5]), **kw)
+        st8 = state_rows(hit, num, st)
+        return st8, row_flags(st8, ray8)
+    safe = torch.clamp_max(ids, R - 1)
+    rg = ray8[safe]
+    sg = st8[safe]
+    length = torch.where(ids < R, rg[:, len_col], 0.0)
+    hit, num, st = march_plain(
+        table, limit, max_steps, ((rg[:, 0], rg[:, 1], rg[:, 2]), length),
+        (rg[:, 3], rg[:, 4], rg[:, 5]),
+        resume=(sg[:, 0], sg[:, 1], sg[:, 2]), **kw)
+    _put_rows(st8, ids, state_rows(hit, num, st, sg[:, 7]))
+    flags.copy_(row_flags(st8, ray8))
+    return st8, flags
+
+
+def march_rows(table: torch.Tensor, limit: float, max_steps: int,
+               ray8: torch.Tensor, len_col: int = 6, *,
+               mode: str = "nearest", sentinel_skip: bool = True,
+               sentinel_scale: float = 1.0, st8=None, flags=None, ids=None):
+    """:func:`march_rows_plain`: one launch of csrc/march.cu's row march on
+    a CUDA table (rows read and written by id, in place), the plain
+    version on a CPU table. Same arguments and results."""
+    kw = dict(mode=mode, sentinel_skip=sentinel_skip,
+              sentinel_scale=sentinel_scale, st8=st8, flags=flags, ids=ids)
+    if table.device.type == "cpu":
+        return march_rows_plain(table, limit, max_steps, ray8, len_col, **kw)
+    from ..kernels.raymarch import march_rows_cuda
+
+    return march_rows_cuda(table, limit, max_steps, ray8, len_col, **kw)
+
+
+def march_grid_plain(table: torch.Tensor, limit: float, max_steps: int,
+                     blk: torch.Tensor, ids: torch.Tensor,
+                     grid: torch.Tensor, *, mode: str = "nearest",
+                     sentinel_skip: bool = True,
+                     sentinel_scale: float = 1.0) -> torch.Tensor:
+    """The coarse march of the listed blocks: row b = ids[i] of the (NB, 8)
+    block rows ``blk`` (pos0, dir, length, interval start) marched from its
+    start (ids past NB: the list's padding); a block whose ray hits gets
+    (1, start + lo_t, start + hi_t) in its entries of the (3, NB) hit / lo
+    / hi ``grid``, in place (the others keep theirs). Returns ``grid``."""
+    NB = blk.shape[0]
+    live = ids < NB
+    rows = blk[torch.clamp_max(ids, NB - 1)]
+    length = torch.where(live, rows[:, 6], 0.0)
+    start = torch.where(live, rows[:, 7], 0.0)
+    hit, _, st = march_plain(
+        table, limit, max_steps, ((rows[:, 0], rows[:, 1], rows[:, 2]),
+                                  length),
+        (rows[:, 3], rows[:, 4], rows[:, 5]), mode=mode,
+        sentinel_skip=sentinel_skip, sentinel_scale=sentinel_scale)
+    lo = start + st[3]
+    hi = start + st[4]
+    inf = float("inf")
+    _put_rows(grid.T, ids, torch.stack([
+        hit.to(torch.float32), torch.where(hit, lo, inf),
+        torch.where(hit, hi, -inf)], dim=-1))
+    return grid
+
+
+def march_grid(table: torch.Tensor, limit: float, max_steps: int,
+               blk: torch.Tensor, ids: torch.Tensor, grid: torch.Tensor, *,
+               mode: str = "nearest", sentinel_skip: bool = True,
+               sentinel_scale: float = 1.0) -> torch.Tensor:
+    """:func:`march_grid_plain`: one launch of csrc/march.cu's row march in
+    its grid mode on a CUDA table, the plain version on a CPU table."""
+    kw = dict(mode=mode, sentinel_skip=sentinel_skip,
+              sentinel_scale=sentinel_scale)
+    if table.device.type == "cpu":
+        return march_grid_plain(table, limit, max_steps, blk, ids, grid, **kw)
+    from ..kernels.raymarch import march_grid_cuda
+
+    return march_grid_cuda(table, limit, max_steps, blk, ids, grid, **kw)
 
 
 def march_chunked(table: torch.Tensor, limit: float, max_steps: int,

@@ -13,7 +13,12 @@ reference_setup``, also the one chip_smoke.py drives), then:
 3. runs the traced window of ``bench/trace.py`` over FRAMES frames of
    fuse + render: the device time, the device activity count, the busy
    share = device time per frame / wall time per frame of step 2, the
-   top device kernels by time and the longest idle gaps.
+   top device kernels by time and the longest idle gaps;
+4. counts the host syncs of one render_from_baked (after the bake, the
+   fill included) under ``torch.cuda.set_sync_debug_mode("warn")``: the
+   warnings PyTorch raises for its synchronizing operations (nonzero,
+   item, blocking copies), and the same traced window over FRAMES calls
+   of render_from_baked alone (its device activities a call).
 
 Prints each figure, the card's name and power limit, and one JSON line
 with all of them last.
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import json
 import time
+import warnings
 
 import torch
 
@@ -86,9 +92,38 @@ def main() -> None:
     for g in trace["idle_gaps"]:
         print(f"  idle {g['ms']:10.3f} ms at {g['at_ms']:10.3f} ms")
 
+    syncs = render_syncs(lambda: render.render_from_baked(
+        baked, maps, cam, proj, limit))
+    print(f"render_from_baked: {syncs} host syncs a call "
+          "(set_sync_debug_mode warnings)", flush=True)
+    rfb = profile_frames(lambda: render.render_from_baked(
+        baked, maps, cam, proj, limit), FRAMES, stage_ms["render_from_baked"])
+    rfb_acts = None if rfb is None else rfb["device_activities"] // FRAMES
+    print(f"render_from_baked: {rfb_acts} device activities a call",
+          flush=True)
+
     print(card)
     print(json.dumps(dict(card=card, stage_ms=stage_ms,
-                          wall_ms_per_frame=wall_ms, **trace)))
+                          wall_ms_per_frame=wall_ms,
+                          render_from_baked_syncs=syncs,
+                          render_from_baked_activities=rfb_acts, **trace)))
+
+
+def render_syncs(fn) -> int:
+    """The host syncs of one call of ``fn``: the warnings PyTorch's sync
+    debug mode raises for its synchronizing operations."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(
+        w.message) for w in caught)
 
 
 if __name__ == "__main__":

@@ -33,8 +33,10 @@ from ..core.grid import BoundingBox, BrickGrid, VolumeGrid
 from ..device import DEFAULT, resolve
 from ..ops import bake as bake_ops
 from ..ops import bricks as brick_ops
+from ..ops import compact as compact_ops
 from ..ops import hits as hit_ops
 from ..ops import holefill, raymarch, tsdf
+from ..ops import render_stages as stages
 from ..ops.preprocess import SensorMaps, preprocess_frames
 from ..ops.sampling import trilinear_3d
 from ..refine import pose_ba
@@ -97,35 +99,6 @@ def _uses_sentinels(c: PipelineConfig) -> bool:
     """The render marches a bf16 skip-sentinel table (else the raw f32
     volume) exactly when the march is nearest with empty-space skipping."""
     return c.march_empty_skip and c.march_mode == "nearest"
-
-
-def _pool3(x: torch.Tensor, op) -> torch.Tensor:
-    """3x3 min/max pooling with edge padding (tsdf_pipeline pool3)."""
-    H, W = x.shape
-    p = torch.nn.functional.pad(x[None, None], (1, 1, 1, 1),
-                                mode="replicate")[0, 0]
-    out = x
-    for dy in (0, 1, 2):
-        for dx in (0, 1, 2):
-            out = op(out, p[dy: dy + H, dx: dx + W])
-    return out
-
-
-def _first_ids(mask: torch.Tensor, capacity: int) -> torch.Tensor:
-    """The first ``capacity`` True indices of a 1-D mask in ascending order,
-    padded with len(mask) (the fixed-size nonzero of the reference)."""
-    n = mask.shape[0]
-    ids = torch.nonzero(mask).reshape(-1)[:capacity]
-    pad = torch.full((capacity - ids.shape[0],), n, dtype=ids.dtype,
-                     device=mask.device)
-    return torch.cat([ids, pad])
-
-
-def _scatter_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
-    """buf[idx] = rows, dropping out-of-range idx (mode="drop")."""
-    keep = idx < buf.shape[0]
-    buf[idx[keep]] = rows[keep]
-    return buf
 
 
 class TsdfPipeline:
@@ -535,7 +508,6 @@ class TsdfPipeline:
         H, W = camera.height, camera.width
         near, far = float(camera.near), float(camera.far)
         tan_half = float(np.tan(np.radians(camera.fov_y) * 0.5))
-        aspect = W / H
         bbox_size = np.asarray(self.bbox.size, np.float32)
         vol_shape = self.volume_grid.shape
         brick_vox = self.brick_vox
@@ -580,7 +552,6 @@ class TsdfPipeline:
         table_dtype = (torch.bfloat16 if c.march_dtype == "bfloat16"
                        else torch.float32)
         num_lods = c.num_lods
-        Z, Y, X = vol_shape
         # the march table's bake, kernel or plain, by configuration as in
         # the JAX package (ops/bake.py uses_kernel_bake)
         kernel_bake = bake_ops.uses_kernel_bake(brick_vox,
@@ -588,89 +559,43 @@ class TsdfPipeline:
         # the chunked march serves the fine stage's first march
         chunked = c.march_chunk > 0 and c.march_mode == "nearest"
 
-        def ray_dirs(cam: CamParams, hh, ww):
-            """Planar unit volume-space directions, 3x (hh, ww)."""
-            xs = (torch.arange(ww, dtype=torch.float32, device=dev) + 0.5
-                  ) / W * 2.0 - 1.0
-            ys = 1.0 - (torch.arange(hh, dtype=torch.float32, device=dev)
-                        + 0.5) / H * 2.0
-            yy, xx = torch.meshgrid(ys * tan_half, xs * tan_half * aspect,
-                                    indexing="ij")
-            dv = [(xx * cam.rot[j, 0] + yy * cam.rot[j, 1] - cam.rot[j, 2])
-                  / float(bbox_size[j]) for j in range(3)]
-            inv_n = torch.rsqrt(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2])
-            return tuple(d * inv_n for d in dv)
+        geom = stages.BlockGeometry(
+            H=H, W=W, ds=ds, sc=2, tan_half=tan_half,
+            bbox_size=tuple(float(v) for v in bbox_size), vol_shape=vol_shape,
+            brick_vox=brick_vox, n_scan=n_scan, step_len=step_len,
+            brick_norm=brick_norm, bracket_max_steps=c.bracket_max_steps,
+            bracket_margin_steps=c.bracket_margin_steps, sd=sd,
+            per_block=bool(c.bracket_per_block))
+        # the block list, the march's tail lists and the hit list
+        capB = min(NB, max(-(-int(NB * c.ray_compaction) // 8) * 8, 2048))
+        R = capB * B2
+        hit_frac = c.hit_compaction if c.hit_compaction > 0.0 else 1.0
+        capH = min(R, -(-int(R * hit_frac) // 8) * 8)
+        p1 = c.march_phase1_steps
+        staged = p1 > 0 and skip_
+        # narrowing tail stages over the full interval: (steps, capacity)
+        tails = []
+        if staged:
+            budget_used = p1
+            for divisor, budget in ((3, 3 * p1), (10, tail_budget)):
+                steps = min(budget, max_steps - budget_used)
+                if steps <= 0:
+                    break
+                tails.append((steps,
+                              max(-(-R // divisor // 8) * 8, min(R, 1024))))
+                budget_used += steps
+        caps = stages.count_caps(capB, [cap for _, cap in tails], capH,
+                                 oct_capacity if use_oct else -1)
 
-        def surface_aabb(occ):
-            """Normalized AABB of the surface bricks."""
-            def lohi(any_ax, n, true_n):
-                idx = torch.arange(n, device=dev)
-                lo = torch.where(any_ax, idx, n).min()
-                hi = torch.where(any_ax, idx, -1).max()
-                return (lo.to(torch.float32) * brick_vox / true_n,
-                        torch.clamp_max((hi + 1).to(torch.float32)
-                                        * brick_vox / true_n, 1.0))
-
-            Bz, By, Bx = occ.shape
-            zlo, zhi = lohi(occ.any(dim=2).any(dim=1), Bz, Z)
-            ylo, yhi = lohi(occ.any(dim=2).any(dim=0), By, Y)
-            xlo, xhi = lohi(occ.any(dim=1).any(dim=0), Bx, X)
-            return torch.stack([xlo, ylo, zlo]), torch.stack([xhi, yhi, zhi])
-
-        def scan_intervals(occ, bsafe, cam: CamParams, dirs_c):
-            """Per coarse ray (first, last, first-surface, s0, s1) arc
-            lengths: first sample in the 1-brick-dilated surface set, last
-            and first samples in an actual surface brick, and the AABB
-            entry/exit (the brick-hull depth peel of the reference)."""
-            Bz, By, Bx = occ.shape
-            field = torch.where(occ, -1.0,
-                                torch.where(bsafe == 0.0, 0.0, 1.0)
-                                ).reshape(-1)
-            box_min, box_max = surface_aabb(occ)
-            dcx, dcy, dcz = dirs_c
-
-            def slab(c0, d, lo, hi):
-                inv = 1.0 / d
-                tb = inv * (lo - c0)
-                tt = inv * (hi - c0)
-                return torch.minimum(tb, tt), torch.maximum(tb, tt)
-
-            l0, h0 = slab(cam.eye_vol[0], dcx, box_min[0], box_max[0])
-            l1, h1 = slab(cam.eye_vol[1], dcy, box_min[1], box_max[1])
-            l2, h2 = slab(cam.eye_vol[2], dcz, box_min[2], box_max[2])
-            s0 = torch.maximum(torch.maximum(l0, l1), l2)
-            s1 = torch.minimum(torch.minimum(h0, h1), h2)
-            valid = (s0 <= s1) & (s1 > 0.0)
-            s0 = torch.clamp_min(s0, 0.0)
-            s1 = torch.where(valid, s1, -1.0)
-            ks = torch.arange(n_scan, dtype=torch.float32, device=dev)
-            spacing = torch.clamp_max((s1 - s0) / (n_scan - 1), step_len)
-            t = s0[..., None] + ks * spacing[..., None]
-
-            def brick_idx(e, d, n, nb):
-                i = ((e + d[..., None] * t) * n).to(torch.int32) // brick_vox
-                return torch.clamp(i, 0, nb - 1)
-
-            bx = brick_idx(cam.eye_vol[0], dcx, X, Bx)
-            by = brick_idx(cam.eye_vol[1], dcy, Y, By)
-            bz = brick_idx(cam.eye_vol[2], dcz, Z, Bz)
-            s = field[((bz * By + by) * Bx + bx).to(torch.int64)]
-            inside = valid[..., None] & (t <= s1[..., None])
-            tgt = (s < 0.5) & inside
-            surf = (s < -0.5) & inside
-            inf = float("inf")
-            first = torch.where(tgt, t, inf).min(dim=-1).values
-            last = torch.where(surf, t, -inf).max(dim=-1).values
-            fsurf = torch.where(surf, t, inf).min(dim=-1).values
-            return first, last, fsurf, s0, torch.where(valid, s1, 0.0)
-
-        def finalize(rgba, depth_win, hit_img, num_img, overflow):
+        def finalize(planes, depth_win, hit_img, num_img, overflow):
+            """The fill of the pre-fill ``planes`` (4 rgba planes) and the
+            background."""
             if c.colorfill:
                 filled, depth_out = holefill.fill_colors_planar(
-                    [rgba[..., i] for i in range(4)], depth_win, num_lods)
+                    list(planes), depth_win, num_lods)
                 rgb_planes = filled[:3]
             else:
-                rgb_planes = [rgba[..., i] for i in range(3)]
+                rgb_planes = list(planes[:3])
                 depth_out = depth_win
             # background compositing: empty pixels keep window depth 1.0
             shown = depth_out < 1.0
@@ -748,227 +673,80 @@ class TsdfPipeline:
             oct = build_oct(volume, occ) if use_oct else None
             return table, oct, occ, bsafe
 
-        def do_march(table, limit, budget, pos0, dirs, length, resume=None,
-                     chunk=None):
-            """The chunked march when ``chunk`` is given and the config
-            asks for it, the stepwise march otherwise."""
-            if chunked and chunk:
-                return raymarch.march_chunked(
-                    table, limit, budget, (pos0, length), dirs,
-                    chunk=min(chunk, budget), sentinel_skip=skip_,
-                    sentinel_scale=h_min, resume=resume)
-            return raymarch.march(table, limit, budget, (pos0, length), dirs,
-                                  mode=c.march_mode, sentinel_skip=skip_,
-                                  sentinel_scale=h_min, resume=resume)
-
         def render_from_baked(baked, maps: SensorMaps, cam: CamParams,
                               proj_models, limit):
             """Block march (staged with sentinels, else one full-length
-            march) + hit refine + shading + hole fill."""
+            march) + hit refine + shading + hole fill. Every stage runs on
+            the device (ops/render_stages.py, ops/compact.py, the row march
+            of ops/raymarch.py): nothing is read back before the fill."""
             table, oct, occ, bsafe = baked
             floor = -limit if skip_ else None   # sentinel clamp
-            dn = ray_dirs(cam, Hp, Wp)
-            dirs_c = tuple(d[ds // 2::ds, ds // 2::ds] for d in dn)
+            march_kw = dict(mode=c.march_mode, sentinel_skip=skip_,
+                            sentinel_scale=h_min)
+            # the lists' counts (stages.COUNT_*)
+            counts = torch.zeros(stages.NUM_COUNTS, dtype=torch.int32,
+                                 device=dev)
 
             # interval scan at half block resolution, 3x3-pooled back up
-            sc = 2
-            first_c, last_c, fsurf_c, s0_c, s1_c = scan_intervals(
-                occ, bsafe, cam, tuple(d[::sc, ::sc] for d in dirs_c))
-
-            def upc(xc, op):
-                p = _pool3(xc, op)
-                r = p.repeat_interleave(sc, 0).repeat_interleave(sc, 1)
-                return r[:Hb, :Wb]
-
-            first = upc(first_c, torch.minimum)
-            last = upc(last_c, torch.maximum)
-            fsurf = upc(fsurf_c, torch.minimum)
-            s0p = upc(s0_c, torch.minimum)
-            s1p = upc(s1_c, torch.maximum)
-            pad = 0.75 * step_len
-            found = torch.isfinite(first) & torch.isfinite(last)
-            s_start = torch.maximum(
-                torch.maximum(first - pad, fsurf - brick_norm - pad), s0p)
-            s_end = torch.minimum(last + step_len + pad, s1p)
-            length = torch.where(found, torch.clamp_min(s_end - s_start, 0.0),
-                                 0.0)
-            s_start = torch.where(found, s_start, 0.0)
+            scan5 = stages.scan(geom, occ, bsafe, cam, counts,
+                                stages.COUNT_SURFACE)
+            blk, s_end, bflags, grid = stages.block_setup(geom, scan5, cam)
 
             # block compaction: fixed-capacity list of active 4x4 blocks
-            flags = (length > 0.0).reshape(NB)
-            capB = min(NB, max(-(-int(NB * c.ray_compaction) // 8) * 8, 2048))
-            blk_idx = _first_ids(flags, capB)
-            safe = torch.clamp_max(blk_idx, NB - 1)
-            live_b = blk_idx < NB
-
-            # coarse density march: one center ray per active block
-            dirs_cb = tuple(d.reshape(NB)[safe] for d in dirs_c)
-            sstart_c = torch.where(live_b, s_start.reshape(NB)[safe], 0.0)
-            len_c = torch.where(live_b, length.reshape(NB)[safe], 0.0)
-            pos0_c = tuple(cam.eye_vol[i] + dirs_cb[i] * sstart_c
-                           for i in range(3))
-            bhit, _, bst = do_march(table, limit, blk_budget, pos0_c, dirs_cb,
-                                    len_c)
-            blo = sstart_c + bst[3]
-            bhi = sstart_c + bst[4]
-
-            inf = float("inf")
-            hit_g = _scatter_rows(torch.zeros(NB, device=dev), blk_idx,
-                                  bhit.to(torch.float32)).reshape(Hb, Wb)
-            lo_g = _scatter_rows(torch.full((NB,), inf, device=dev), blk_idx,
-                                 torch.where(bhit, blo, inf)).reshape(Hb, Wb)
-            hi_g = _scatter_rows(torch.full((NB,), -inf, device=dev), blk_idx,
-                                 torch.where(bhit, bhi, -inf)).reshape(Hb, Wb)
-            all9 = _pool3(hit_g, torch.minimum) > 0.5
-            lo9 = _pool3(lo_g, torch.minimum)
-            hi9 = _pool3(hi_g, torch.maximum)
-            margin = c.bracket_margin_steps * sd
-            # trust the bracket only when every neighboring block ray hit,
-            # it is narrow, and it starts close to the interval entry
-            bracket_ok = (
-                all9
-                & ((hi9 - lo9) < c.bracket_max_steps * sd)
-                & ((lo9 - s_start) < 2.0 * brick_norm + pad)
-            )
-            if c.bracket_per_block:
-                # each block's own coarse bracket, widened by 1/8 of the
-                # 3x3 spread (the local slope); the guards above keep the
-                # pooled values
-                spread = 0.125 * (hi9 - lo9)
-                b_lo = (torch.where(torch.isfinite(lo_g), lo_g, s_start)
-                        - margin - spread)
-                b_hi = (torch.where(torch.isfinite(hi_g), hi_g, s_end)
-                        + margin + spread)
-            else:
-                b_lo = lo9 - margin
-                b_hi = hi9 + margin
-            f_start = torch.where(bracket_ok, torch.maximum(b_lo, s_start),
-                                  s_start)
-            len_brkt = torch.where(
-                found & bracket_ok,
-                torch.clamp_min(torch.minimum(b_hi, s_end) - f_start, 0.0),
-                length)
-            len_full = torch.clamp_min(
-                torch.where(found, s_end - f_start, 0.0), 0.0)
-
+            blk_idx, blk_slot = compact_ops.compact(
+                bflags, 0, capB, counts, stages.COUNT_BLOCKS, want_slot=True)
+            # coarse density march: one centre ray per active block
+            raymarch.march_grid(table, limit, blk_budget, blk, blk_idx, grid,
+                                **march_kw)
             # fine march: all rays of the active blocks
-            sstart_b = torch.where(live_b, f_start.reshape(NB)[safe], 0.0)
-            lbrkt_b = torch.where(live_b, len_brkt.reshape(NB)[safe], 0.0)
-            lfull_b = torch.where(live_b, len_full.reshape(NB)[safe], 0.0)
-            R = capB * B2
-
-            def to_rays(plane):
-                blocks = (plane.reshape(Hb, ds, Wb, ds).permute(0, 2, 1, 3)
-                          .reshape(NB, B2))
-                return blocks[safe].reshape(R)
-
-            def per_ray(x):
-                return x[:, None].expand(capB, B2).reshape(R)
-
-            dn_f = tuple(to_rays(d) for d in dn)
-            sstart_f = per_ray(sstart_b)
-            pos0_f = tuple(cam.eye_vol[i] + dn_f[i] * sstart_f
-                           for i in range(3))
-            len_brkt_f = per_ray(lbrkt_b)
-            len_full_f = per_ray(lfull_b)
-            # per-ray constants: pos0 (3), dir (3), full length, bracket
-            ray8 = torch.stack([*pos0_f, *dn_f, len_full_f, len_brkt_f],
-                               dim=-1)
-
-            def state8(hit, num, st, num_base=None):
-                n = num.to(torch.float32)
-                if num_base is not None:
-                    n = num_base + n
-                return torch.stack([*st, hit.to(torch.float32), n], dim=-1)
-
-            overflow2 = 0
-            p1 = c.march_phase1_steps
-            if p1 > 0 and skip_:
-                hit, num, st = do_march(table, limit, p1, pos0_f, dn_f,
-                                        len_brkt_f, chunk=p1)
-                st8 = state8(hit, num, st)
-                budget_used = p1
-                # narrowing tail stages over the full interval
-                for divisor, budget in ((3, 3 * p1), (10, tail_budget)):
-                    steps = min(budget, max_steps - budget_used)
-                    if steps <= 0:
-                        break
-                    unfinished = ((st8[:, 6] < 0.5)
-                                  & (st8[:, 0] <= ray8[:, 6])
-                                  & (ray8[:, 6] > 0.0))
-                    cap_t = max(-(-R // divisor // 8) * 8, min(R, 1024))
-                    idx2 = _first_ids(unfinished, cap_t)
-                    safe2 = torch.clamp_max(idx2, R - 1)
-                    rg = ray8[safe2]
-                    sg = st8[safe2]
-                    len2 = torch.where(idx2 < R, rg[:, 6], 0.0)
-                    hit2, num2, st2 = do_march(
-                        table, limit, steps, (rg[:, 0], rg[:, 1], rg[:, 2]),
-                        (rg[:, 3], rg[:, 4], rg[:, 5]), len2,
-                        resume=(sg[:, 0], sg[:, 1], sg[:, 2]))
-                    budget_used += steps
-                    st8 = _scatter_rows(st8, idx2,
-                                        state8(hit2, num2, st2, sg[:, 7]))
-                    overflow2 = max(overflow2,
-                                    int(unfinished.sum()) - cap_t)
+            ray8 = stages.bracket(geom, grid, blk, s_end, bflags, blk_idx,
+                                  cam)
+            if staged:
+                if chunked:
+                    hit, num, st = raymarch.march_chunked(
+                        table, limit, p1,
+                        ((ray8[:, 0], ray8[:, 1], ray8[:, 2]), ray8[:, 7]),
+                        (ray8[:, 3], ray8[:, 4], ray8[:, 5]), chunk=p1,
+                        sentinel_skip=skip_, sentinel_scale=h_min)
+                    st8 = raymarch.state_rows(hit, num, st)
+                    rflags = raymarch.row_flags(st8, ray8)
+                else:
+                    st8, rflags = raymarch.march_rows(table, limit, p1, ray8,
+                                                      7, **march_kw)
+                for k, (steps, cap_t) in enumerate(tails):
+                    idx2, _ = compact_ops.compact(rflags, 1, cap_t, counts,
+                                                  stages.COUNT_TAILS[k])
+                    raymarch.march_rows(table, limit, steps, ray8, 6,
+                                        st8=st8, flags=rflags, ids=idx2,
+                                        **march_kw)
             else:
-                hit, num, st = do_march(table, limit, max_steps, pos0_f,
-                                        dn_f, len_full_f)
-                st8 = state8(hit, num, st)
-
-            hit = st8[:, 6] > 0.5
+                st8, rflags = raymarch.march_rows(table, limit, max_steps,
+                                                  ray8, 6, **march_kw)
 
             # hit compaction: refine, normals, color and shading run on the
             # hit set only
-            hit_frac = c.hit_compaction if c.hit_compaction > 0.0 else 1.0
-            capH = min(R, -(-int(R * hit_frac) // 8) * 8)
-            hit_idx = _first_ids(hit, capH)
-            safeH = torch.clamp_max(hit_idx, R - 1)
-            live_h = hit_idx < R
-            rh = ray8[safeH]
-            sh = st8[safeH]
-            pos0_h = (rh[:, 0], rh[:, 1], rh[:, 2])
-            dn_h = (rh[:, 3], rh[:, 4], rh[:, 5])
-            hit_pos_h = torch.stack([rh[:, i] + rh[:, 3 + i] * sh[:, 5]
-                                     for i in range(3)], dim=-1)
+            hit_idx, hit_slot = compact_ops.compact(
+                rflags, 0, capH, counts, stages.COUNT_HITS, want_slot=True)
+            hrows, hit_pos_h, live_h = stages.hit_gather(ray8, st8, hit_idx)
+            pos0_h = (hrows[:, 0], hrows[:, 1], hrows[:, 2])
+            dn_h = (hrows[:, 3], hrows[:, 4], hrows[:, 5])
             if "refine" in c.debug_skip:
                 hp = hit_pos_h        # the march's own secant position
             else:
                 # the oct table's refine where there is one, else the
                 # march table's
                 hp = hit_ops.refine_hits(
-                    pos0_h, dn_h, sh[:, 3], sh[:, 4], live_h, hit_pos_h,
-                    limit, oct=oct, table=table, clamp_floor=floor,
-                    widen_steps=c.refine_widen_steps,
+                    pos0_h, dn_h, hrows[:, 6], hrows[:, 7], live_h,
+                    hit_pos_h, limit, oct=oct, table=table,
+                    clamp_floor=floor, widen_steps=c.refine_widen_steps,
                     widen_samples=c.refine_widen_samples)
             rgba_h, depth_h = hit_ops.shade_hits(
                 c, self.calib, self.bbox, live_h, hp, maps, proj_models, cam,
                 near, far, limit, table, floor, oct)
-
-            hit6 = torch.cat([rgba_h, depth_h[:, None],
-                              live_h.to(torch.float32)[:, None]], dim=-1)
-            buf6 = _scatter_rows(torch.zeros((R, 6), device=dev), hit_idx,
-                                 hit6)
-            buf8 = torch.cat([buf6, st8[:, 7:8],
-                              torch.zeros((R, 1), device=dev)], dim=-1)
-            img8_full = _scatter_rows(
-                torch.zeros((NB, B2, 8), device=dev), blk_idx,
-                buf8.reshape(capB, B2, 8))
-            img8 = (img8_full.reshape(Hb, Wb, ds, ds, 8)
-                    .permute(0, 2, 1, 3, 4).reshape(Hp, Wp, 8)[:H, :W])
-            rgba_img = img8[..., :4]
-            hit_img = img8[..., 5] > 0.5
-            depth_img = torch.where(hit_img, img8[..., 4], 1.0)
-            num_img = img8[..., 6].to(torch.int32)
-
-            overflow = torch.tensor([
-                max(int(flags.sum()) - capB, 0),
-                overflow2,
-                max(int(hit.sum()) - capH, 0),
-                max(int(occ.sum()) - oct_capacity, 0) if oct is not None
-                else 0,
-            ], dtype=torch.int32, device=dev)
-            return finalize(rgba_img, depth_img, hit_img, num_img, overflow)
+            planes, depth_img, hit_img, num_img, overflow = stages.compose(
+                geom, blk_slot, hit_slot, st8, rgba_h.contiguous(),
+                depth_h.contiguous(), counts, caps)
+            return finalize(planes, depth_img, hit_img, num_img, overflow)
 
         def render_dense(volume, maps: SensorMaps, cam: CamParams,
                          proj_models, limit):
@@ -978,7 +756,7 @@ class TsdfPipeline:
             the ``debug_skip`` switches, "grad" and "blend" act here (in
             ops/hits.py shade_hits) and "refine" does not, as in the JAX
             package's render_dense, whose march always refines."""
-            dn = ray_dirs(cam, H, W)
+            dn = stages.ray_dirs(geom, cam, H, W)
             pos0, length = raymarch.unit_cube_entry(cam.eye_vol, dn, limit)
             hit, num, st = raymarch.march(
                 volume, limit, max_steps, (pos0, length), dn,
@@ -992,7 +770,8 @@ class TsdfPipeline:
                 c, self.calib, self.bbox, hit, hit_pos, maps, proj_models,
                 cam, near, far, limit, volume, None, None)
             overflow = torch.zeros(4, dtype=torch.int32, device=dev)
-            return finalize(rgba, depth_win, hit, num, overflow)
+            return finalize(rgba.permute(2, 0, 1), depth_win, hit, num,
+                            overflow)
 
         def render(volume, maps: SensorMaps, brick_counts, cam: CamParams,
                    proj_models, limit):

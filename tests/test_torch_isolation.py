@@ -94,6 +94,9 @@ def test_module_list_is_whole():
                  "kernels/holefill.py", "ops/holefill.py",
                  "kernels/hits.py", "ops/hits.py",
                  "kernels/preprocess.py", "ops/preprocess.py",
+                 "kernels/compact.py", "ops/compact.py",
+                 "kernels/render_stages.py", "ops/render_stages.py",
+                 "ops/stage_calls.py",
                  "bench/gather_probe.py", "bench/headline.py",
                  "bench/oracle.py", "bench/trace.py", "bench/ablation.py",
                  "bench/render_sweep.py", "bench/stages.py"):

@@ -20,6 +20,14 @@ import torch
 
 from rgbd_recon_tpu_torch import kernels
 from rgbd_recon_tpu_torch.ops import bake, holefill, stencil13
+from rgbd_recon_tpu_torch.ops.stage_calls import (
+    STAGES,
+    all_bits_equal,
+    bits_equal,
+    plain_stages,
+    record_stages,
+    replay,
+)
 
 from hit_cases import record_hits
 from holefill_cases import fill_planes
@@ -1239,6 +1247,8 @@ def test_render_marches_on_the_kernel(cuda, monkeypatch, config, marches):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["march"] == marches
     monkeypatch.setattr(raymarch, "march", raymarch.march_plain)
+    monkeypatch.setattr(raymarch, "march_rows", raymarch.march_rows_plain)
+    monkeypatch.setattr(raymarch, "march_grid", raymarch.march_grid_plain)
     kernels.reset_launch_counts()
     want = render(volume, maps, counts)
     assert kernels.launch_counts()["march"] == 0
@@ -1788,3 +1798,191 @@ def test_preprocess_wrappers_raise_on_the_card(cuda):
     with pytest.raises(RuntimeError, match="morph"):
         kp.morph_cuda(torch.zeros((70_000, 1, 1), device=cuda))
     assert kernels.launch_counts()["morph"] == 0
+
+
+# ---- the render's block stages ------------------------------------------
+
+# the block path's configurations on the small scene (render_stage_scene):
+# the fast path, the parity path, per-block brackets, the chunked first
+# march (phase 1 on its twin), and a close-up camera that overflows the
+# block list (2,048 slots), a tail stage's list and the hit list
+RENDER_STAGE_CONFIGS = {
+    "fast": {},
+    "parity": dict(march_mode="trilinear", march_empty_skip=False,
+                   integrate_taps="bilinear", projection_model=False,
+                   march_dtype="float32"),
+    "bracket_per_block": dict(bracket_per_block=True),
+    "march_chunk": dict(march_chunk=8),
+    "overflow": dict(ray_compaction=0.01, march_phase1_steps=5,
+                     hit_compaction=0.05),
+}
+# each config's launches a render of the stage kernels
+RENDER_STAGE_LAUNCHES = {
+    "fast": dict(scan=1, block_setup=1, compact=4, bracket=1, hit_gather=1,
+                 compose=1, march=4),
+    "parity": dict(scan=1, block_setup=1, compact=2, bracket=1,
+                   hit_gather=1, compose=1, march=2),
+    "march_chunk": dict(scan=1, block_setup=1, compact=4, bracket=1,
+                        hit_gather=1, compose=1, march=3),
+}
+RENDER_STAGE_LAUNCHES["bracket_per_block"] = RENDER_STAGE_LAUNCHES["fast"]
+RENDER_STAGE_LAUNCHES["overflow"] = RENDER_STAGE_LAUNCHES["fast"]
+
+
+def render_stage_scene(device, name):
+    """(pipeline, render function, baked state, the render_from_baked
+    arguments after the bake) of a config of RENDER_STAGE_CONFIGS on the
+    small scene in 20 cm bricks: a 160x120 camera, or for "overflow" a
+    256x192 close-up (3,072 blocks)."""
+    from rgbd_recon_tpu_torch.ops.raymarch import ViewCamera
+
+    pipe, volume, maps, counts, _, _ = _small_scene(
+        device, brick_size=0.2, num_sensors=4,
+        **RENDER_STAGE_CONFIGS[name])
+    cam = (ViewCamera(width=256, height=192, eye=(0.0, 1.15, 1.35),
+                      target=(0.0, 1.1, 0.0)) if name == "overflow"
+           else ViewCamera(width=160, height=120))
+    render, cam0 = pipe.make_render_fn(cam)
+    baked = render.bake(volume, counts)
+    args = (baked, maps, cam0, pipe._get_projection_models(), pipe._limit)
+    return pipe, render, args
+
+
+def _render_stage_launches():
+    names = ("scan", "block_setup", "compact", "bracket", "hit_gather",
+             "compose", "march")
+    return {k: kernels.launch_counts()[k] for k in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bit", [0, 1, 7])
+@pytest.mark.parametrize("p", [0.0, 0.35, 1.0])
+@pytest.mark.parametrize("n", [0, 1, 9, 8191, 8192, 8193, 57_600, 184_320])
+def test_render_stage_compact_kernel(cuda, n, p, bit):
+    """The compaction kernel against compact_plain on the card, bit for
+    bit: the list (ascending, padded with n), the count, the slot map, at
+    capacities under, at and over the count and 0, across its 8,192-flag
+    tiles; other bits of the flags ignored."""
+    from rgbd_recon_tpu_torch.kernels.compact import compact_cuda
+    from rgbd_recon_tpu_torch.ops.compact import compact_plain
+
+    g = torch.Generator(cuda).manual_seed(n + int(p * 100) + bit)
+    flags = torch.randint(0, 256, (n,), dtype=torch.uint8, device=cuda,
+                          generator=g)
+    on = torch.rand(n, device=cuda, generator=g) < p
+    flags = torch.where(on, flags | (1 << bit), flags & (255 - (1 << bit)))
+    k = int(on.sum())
+    for cap in sorted({0, 1, max(k - 1, 0), k, k + 3, n, 11_520}):
+        kc = torch.full((3,), -5, dtype=torch.int32, device=cuda)
+        kp = torch.full((3,), -5, dtype=torch.int32, device=cuda)
+        before = kernels.LAUNCHES["compact"]
+        got = compact_cuda(flags, bit, cap, kc, 2, want_slot=True)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["compact"] == before + 1
+        want = compact_plain(flags, bit, cap, kp, 2, want_slot=True)
+        assert all_bits_equal(got, want), cap
+        assert kc.tolist() == kp.tolist() == [-5, -5, k], cap
+        ids, _ = compact_cuda(flags, bit, cap, kc, 0)
+        assert bits_equal(ids, want[0]), cap
+
+
+@pytest.mark.cuda
+def test_render_stage_compact_refusals(cuda):
+    """The compaction wrapper refuses flags off an 8-byte boundary, of
+    another type, a bit past 7 and counts on another device, and launches
+    nothing."""
+    from rgbd_recon_tpu_torch.kernels.compact import compact_cuda
+
+    flags = torch.ones(100, dtype=torch.uint8, device=cuda)
+    counts = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="boundary"):
+        compact_cuda(flags[3:], 0, 8, counts, 0)
+    with pytest.raises(ValueError, match="uint8"):
+        compact_cuda(flags.bool(), 0, 8, counts, 0)
+    with pytest.raises(ValueError, match="bit"):
+        compact_cuda(flags, 8, 8, counts, 0)
+    with pytest.raises(ValueError, match="counts"):
+        compact_cuda(flags, 0, 8, counts.cpu(), 0)
+    assert kernels.launch_counts()["compact"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RENDER_STAGE_CONFIGS))
+def test_render_stage_kernels_match_twins(cuda, name):
+    """Each stage kernel (the compaction, the scan, the block set-up, the
+    coarse and the row marches, the bracket, the hit gather, the compose)
+    on the inputs one render on the card hands it, bit for bit against its
+    plain twin on the same inputs: every output and every array it updates
+    in place."""
+    _, render, args = render_stage_scene(cuda, name)
+    calls = record_stages(lambda: render.render_from_baked(*args))
+    stages = set()
+    for stage, a, kw, _ in calls:
+        got, got_after = replay(stage, a, kw, plain=False)
+        want, want_after = replay(stage, a, kw, plain=True)
+        torch.cuda.synchronize()
+        assert all_bits_equal(got, want), stage
+        assert all_bits_equal(got_after, want_after), stage
+        stages.add(stage)
+    assert stages == set(STAGES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RENDER_STAGE_CONFIGS))
+def test_render_stage_render_matches_twins(cuda, monkeypatch, name):
+    """render_from_baked on the stage kernels against the same render on
+    the stage twins (on the card): hit mask, window depth, march steps,
+    the overflow vector, the pre-fill rgba planes and the colour bit for
+    bit; each stage kernel launched as RENDER_STAGE_LAUNCHES says, the
+    twins none. The overflow case drops blocks, tail rays and hits."""
+    from rgbd_recon_tpu_torch.ops import holefill
+
+    _, render, args = render_stage_scene(cuda, name)
+    fills = []
+    fill = holefill.fill_colors_planar
+
+    def record_fill(planes, depth, lods):
+        fills.append([p.clone() for p in planes])
+        return fill(planes, depth, lods)
+
+    monkeypatch.setattr(holefill, "fill_colors_planar", record_fill)
+    render.render_from_baked(*args)         # warm-up
+    kernels.reset_launch_counts()
+    got = render.render_from_baked(*args)
+    torch.cuda.synchronize()
+    assert _render_stage_launches() == RENDER_STAGE_LAUNCHES[name]
+    kernels.reset_launch_counts()
+    with plain_stages():
+        want = render.render_from_baked(*args)
+    counts = _render_stage_launches()
+    assert all(v == 0 for v in counts.values()), counts
+    for f in ("hit", "depth", "num_samples", "overflow", "color"):
+        assert bits_equal(getattr(got, f), getattr(want, f)), f
+    assert got.overflow.dtype == torch.int32
+    for g, w in zip(fills[-2], fills[-1]):
+        assert bits_equal(g.contiguous(), w.contiguous())
+    assert int(got.hit.sum()) > 50
+    ov = got.overflow.tolist()
+    if name == "overflow":
+        assert ov[0] > 0 and ov[1] > 0 and ov[2] > 0, ov
+    else:
+        assert ov[0] == 0, ov
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fast", "parity"])
+def test_render_stage_no_host_sync(cuda, name):
+    """After the bake, render_from_baked makes no host sync: it runs under
+    torch.cuda.set_sync_debug_mode("error") (after one warm-up render,
+    which uploads the fill's taps once)."""
+    _, render, args = render_stage_scene(cuda, name)
+    render.render_from_baked(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = render.render_from_baked(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(out.hit.sum()) > 50
