@@ -872,11 +872,17 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
     to it on the twins (hit mask, window depth, march steps, overflow,
     pre-fill planes, colour), free of host syncs under
     torch.cuda.set_sync_debug_mode("error"), its launches counted and its
-    host ms split by part. Returns the JSON rows of the march and of the
-    six stage kernels: the fast frame's calls summed, the parity frame's
-    under "parity", each call under "calls". Last, OVERFLOW_CONFIG's render
-    on the kernels against the twins: its overflow vector must drop
-    blocks, tail rays and hits."""
+    host ms split by part. Each compaction also runs its one-call library
+    counterpart (torch.nonzero_static, bench/kernel_inputs.py) on its flags,
+    list against list; then both run on synthetic flags at 184,320,
+    1,658,880 and 8,294,400 (kernel_inputs.compact_scaling). Returns the
+    JSON rows of the march and of the six stage kernels: the fast frame's
+    calls summed, the parity frame's under "parity", each call under
+    "calls" (the compaction's scaling under "scaling"). Last,
+    OVERFLOW_CONFIG's render on the kernels against the twins: its
+    overflow vector must drop blocks, tail rays and hits."""
+    from rgbd_recon_tpu_torch.bench import kernel_inputs
+    from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.ops import stage_calls
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
@@ -935,6 +941,15 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
                        device_split=split, bound_ms=bound_ms,
                        bound_by=bound_by, bytes=nbytes, ops=ops,
                        share_of_bound=bound_ms / cold)
+            if stage == "compact":
+                lib_name, lib = kernel_inputs.library_compact(
+                    torch, *a[:3], ids=want[0])
+                row.update(library=lib_name,
+                           library_ms=event_ms(lib, iters=20, warmup=3),
+                           library_events_cold_ms=_events_ms(
+                               torch, lib, flush)[0])
+                for k in ("library_ms", "library_events_cold_ms"):
+                    per[name][k] = per[name].get(k, 0.0) + row[k]
             if march is not None:
                 row.update(rays=march[0], samples=march[1],
                            longest_ray=march[2], hits=march[3],
@@ -953,6 +968,10 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
                   f"{bound_ms / cold:.1%} of it"
                   + (f"; {march[0]} rays, {march[1]} samples, longest "
                      f"{march[2]}, {march[3]} hits" if march else "")
+                  + (f"; {row['library']} {row['library_ms']!r} ms (events)"
+                     f", {row['library_events_cold_ms']!r} ms cold "
+                     "(events)"
+                     if "library" in row else "")
                   + f", on {card}", flush=True)
             del kern, plain, got, want, ka, kkw, pa, pkw
         for name in names:
@@ -980,6 +999,19 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
               f"host clock) {split} on {card}", flush=True)
         sums["march"].setdefault("host_split", {})[path] = split
         del volume, maps, counts, baked, args, calls
+    # the compaction and its library call at the cells' size and past it
+    scaling = kernel_inputs.compact_scaling(
+        torch, lambda fn: _events_ms(torch, fn, flush), torch.device("cuda"))
+    for r in scaling:
+        print(f"compact at {r['n']} flags (capacity {r['capacity']}, slot "
+              f"map {r['slot']}): bit-equal to compact_plain; "
+              f"{r['events_cold_ms']!r} ms cold, {r['events_warm_ms']!r} "
+              f"warm (events); {r['library']} "
+              f"{r['library_events_cold_ms']!r} cold, "
+              f"{r['library_events_warm_ms']!r} warm; growth from the size "
+              "before "
+              f"{r.get('growth')} ({r['library']} {r.get('library_growth')})"
+              f" for n x {r.get('n_growth')}, on {card}", flush=True)
     # a configuration that overflows the block list, a tail stage's list
     # and the hit list: the overflow vector on the kernels equal to the
     # twins'
@@ -1013,11 +1045,17 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             device_ms=fast["device_ms"],
             device_ms_warm=fast["device_ms_warm"],
             bound_ms=fast["bound_ms"], bound_by=fast["bound_by"],
-            share_of_bound=fast["share_of_bound"], library_ms=None,
+            share_of_bound=fast["share_of_bound"],
+            library_ms=fast.get("library_ms"),
             parity=sums[name]["parity"], calls=calls_out[name],
             trace_retakes=retakes)
         if name == "march":
             row["host_split"] = sums["march"]["host_split"]
+        if name == "compact":
+            row.update(library=calls_out[name][0]["library"],
+                       library_events_cold_ms=fast[
+                           "library_events_cold_ms"],
+                       scaling=scaling)
         out.append(row)
     return out
 
@@ -1477,8 +1515,9 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
 # pixel counted by hand from the source (a pow, a square root or a
 # division as one): morph's two 3x3 passes, the LAB's texcoords, 4 pair
 # taps of 3 channels and conversion, the bilateral finish and cull, the
-# boundary's 25 taps, the normal's 4 neighbours and cross product, the
-# quality's powers and view angle
+# boundary's 25 taps (its row counts them only where the data needs them:
+# bench/kernel_inputs.py boundary_work), the normal's 4 neighbours and cross
+# product, the quality's powers and view angle
 PRE_PASSES = {
     "morph": ("morph_dilate", "rgbd_recon_tpu/ops/preprocess.py:85", 134),
     "lab": ("lab_colors", "rgbd_recon_tpu/ops/preprocess.py:453", 125),
@@ -1556,6 +1595,35 @@ def _lab_taps_bytes(torch, colors, depth_norm, models, z_far):
     return int(torch.unique(taps).numel()) * 3 * 4
 
 
+def _boundary_checks(torch, a):
+    """The boundary kernel bit-equal to boundary_plain beyond the fuse's
+    call: on its recorded maps with the refine off, and on
+    bench/kernel_inputs.py's maps at shapes that are no multiple of its tile
+    (invalid edges, a reliable half), both refine values."""
+    from rgbd_recon_tpu_torch.bench import kernel_inputs
+    from rgbd_recon_tpu_torch.kernels.preprocess import boundary_cuda
+    from rgbd_recon_tpu_torch.ops.preprocess import boundary_plain
+
+    d2, lab = a["depth2"].contiguous(), a["lab"].contiguous()
+    cases = [("the fuse's maps", d2, lab, False)]
+    for i, shape in enumerate(kernel_inputs.BOUNDARY_SHAPES):
+        md2, mlab = kernel_inputs.boundary_maps(torch, shape, 40 + i,
+                                               d2.device)
+        cases += [(f"{shape}", md2, mlab, refine) for refine in (True, False)]
+    checked = []
+    for label, cd2, clab, refine in cases:
+        equal = all(_bits_equal(torch, g, w) for g, w in zip(
+            boundary_cuda(cd2, clab, refine),
+            boundary_plain(cd2, clab, refine)))
+        print(f"boundary on {label}, refine {refine}: bit-equal to "
+              f"boundary_plain {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"boundary on {label}, refine {refine} "
+                                 "differs from boundary_plain")
+        checked.append(f"{label} refine {refine}")
+    return dict(also_bit_equal_on=checked)
+
+
 def _phase3_preprocess(torch, pipe, frames, card, flush):
     """The preprocess kernels on the arguments one fast fuse hands to each
     public pass of ops/preprocess.py: each bit-equal to its twin, timed
@@ -1566,6 +1634,7 @@ def _phase3_preprocess(torch, pipe, frames, card, flush):
     import inspect
 
     from rgbd_recon_tpu_torch import kernels
+    from rgbd_recon_tpu_torch.bench import kernel_inputs
     from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.ops import preprocess as pre
 
@@ -1614,6 +1683,13 @@ def _phase3_preprocess(torch, pipe, frames, card, flush):
                      for t in (*reads, *got)) + (taps_bytes or 0)
         pixels = got[0].shape[0] * got[0].shape[1] * got[0].shape[2]
         ops = ops_px * pixels
+        extra = {}
+        if kname == "boundary":
+            # the colour is read only around the pixels whose flags read it
+            extra = _boundary_checks(torch, a)
+            extra["bytes_all_inputs"] = nbytes
+            nbytes, ops = kernel_inputs.boundary_work(
+                torch, a["depth2"], a["lab"], a.get("refine", True))
         ms = event_ms(kern, iters=20, warmup=3)
         plain_ms = event_ms(twin, iters=5, warmup=1)
         device_ms, device_ms_warm, split, n = _device_ms(torch, kern, flush)
@@ -1625,7 +1701,7 @@ def _phase3_preprocess(torch, pipe, frames, card, flush):
                    device_ms_warm=device_ms_warm, device_split=split,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                    ops=ops, share_of_bound=bound_ms / device_ms,
-                   library_ms=None, trace_retakes=n)
+                   library_ms=None, trace_retakes=n, **extra)
         if taps_bytes is not None:
             row["color_taps_bytes"] = taps_bytes
         rows.append(row)

@@ -10,10 +10,11 @@
 // port their plain PyTorch twins (ops/preprocess.py *_plain) dispatch ~1,240
 // small launches a fuse; each kernel here is one.
 //
-// Every kernel runs one thread a pixel over (N, H, W), 32 x 8 threads a
-// block (a warp on one row: neighbouring threads read neighbouring
-// pixels, and a stencil's taps share their sectors through L1), grid.z
-// the sensor. The twins' edge-replicated pads become clamped indices: no
+// Every kernel but the boundary's runs one thread a pixel over (N, H, W),
+// 32 x 8 threads a block (a warp on one row: neighbouring threads read
+// neighbouring pixels, and a stencil's taps share their sectors through
+// L1), grid.z the sensor; the boundary's stages a tile in shared memory
+// and runs 4 pixels a thread (its section below). The twins' edge-replicated pads become clamped indices: no
 // padded copy. Every map is read in place in the layout the chain keeps
 // (depth2 (N, H, W, 2) interleaved, lab and normals (N, H, W, 3), the pixel
 // models (N, H, W, 3 / 2)), so no pass copies or stacks.
@@ -41,11 +42,13 @@
 // 3.5 MB, a pass 10-40 MB, 3-12 us at 3.35 TB/s; the lab pass also reads
 // its colour taps, a few sectors of the 1280 x 1080 colour frame a pixel.
 // The arithmetic is tens of f32 operations a pixel (the boundary's 25
-// taps: ~250; the LAB: two pow calls a channel), under the bytes' time.
+// taps: ~375, only at its unreliable pixels; the LAB: two pow calls a
+// channel), under the bytes' time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -248,45 +251,192 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 // ---- boundary: pre_boundary.fs:37-118 ----------------------------------------
 // twin ops/preprocess.py boundary_plain: the mean LAB distance over the
 // valid 5x5 neighbours (dy outer, dx inner; total_samples 16, as the
-// reference has it), the flags, the silhouette
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+// reference has it), the flags, the silhouette.
+//
+// A block of 32 x 4 threads owns a tile of 32 x 16 pixels, 4 down a
+// column a thread; it stages the tile and a 2-pixel halo (edge-clamped)
+// in shared memory: depth2's pairs (float2 loads) and one validity byte a
+// pixel (d > 0 and q > 0.65, tested once a staged pixel). Only the
+// unreliable pixels' flags read the colour difference (with the refine
+// on), so the tile lists those pixels; where it lists any, it stages the
+// L, A and B planes (float4 runs over lab's interleaved rows) and gives
+// each listed pixel to a thread, which sums its 25 taps from shared
+// memory in the twin's order (dy outer, dx inner, from +0; an invalid tap,
+// which the twin adds as +0, is skipped: every sum keeps its bits). A tile
+// with no such pixel reads no colour. Output pairs are stored as float2,
+// the silhouette a row a warp.
+//
+// Bound: bytes. depth2 read once and the two outputs written once, 20
+// bytes a pixel, and the LAB only around the listed pixels; the 5x5 sums
+// are ~375 f32 operations a listed pixel (2.6% of a fast fuse's pixels).
+// A warp sums 32 listed pixels at once, wherever they lie in the tile.
+constexpr int BT_W = 32;                 // tile width: a warp's columns
+constexpr int BT_ROWS = 4;               // output pixels a thread
+constexpr int BT_TY = 4;                 // threads down the tile
+constexpr int BT_H = BT_TY * BT_ROWS;    // tile height
+constexpr int BT_THREADS = BT_W * BT_TY;
+constexpr int HALO = 2;
+constexpr int SW = BT_W + 2 * HALO;      // staged columns
+constexpr int SH = BT_H + 2 * HALO;      // staged rows
+constexpr int SP = SW * SH;              // staged pixels
+// float4 words a staged lab row can touch: 3 SW floats, misaligned by up to
+// 3 floats at each end
+constexpr int LAB_WORDS = (3 * SW + 6 + 3) / 4;
+
+// Stage the L, A, B planes of the halo tile (block origin x0, y0) into
+// s_lab, plane c at c * SP. VEC:
+// lab is 16-byte aligned and each row is read as the float4 words that
+// cover its staged pixels (a word past the map's end float by float), the
+// columns past the map's sides copied from its edge columns after; else
+// one float a thread.
+template <bool VEC>
+__device__ __forceinline__ void stage_lab(const float* __restrict__ lab,
+                                          long long base, int x0, int y0,
+                                          int H, int W, long long floats,
+                                          float* s_lab) {
+  const int tid = threadIdx.y * BT_W + threadIdx.x;
+  if (!VEC) {
+    for (int i = tid; i < 3 * SP; i += BT_THREADS) {
+      const int p = i / 3, c = i - 3 * p;
+      const int hy = p / SW, hx = p - hy * SW;
+      const long long q = base + clamp_idx(y0 - HALO + hy, H) * W +
+                          clamp_idx(x0 - HALO + hx, W);
+      s_lab[c * SP + p] = __ldg(lab + 3 * q + c);
+    }
+    return;
+  }
+  const int xa = max(x0 - HALO, 0), xb = min(x0 + BT_W + HALO - 1, W - 1);
+  for (int i = tid; i < SH * LAB_WORDS; i += BT_THREADS) {
+    const int hy = i / LAB_WORDS, j = i - hy * LAB_WORDS;
+    const long long row = base + (long long)clamp_idx(y0 - HALO + hy, H) * W;
+    const long long fa = 3 * (row + xa), fb = 3 * (row + xb + 1);
+    const long long w = fa / 4 + j;  // the float4 word
+    if (4 * w >= fb) continue;
+    float v[4];
+    if (4 * w + 3 < floats) {
+      const float4 f = __ldg((const float4*)lab + w);
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = 4 * w + e < floats ? __ldg(lab + 4 * w + e) : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long k = 4 * w + e;
+      if (k < fa || k >= fb) continue;
+      const int rel = (int)(k - fa), px = rel / 3, c = rel - 3 * px;
+      s_lab[c * SP + hy * SW + (xa - (x0 - HALO)) + px] = v[e];
+    }
+  }
+  if (x0 - HALO >= 0 && x0 + BT_W + HALO - 1 <= W - 1) return;
+  // a tile at a side of the map: the clamped columns repeat the edge's
+  __syncthreads();
+  for (int p = tid; p < SP; p += BT_THREADS) {
+    const int hy = p / SW, hx = p - hy * SW;
+    const int gx = x0 - HALO + hx;
+    if (gx >= 0 && gx <= W - 1) continue;
+    const int src = hy * SW + clamp_idx(gx, W) - (x0 - HALO);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s_lab[c * SP + p] = s_lab[c * SP + src];
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(BT_THREADS)
     boundary_kernel(const float* __restrict__ depth2,
                     const float* __restrict__ lab,
                     float* __restrict__ out, float* __restrict__ sil,
                     int refine, int H, int W) {
-  int n, y, x;
-  if (!pixel(H, W, n, y, x)) return;
-  const long long base = (long long)n * H * W;
-  const long long p = base + y * W + x;
-  const float d0 = __ldg(depth2 + 2 * p), q0 = __ldg(depth2 + 2 * p + 1);
-  const float L0 = __ldg(lab + 3 * p), A0 = __ldg(lab + 3 * p + 1),
-              B0 = __ldg(lab + 3 * p + 2);
-  float total = 0.0f, cnt = 0.0f;
-#pragma unroll
-  for (int dy = -2; dy <= 2; ++dy) {
-    const long long row = base + clamp_idx(y + dy, H) * W;
-#pragma unroll
-    for (int dx = -2; dx <= 2; ++dx) {
-      const long long q = row + clamp_idx(x + dx, W);
-      const bool v = __ldg(depth2 + 2 * q) > 0.0f &&
-                     __ldg(depth2 + 2 * q + 1) > F(0.65);
-      const float dl = L0 - __ldg(lab + 3 * q);
-      const float da = A0 - __ldg(lab + 3 * q + 1);
-      const float db = B0 - __ldg(lab + 3 * q + 2);
-      const float dist = sqrtf((dl * dl + da * da) + db * db);
-      total = total + (v ? dist : 0.0f);
-      cnt = cnt + (v ? 1.0f : 0.0f);
-    }
+  __shared__ float2 s_dq[SP];
+  __shared__ float s_lab[3 * SP];  // the L, A, B planes
+  __shared__ unsigned char s_v[SP];
+  // the tile's pixels whose flags read their colour difference, and the
+  // outcome of its test for each
+  __shared__ unsigned short s_list[BT_W * BT_H];
+  __shared__ bool s_kept[BT_W * BT_H];
+  __shared__ int s_listed;
+  const int tid = threadIdx.y * BT_W + threadIdx.x;
+  const int x0 = blockIdx.x * BT_W, y0 = blockIdx.y * BT_H;
+  const long long base = (long long)blockIdx.z * H * W;
+  if (tid == 0) s_listed = 0;
+
+  // depth2 of the halo tile, its validity once a pixel
+  for (int p = tid; p < SP; p += BT_THREADS) {
+    const int hy = p / SW, hx = p - hy * SW;
+    const long long q = base + clamp_idx(y0 - HALO + hy, H) * W +
+                        clamp_idx(x0 - HALO + hx, W);
+    const float2 dq =
+        VEC ? __ldg((const float2*)depth2 + q)
+            : make_float2(__ldg(depth2 + 2 * q), __ldg(depth2 + 2 * q + 1));
+    s_dq[p] = dq;
+    s_v[p] = dq.x > 0.0f && dq.y > F(0.65);
   }
-  const float color_diff = cnt < 8.0f ? 1.0f : total / fmaxf(cnt, 1.0f);
-  const bool outside = d0 <= 0.0f;
-  const bool unreliable = !outside && q0 <= F(0.65);
-  const bool kept = unreliable && color_diff <= 0.5f && refine != 0;
-  const bool invalidated = unreliable && !kept;
-  out[2 * p] = invalidated ? -1.0f : d0;
-  out[2 * p + 1] =
-      outside ? 0.0f : (invalidated ? F(0.1) : (kept ? 1.0f : 0.0f));
-  sil[p] = (outside || unreliable) ? 0.0f : 1.0f;
+  __syncthreads();
+
+  // this thread's pixels: column x, rows y0 + r0 ... y0 + r0 + 3; the
+  // unreliable ones (refine on) go on the tile's list
+  const int lx = threadIdx.x, r0 = threadIdx.y * BT_ROWS;
+  const int x = x0 + lx;
+  bool need[BT_ROWS];
+#pragma unroll
+  for (int r = 0; r < BT_ROWS; ++r) {
+    const float2 c = s_dq[(r0 + r + HALO) * SW + lx + HALO];
+    const bool unreliable = !(c.x <= 0.0f) && c.y <= F(0.65);
+    need[r] = x < W && y0 + r0 + r < H && unreliable && refine != 0;
+    if (need[r])
+      s_list[atomicAdd(&s_listed, 1)] =
+          (unsigned short)((r0 + r) * BT_W + lx);
+  }
+  __syncthreads();
+  const int listed = s_listed;
+  if (listed > 0) {
+    stage_lab<VEC>(lab, base, x0, y0, H, W, 3 * (long long)gridDim.z * H * W,
+                   s_lab);
+    __syncthreads();
+    // one listed pixel a thread: its 25 taps from shared memory, the
+    // twin's order (dy outer, dx inner, from +0), invalid taps skipped
+    for (int k = tid; k < listed; k += BT_THREADS) {
+      const int local = s_list[k];
+      const int ly = local / BT_W, lxk = local - ly * BT_W;
+      const int c = (ly + HALO) * SW + lxk + HALO;
+      const float L0 = s_lab[c], A0 = s_lab[SP + c], B0 = s_lab[2 * SP + c];
+      float total = 0.0f, cnt = 0.0f;
+#pragma unroll
+      for (int dy = 0; dy <= 2 * HALO; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx <= 2 * HALO; ++dx) {
+          const int i = (ly + dy) * SW + lxk + dx;
+          if (!s_v[i]) continue;
+          const float dl = L0 - s_lab[i];
+          const float da = A0 - s_lab[SP + i];
+          const float db = B0 - s_lab[2 * SP + i];
+          total = total + sqrtf((dl * dl + da * da) + db * db);
+          cnt = cnt + 1.0f;
+        }
+      }
+      const float color_diff = cnt < 8.0f ? 1.0f : total / fmaxf(cnt, 1.0f);
+      s_kept[local] = color_diff <= 0.5f;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < BT_ROWS; ++r) {
+    const int y = y0 + r0 + r;
+    if (x >= W || y >= H) continue;
+    const float2 c = s_dq[(r0 + r + HALO) * SW + lx + HALO];
+    const float d0 = c.x, q0 = c.y;
+    const bool outside = d0 <= 0.0f;
+    const bool unreliable = !outside && q0 <= F(0.65);
+    const bool kept = need[r] && s_kept[(r0 + r) * BT_W + lx];
+    const bool invalidated = unreliable && !kept;
+    const long long p = base + (long long)y * W + x;
+    ((float2*)out)[p] = make_float2(
+        invalidated ? -1.0f : d0,
+        outside ? 0.0f : (invalidated ? F(0.1) : (kept ? 1.0f : 0.0f)));
+    sil[p] = (outside || unreliable) ? 0.0f : 1.0f;
+  }
 }
 
 // ---- normals: pre_normal.fs:26-56 ----------------------------------------------
@@ -435,9 +585,19 @@ int rgbd_pre_depth2(const void* depth_m, const void* limits,
 int rgbd_pre_boundary(const void* depth2, const void* lab, void* out,
                       void* sil, int refine, int N, int H, int W,
                       void* stream) {
-  boundary_kernel<<<grid_of(N, H, W), kBlock, 0, (cudaStream_t)stream>>>(
-      (const float*)depth2, (const float*)lab, (float*)out, (float*)sil,
-      refine, H, W);
+  const dim3 grid((W + BT_W - 1) / BT_W, (H + BT_H - 1) / BT_H, N);
+  const dim3 block(BT_W, BT_TY);
+  // float2 / float4 loads where the inputs allow them (out is the
+  // wrapper's own allocation)
+  const bool vec = (uintptr_t)depth2 % 8 == 0 && (uintptr_t)lab % 16 == 0;
+  if (vec)
+    boundary_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)depth2, (const float*)lab, (float*)out, (float*)sil,
+        refine, H, W);
+  else
+    boundary_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)depth2, (const float*)lab, (float*)out, (float*)sil,
+        refine, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -59,7 +59,8 @@ _SIGNATURES = {
                    _F, _F, _F, _P),
     "rgbd_march_rows": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _I, _F, _F, _F, _P),
-    "rgbd_compact": (_P, _I, _I, _I, _P, _P, _P, _P),
+    "rgbd_compact": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "rgbd_compact_scratch_words": (),
     # a pointer to the parameter block (kernels/render_stages.py) and the
     # stream
     "rgbd_render_scan": (_P, _P),

@@ -10,6 +10,29 @@ from ._build import check, library
 
 _MAX_ENTRIES = 2 ** 31
 
+# the look-back's zeroed scratch, one a (device index, stream handle): each
+# launch leaves it zeroed for the next on its stream (and for the replays
+# of a graph captured there), and launches on other streams, which may run
+# at the same time, have their own
+_SCRATCH: dict = {}
+
+
+def _scratch(lib, dev: torch.device, stream) -> torch.Tensor:
+    """The scratch of ``stream``, the current stream of ``dev``, made
+    (zeroed, on that stream) at its first launch there; a stream that is
+    capturing a graph must have launched a compaction before."""
+    key = (dev.index, stream.cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("compact: launch once on a stream before "
+                               "capturing a graph of it (its scratch is "
+                               "made then)")
+        buf = torch.zeros(lib.rgbd_compact_scratch_words(),
+                          dtype=torch.int64, device=dev)
+        _SCRATCH[key] = buf
+    return buf
+
 
 def compact_cuda(flags: torch.Tensor, bit: int, capacity: int,
                  counts: torch.Tensor, count_slot: int,
@@ -17,7 +40,9 @@ def compact_cuda(flags: torch.Tensor, bit: int, capacity: int,
     """:func:`ops.compact.compact_plain` in one launch: same arguments,
     same (ids, slot). ``flags`` is a contiguous (n,) uint8 CUDA tensor on
     an 8-byte boundary, ``counts`` a contiguous int32 tensor on its
-    device."""
+    device. Compactions on one stream share a scratch (``_scratch``), so a
+    graph captured with one must not be replayed while another compaction
+    runs on the stream it was captured on."""
     if (not isinstance(flags, torch.Tensor) or flags.dtype != torch.uint8
             or flags.dim() != 1 or not flags.is_contiguous()):
         raise ValueError("flags must be a contiguous (n,) uint8 tensor")
@@ -42,11 +67,13 @@ def compact_cuda(flags: torch.Tensor, bit: int, capacity: int,
             else None)
     lib = library()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        scratch = _scratch(lib, dev, stream)
         err = lib.rgbd_compact(
             flags.data_ptr(), n, bit, capacity, ids.data_ptr(),
             slot.data_ptr() if slot is not None else None,
-            counts.data_ptr() + 4 * count_slot,
-            torch.cuda.current_stream(dev).cuda_stream)
+            counts.data_ptr() + 4 * count_slot, scratch.data_ptr(),
+            stream.cuda_stream)
     check(err, "compact")
     LAUNCHES["compact"] += 1
     return ids, slot

@@ -4,7 +4,9 @@ compactions of rgbd_recon_tpu/recon/tsdf_pipeline.py:1292, :1425, :1465).
 
 ``compact`` is the dispatch: CUDA tensors go to csrc/compact.cu (one
 launch, kernels/compact.py), CPU tensors to the plain twin
-``compact_plain``. Neither reads anything back to the host.
+``compact_plain``. Neither reads anything back to the host. On the card
+each stream keeps its own scratch for the kernel's look-back, so
+compactions on different streams may run at once.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from rgbd_recon_tpu_torch import kernels
+from rgbd_recon_tpu_torch.bench import kernel_inputs
 from rgbd_recon_tpu_torch.ops import bake, holefill, stencil13
 from rgbd_recon_tpu_torch.ops.stage_calls import (
     STAGES,
@@ -1702,6 +1703,45 @@ def test_preprocess_kernels_match_twins(cuda, shape, on):
         "quality": 2}
 
 
+def _offset_copy(x, floats):
+    """A contiguous copy of ``x`` that starts ``floats`` float32 entries
+    into its storage (off the 8- and 16-byte boundaries of the kernel's
+    vector loads)."""
+    buf = torch.empty(x.numel() + floats, dtype=x.dtype, device=x.device)
+    view = buf[floats:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("shape", kernel_inputs.BOUNDARY_SHAPES)
+def test_preprocess_boundary_kernel_at_odd_tiles(cuda, shape, refine):
+    """The boundary kernel bit-equal to boundary_plain on maps with invalid
+    pixels along every edge and a reliable left half (tiles that read no
+    colour; bench/kernel_inputs.py boundary_maps), on the edge cases of
+    tests/preprocess_cases.py, and on inputs that start off the vector
+    loads' boundaries (the scalar staging)."""
+    from rgbd_recon_tpu_torch.kernels import preprocess as kp
+    from rgbd_recon_tpu_torch.ops import preprocess as pre
+
+    n, h, w = shape
+    maps = [kernel_inputs.boundary_maps(torch, shape, 7, cuda),
+            tuple(torch.from_numpy(x).to(cuda) for x in (
+                preprocess_cases.depth2_cases(2, n, h, w),
+                preprocess_cases.lab_cases(8, n, h, w)))]
+    kernels.reset_launch_counts()
+    for d2, lab in maps:
+        want = pre.boundary_plain(d2, lab, refine)
+        assert _all_bits_equal(kp.boundary_cuda(d2, lab, refine), want)
+        for off in (1, 2, 3):
+            got = kp.boundary_cuda(_offset_copy(d2, off % 2 + 1),
+                                   _offset_copy(lab, off), refine)
+            assert _all_bits_equal(got, want), off
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["boundary"] == 8
+
+
 _PRE_PASSES = ("morph_dilate", "lab_colors", "bilateral_lab", "boundary",
                "normals", "quality")
 
@@ -1857,12 +1897,14 @@ def _render_stage_launches():
 @pytest.mark.cuda
 @pytest.mark.parametrize("bit", [0, 1, 7])
 @pytest.mark.parametrize("p", [0.0, 0.35, 1.0])
-@pytest.mark.parametrize("n", [0, 1, 9, 8191, 8192, 8193, 57_600, 184_320])
+@pytest.mark.parametrize("n", [0, 1, 9, 2047, 2048, 2049, 4096, 8191, 8192,
+                               8193, 57_600, 184_320, 1_658_880, 8_294_400])
 def test_render_stage_compact_kernel(cuda, n, p, bit):
     """The compaction kernel against compact_plain on the card, bit for
     bit: the list (ascending, padded with n), the count, the slot map, at
-    capacities under, at and over the count and 0, across its 8,192-flag
-    tiles; other bits of the flags ignored."""
+    capacities under, at and over the count and 0, across its 2,048-flag
+    tiles, up to a 4K camera's 8,294,400 pixels, none, some and all flags
+    set; other bits of the flags ignored."""
     from rgbd_recon_tpu_torch.kernels.compact import compact_cuda
     from rgbd_recon_tpu_torch.ops.compact import compact_plain
 
@@ -1884,6 +1926,120 @@ def test_render_stage_compact_kernel(cuda, n, p, bit):
         assert kc.tolist() == kp.tolist() == [-5, -5, k], cap
         ids, _ = compact_cuda(flags, bit, cap, kc, 0)
         assert bits_equal(ids, want[0]), cap
+
+
+@pytest.mark.cuda
+def test_render_stage_compact_back_to_back(cuda):
+    """50 compactions launched back to back on one stream, with no sync
+    between them, each bit-equal to compact_plain: the look-back's scratch
+    (the ticket, the tile statuses, the done-counter) is left zeroed by
+    each launch for the next, whatever its size."""
+    from rgbd_recon_tpu_torch.kernels.compact import compact_cuda
+    from rgbd_recon_tpu_torch.ops.compact import compact_plain
+
+    sizes = (184_320, 1, 2049, 0, 57_600, 1_658_880, 4096, 9, 2048)
+    cases = []
+    for i in range(50):
+        n = sizes[i % len(sizes)]
+        p = (0.0, 0.35, 1.0, 0.02)[i % 4]
+        bit = i % 8
+        flags = kernel_inputs.synthetic_flags(torch, n, p, bit, 100 + i, cuda)
+        cap = (0, 11_520, n, 61_440, 3)[i % 5]
+        cases.append((flags, bit, cap, i % 3 != 0))
+    torch.cuda.synchronize()
+    counts = torch.full((50,), -1, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got = [compact_cuda(f, bit, cap, counts, i, want_slot=ws)
+           for i, (f, bit, cap, ws) in enumerate(cases)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["compact"] == 50
+    want_counts = torch.full((50,), -1, dtype=torch.int32, device=cuda)
+    for i, (f, bit, cap, ws) in enumerate(cases):
+        want = compact_plain(f, bit, cap, want_counts, i, want_slot=ws)
+        assert all_bits_equal(got[i], want), i
+    assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [184_320, 1_658_880])
+def test_render_stage_compact_graph_replay(cuda, n):
+    """A compaction captured in a CUDA graph on a side stream (warmed up
+    there first, which makes the stream's scratch) and replayed 3 times on
+    changed flags (one eager launch between two replays): each replay
+    bit-equal to compact_plain on that replay's flags (the list, the
+    count, the slot map); the capture counts one launch, the replays
+    none."""
+    from rgbd_recon_tpu_torch.kernels.compact import compact_cuda
+    from rgbd_recon_tpu_torch.ops.compact import compact_plain
+
+    bit, cap = 1, 61_440
+    static = kernel_inputs.synthetic_flags(torch, n, 0.35, bit, 7, cuda)
+    counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        compact_cuda(static, bit, cap, counts, 1, want_slot=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        ids, slot = compact_cuda(static, bit, cap, counts, 1,
+                                 want_slot=True)
+    assert kernels.launch_counts()["compact"] == 1
+    for i, p in enumerate((0.35, 0.9, 0.01)):
+        static.copy_(kernel_inputs.synthetic_flags(torch, n, p, bit, 20 + i,
+                                                   cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        want_counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+        want = compact_plain(static, bit, cap, want_counts, 1,
+                             want_slot=True)
+        assert all_bits_equal((ids, slot), want), i
+        assert int(counts[1]) == int(want_counts[1]), i
+        if i == 1:
+            eager = compact_cuda(static, bit, cap, counts, 0)
+            torch.cuda.synchronize()
+            assert bits_equal(eager[0], want[0])
+            assert int(counts[0]) == int(want_counts[1])
+    assert kernels.launch_counts()["compact"] == 2
+
+
+@pytest.mark.cuda
+def test_render_stage_compact_streams(cuda):
+    """Compactions queued on two streams at once, 10 each without a sync,
+    each bit-equal to compact_plain: each stream has its own look-back
+    scratch. A stream that captures a graph before its first compaction
+    is refused (its scratch cannot be made inside the capture)."""
+    from rgbd_recon_tpu_torch.kernels import compact as kc
+    from rgbd_recon_tpu_torch.ops.compact import compact_plain
+
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    flags = [kernel_inputs.synthetic_flags(torch, 1_658_880, p, 3, 30 + i,
+                                           cuda)
+             for i, p in enumerate((0.35, 0.8))]
+    counts = torch.full((20,), -1, dtype=torch.int32, device=cuda)
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    got = []
+    for i in range(20):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(kc.compact_cuda(flags[i % 2], 3, 700_000 + i,
+                                       counts, i, want_slot=True))
+    torch.cuda.synchronize()
+    assert {(cuda.index or 0, st.cuda_stream) for st in streams} <= {
+        (d or 0, h) for d, h in kc._SCRATCH}
+    want_counts = torch.full((20,), -1, dtype=torch.int32, device=cuda)
+    for i in range(20):
+        want = compact_plain(flags[i % 2], 3, 700_000 + i, want_counts, i,
+                             want_slot=True)
+        assert all_bits_equal(got[i], want), i
+    assert torch.equal(counts, want_counts)
+    fresh = torch.cuda.Stream(cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            kc.compact_cuda(flags[0], 3, 10, counts, 0)
+    assert kernels.launch_counts()["compact"] == 0
 
 
 @pytest.mark.cuda

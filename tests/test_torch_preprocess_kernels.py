@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from rgbd_recon_tpu.ops import preprocess as jax_pre
 
 from rgbd_recon_tpu_torch import convert, kernels
+from rgbd_recon_tpu_torch.bench import kernel_inputs
 from rgbd_recon_tpu_torch.ops import preprocess as port_pre
 from rgbd_recon_tpu_torch.ops import stencil13
 
@@ -154,6 +155,30 @@ def test_boundary_twin_matches_jax(shape, refine):
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     flags = set(np.unique(got_d[..., 1].numpy()).tolist())
     assert (1.0 in flags) == refine and np.float32(0.1) in flags
+
+
+@pytest.mark.parametrize("shape", kernel_inputs.BOUNDARY_SHAPES)
+@pytest.mark.parametrize("refine", [True, False])
+def test_boundary_twin_matches_jax_at_odd_tiles(shape, refine):
+    """boundary_plain against the JAX pass at shapes that are no multiple
+    of the boundary kernel's tile, on maps with invalid pixels along every
+    edge (outside, unreliable, invalidated) and a reliable left half
+    (bench/kernel_inputs.py boundary_maps): the depth within the file's
+    atol, the flags and the silhouette exactly."""
+    n, h, w = shape
+    d2, lab = (x.numpy() for x in kernel_inputs.boundary_maps(
+        torch, shape, 7, torch.device("cpu")))
+    want_d, want_s = jax.vmap(jax_pre.boundary, in_axes=(0, 0, None))(
+        jnp.asarray(d2), jnp.asarray(lab), refine)
+    got_d, got_s = port_pre.boundary_plain(_t(d2), _t(lab), refine)
+    _close(got_d[..., 0], want_d[..., 0], ATOL["depth"], "depth")
+    np.testing.assert_array_equal(got_d[..., 1].numpy(),
+                                  np.asarray(want_d[..., 1]))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    flags = set(np.unique(got_d[..., 1].numpy()).tolist())
+    # kept boundary pixels need the refine (and a map past the edges')
+    assert np.float32(0.1) in flags and (1.0 in flags) == (
+        refine and h * w >= 37 * 70)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

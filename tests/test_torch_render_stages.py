@@ -144,6 +144,37 @@ def test_compact_plain_matches_nonzero(case):
             assert int(counts[0]) == int(m.sum()), name
 
 
+# the compaction kernel's tile is 2,048 flags (csrc/compact.cu): one below,
+# at, one above and twice it, and a 4K camera's 1,658,880 rays
+TILE_FLAGS = 2048
+
+
+@pytest.mark.parametrize("p", [0.0, 0.35, 1.0])
+@pytest.mark.parametrize("n", [TILE_FLAGS - 1, TILE_FLAGS, TILE_FLAGS + 1,
+                               2 * TILE_FLAGS, 1_658_880])
+def test_compact_plain_matches_jax_at_tile_sizes(n, p):
+    """compact_plain against jnp.nonzero(size=, fill_value=) at sizes
+    around the kernel's tile and at 1,658,880 flags, at capacities 0,
+    under, at and over the count: the list, the count, the slot map."""
+    rng = np.random.default_rng(n + int(p * 100))
+    m = rng.random(n) < p
+    k = int(m.sum())
+    flags = torch.from_numpy(m.astype(np.uint8) << 2 | rng.integers(
+        0, 4, n).astype(np.uint8))
+    for cap in sorted({0, max(k - 1, 0), k // 2, k, k + 1, k + 4096}):
+        counts = torch.full((2,), -3, dtype=torch.int32)
+        ids, slot = compact.compact_plain(flags, 2, cap, counts, 1,
+                                          want_slot=True)
+        want = np.asarray(jnp.nonzero(jnp.asarray(m), size=cap,
+                                      fill_value=n)[0])
+        np.testing.assert_array_equal(ids.numpy(), want, err_msg=str(cap))
+        assert counts.tolist() == [-3, k], cap
+        expect = np.full(n, -1, np.int32)
+        listed = want[want < n]
+        expect[listed] = np.arange(len(listed), dtype=np.int32)
+        np.testing.assert_array_equal(slot.numpy(), expect, err_msg=str(cap))
+
+
 def test_compact_dispatch_on_cpu_runs_the_twin():
     """compact on CPU tensors is compact_plain and counts no launch."""
     kernels.reset_launch_counts()
