@@ -24,11 +24,15 @@ window depth, march steps, overflow, pre-fill planes, colour, bit for
 bit), once under ``torch.cuda.set_sync_debug_mode("error")`` (no host
 sync after the bake), and its host ms split by part. The fill kernels
 (``csrc/holefill.cu``) are held and timed on the recorded pre-fill planes
-(the render's strided views) of one fast and one parity frame: each pull
-level bit-equal to ``_pull_planar``, the push's level bit-equal and its
-colours within 1e-6 of ``_push_planar`` (which resamples by cuBLAS
-products), the pull chain, the push and the whole fill timed beside their
-bounds by bytes and the plain versions. The hit kernels
+(contiguous, as the render passes them) of one fast and one parity
+frame: each pull level bit-equal to ``_pull_planar`` along the kernel's
+own chain and from each of the twin's levels, the push's level bit-equal
+and its colours within 1e-6 of ``_push_planar`` (which resamples by cuBLAS
+products), the pull chain (and each of its launches), the push and the
+whole fill timed beside their bounds by bytes and the plain versions; the
+same planes a float off 16 bytes and as an (H, W, 4) image's strided
+views (the dense render's) bit-equal to the contiguous run, the pull
+timed on each layout. The hit kernels
 (``csrc/hits.cu``) are held and timed on the hit sets one fast and one
 parity frame hand to ``ops.hits.refine_hits`` and ``shade_hits``: the
 refined positions and shade mode 0's rgba bit-equal to the twins, the
@@ -50,8 +54,8 @@ at 1280x720:
 
 For each path it checks which kernels launched (launch counts set to 0
 just before the path's fuse + render and read just after; the march once a
-stepwise march: ``PATH_MARCHES``; the fill's pull 6 times and its push
-once: ``FILL_LAUNCHES``; the hit kernels once a render, no refine in the
+stepwise march: ``PATH_MARCHES``; the fill's pull 3 times (two levels a
+launch) and its push once: ``FILL_LAUNCHES``; the hit kernels once a render, no refine in the
 trilinear full-screen render: ``PATH_HITS``; the block stages once a
 render of the block path, the compaction once a list:
 ``PATH_STAGES``), that the output
@@ -206,9 +210,11 @@ PATH_STAGES = {"fast": FAST_STAGES, "parity": dict(FAST_STAGES, compact=2),
 PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
                 "march", "holefill_pull", "holefill_push", "hit_refine",
                 "hit_shade", *PRE_LAUNCHES, *STAGE_KERNELS)
-# the fill kernels' launches a render with colorfill: a pull a level past
-# LOD 0 (a 1280x720 frame at 7 LODs: 6) and one push
-FILL_LAUNCHES = {"holefill_pull": 6, "holefill_push": 1}
+# the fill kernels' launches a render with colorfill: a pull launch for
+# every two levels past LOD 0 (a 1280x720 frame at 7 LODs: 3) and one push
+FILL_LAUNCHES = {"holefill_pull": 3, "holefill_push": 1}
+# the fill kernels' device activities (csrc/holefill.cu)
+FILL_ACTIVITIES = {"pull_tile_kernel", "push_tile_kernel"}
 NO_FILL = {k: 0 for k in FILL_LAUNCHES}
 # the fill's colours against its plain twin (which resamples by cuBLAS
 # products; tests/test_torch_kernels.py); pull and level are bit-equal
@@ -306,7 +312,7 @@ SPLAT_OUTSIDE_FRAC = 0.01
 SPLAT_MEDIAN_MM = 10.0
 # phase 8: frames per app run, and the kernel launches each run must make
 # (a mode's per-frame counts: every path kernel in mode 1, the march four
-# times and the fill's pull six, twice the bake, march, fill and hit
+# times and the fill's pull three, twice the bake, march, fill and hit
 # kernels with stereo, the two stencils and the preprocess's six
 # elsewhere, bilateral13 a second time in the MVT render, whose depth
 # pass reads the calibration volumes and runs its twin)
@@ -1061,16 +1067,17 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
 
 
 def _record_fills(torch, render_frame):
-    """The arguments of every fill one render makes: [(the (H, W, 4)
-    pre-fill image, its window depth, num_lods)], copies of what
+    """The arguments of every fill one render makes: [(the (4, H, W)
+    pre-fill planes, its window depth, num_lods)], copies of what
     ``ops.holefill.fill_colors_planar`` received (the render calls it
-    through the module and passes the image's planes as strided views)."""
+    through the module and passes the rows of compose's (4, H, W)
+    planes)."""
     from rgbd_recon_tpu_torch.ops import holefill
 
     calls, fill = [], holefill.fill_colors_planar
 
     def record(planes0, depth0, num_lods=7):
-        calls.append((torch.stack(list(planes0), dim=-1), depth0.clone(),
+        calls.append((torch.stack(list(planes0)), depth0.clone(),
                       num_lods))
         return fill(planes0, depth0, num_lods)
 
@@ -1083,15 +1090,28 @@ def _record_fills(torch, render_frame):
     return calls
 
 
-def _fill_pull_bytes(levels):
-    """Bytes the pull levels need on their data: at each level below the
-    last, alpha and depth once, r, g, b at the texels with alpha > 0 (no
-    other colour can be kept), and the 5 planes of the level above
-    written once."""
+def _fill_pull_one_level_bytes(levels):
+    """Bytes a pull of one level a launch needs on its data: at each level
+    below the last, alpha and depth once, r, g, b at the texels with
+    alpha > 0 (no other colour can be kept), and the 5 planes of the
+    level above written once. The bound the one-level design was held
+    to, kept beside the tiled pull's so that the two rows compare."""
     nbytes = 0
     for below, above in zip(levels, levels[1:]):
         valid = int((below[3] > 0.0).sum())
         nbytes += 4 * (2 * below[3].numel() + 3 * valid + 5 * above[0].numel())
+    return nbytes
+
+
+def _fill_pull_bytes(levels):
+    """Bytes the tiled pull needs on its data: at the input level of each
+    launch (every second level below the last, from LOD 0) alpha and
+    depth once and r, g, b at the texels with alpha > 0; every level past
+    LOD 0 written once (a launch's inner level is not read back)."""
+    nbytes = sum(4 * 5 * lv[0].numel() for lv in levels[1:])
+    for lv in levels[:-1:2]:
+        valid = int((lv[3] > 0.0).sum())
+        nbytes += 4 * (2 * lv[3].numel() + 3 * valid)
     return nbytes
 
 
@@ -1107,14 +1127,17 @@ def _fill_push_bytes(level, levels):
 
 def _phase3_fill(torch, pipe, camera, frames, card, flush):
     """The fill kernels on the recorded pre-fill planes of one fast and one
-    parity frame (the render's own strided views): each pull level
+    parity frame (contiguous, as the render passes them): each pull level
     bit-equal to ``_pull_planar``, the push's level bit-equal and its
     colours within FILL_COLOR_ATOL of ``_push_planar``, the whole fill
     within FILL_COLOR_ATOL of ``fill_colors_plain``; the pull chain, the
     push and the whole fill timed (events, device time with a cold and a
-    warm L2, the plain versions) beside their bounds by bytes. Returns
-    the two kernels' JSON rows: the fast frame's figures, the parity
-    frame's under "parity"."""
+    warm L2, the plain versions) beside their bounds by bytes. The same
+    planes a float off 16 bytes and as the strided views of an (H, W, 4)
+    image (as the dense render passes them): every level and the fill
+    bit-equal to the contiguous run's, the pull's device time by layout.
+    Returns the two kernels' JSON rows: the fast frame's figures, the
+    parity frame's under "parity"."""
     from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.kernels.holefill import pull_cuda, push_cuda
     from rgbd_recon_tpu_torch.ops import holefill
@@ -1134,34 +1157,51 @@ def _phase3_fill(torch, pipe, camera, frames, card, flush):
         if len(calls) != 1:
             raise AssertionError(f"{path} frame: {len(calls)} fills")
         rgba, depth, lods = calls[0]
-        views = [rgba[..., i] for i in range(4)]
+        views = list(rgba)
         colors, depths = holefill._build_pyramid_planar(views, depth, lods)
-        if len(colors) - 1 != FILL_LAUNCHES["holefill_pull"]:
-            raise AssertionError(f"{path}: {len(colors)} levels")
-        # each pull level from the twin's level below, bit for bit
+        n = len(colors)
+        if holefill.pull_launches(n) != FILL_LAUNCHES["holefill_pull"]:
+            raise AssertionError(f"{path}: {n} levels")
+        # each pull level bit for bit: along the kernel's own chain, and
+        # from each of the twin's levels (the launch of the next two)
+        levels = pull_cuda([*views, depth], n - 1)
         pull_err, differ = 0.0, []
-        for l in range(1, len(colors)):
-            got = pull_cuda([*colors[l - 1], depths[l - 1]])
-            want = [*colors[l], depths[l]]
+        for l in range(1, n):
+            got = pull_cuda([*colors[l - 1], depths[l - 1]], min(2, n - l))
             torch.cuda.synchronize()
-            for name, g, w in zip("rgbad", got, want):
-                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                    differ.append((l, name))
-            pull_err = max(pull_err, _max_abs_err(torch, tuple(got),
-                                                  tuple(want)))
+            pairs = [("chain", l, levels[l - 1])] + [
+                (f"from {l - 1}", l + k, g) for k, g in enumerate(got)]
+            for how, at, g in pairs:
+                want = [*colors[at], depths[at]]
+                for name, gp, w in zip("rgbad", g, want):
+                    if not torch.equal(gp.view(torch.int32),
+                                       w.view(torch.int32)):
+                        differ.append((how, at, name))
+                pull_err = max(pull_err, _max_abs_err(torch, tuple(g),
+                                                      tuple(want)))
         if differ:
-            raise AssertionError(f"holefill_pull {path}: levels/planes "
-                                 f"{differ} differ from _pull_planar's (max "
-                                 f"abs error {pull_err})")
+            raise AssertionError(f"holefill_pull {path}: (launch, level, "
+                                 f"plane) {differ} differ from "
+                                 f"_pull_planar's (max abs error {pull_err})")
 
         def pulls(views=views, depth=depth):
-            cur, out = [*views, depth], []
-            for _ in range(len(colors) - 1):
-                out.append(pull_cuda(cur))
-                cur = list(out[-1].unbind(0))
-            return out
+            return pull_cuda([*views, depth], n - 1)
 
-        levels = pulls()
+        # the pull's device time by launch: each launch from the kernel's
+        # own level below it
+        by_launch = []
+        for l in range(0, n - 1, 2):
+            src = [*views, depth] if l == 0 else list(levels[l - 1])
+            dev_ms = _device_ms(torch, lambda src=src, k=min(2, n - 1 - l):
+                                pull_cuda(src, k), flush)
+            retakes += dev_ms[3]
+            by_launch.append(dict(levels=(l + 1, min(l + 2, n - 1)),
+                                  device_ms=dev_ms[0],
+                                  device_ms_warm=dev_ms[1]))
+        print(f"holefill_pull {path}: device ms by launch (cold; warm) "
+              + ", ".join(f"levels {b['levels']} {b['device_ms']!r}; "
+                          f"{b['device_ms_warm']!r}" for b in by_launch)
+              + f", on {card}", flush=True)
         got, level = push_cuda(views, levels, return_level=True)
         want, _ = holefill._push_planar(colors, depths)
         _, want_level = holefill._push_level(colors, *depth.shape)
@@ -1179,6 +1219,35 @@ def _phase3_fill(torch, pipe, camera, frames, card, flush):
         errs["holefill_pull"] = max(errs["holefill_pull"], pull_err)
         errs["holefill_push"] = max(errs["holefill_push"], push_err,
                                     fill_err)
+        # the planes contiguous, a float off 16 bytes, and as the (H, W, 4)
+        # image's strided views: the same bits, the pull's time on each
+        off = torch.empty(rgba.numel() + 1, device=rgba.device)[1:]
+        off = off.view(rgba.shape).copy_(rgba)
+        img = rgba.permute(1, 2, 0).contiguous()
+        by_layout = {}
+        for how, planes in (("contiguous", views), ("off_16_bytes", list(off)),
+                            ("hw4_views", list(img.permute(2, 0, 1)))):
+            got_levels = pull_cuda([*planes, depth], n - 1)
+            got_fill, _ = holefill.fill_colors_planar(planes, depth, lods)
+            torch.cuda.synchronize()
+            if not (all(_bits_equal(torch, g, w)
+                        for g, w in zip(got_levels, levels))
+                    and all(_bits_equal(torch, g, w)
+                            for g, w in zip(got_fill, filled))):
+                raise AssertionError(f"holefill {path}: the {how} planes' "
+                                     "levels or fill differ from the "
+                                     "contiguous planes'")
+            dev_ms = _device_ms(torch, lambda planes=planes: pull_cuda(
+                [*planes, depth], n - 1), flush)
+            retakes += dev_ms[3]
+            by_layout[how] = dict(device_ms=dev_ms[0],
+                                  device_ms_warm=dev_ms[1])
+        print(f"holefill_pull {path}: device ms by the planes' layout (cold; "
+              "warm; bit-equal) " + ", ".join(
+                  f"{how} {b['device_ms']!r}; {b['device_ms_warm']!r}"
+                  for how, b in by_layout.items()) + f", on {card}",
+              flush=True)
+        del off, img
         levels_by_twin = [[*c, d] for c, d in zip(colors, depths)]
         hist = torch.bincount(level.reshape(-1).long(),
                               minlength=len(colors)).tolist()
@@ -1194,9 +1263,9 @@ def _phase3_fill(torch, pipe, camera, frames, card, flush):
         for name, (kern, plain_fn, nbytes, err) in work.items():
             ms = event_ms(kern, iters=20, warmup=3)
             plain_ms = event_ms(plain_fn, iters=3, warmup=1)
-            device_ms, device_ms_warm, split, n = _device_ms(torch, kern,
-                                                             flush)
-            retakes += n
+            device_ms, device_ms_warm, split, tries = _device_ms(
+                torch, kern, flush)
+            retakes += tries
             bound_ms, bound_by = _bound_of(nbytes, 0)
             rows[name][path] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1209,19 +1278,32 @@ def _phase3_fill(torch, pipe, camera, frames, card, flush):
                   f"{device_ms!r} ms cold L2, {device_ms_warm!r} warm "
                   f"{split}, bound {bound_ms!r} ms by bytes ({nbytes} B), "
                   f"{bound_ms / device_ms:.1%} of it, on {card}", flush=True)
+        one = _fill_pull_one_level_bytes(levels_by_twin)
+        one_ms = _bound_of(one, 0)[0]
+        pull_row = rows["holefill_pull"][path]
+        pull_row.update(device_ms_by_launch=by_launch,
+                        device_ms_by_layout=by_layout,
+                        one_level_bytes=one, one_level_bound_ms=one_ms,
+                        share_of_one_level_bound=one_ms
+                        / pull_row["device_ms"])
+        print(f"holefill_pull {path}: the one-level launches' bound (the "
+              f"inner levels read back) {one} B, {one_ms!r} ms at the HBM "
+              f"rate, {one_ms / pull_row['device_ms']:.1%} of it",
+              flush=True)
+
         def fill(views=views, depth=depth, lods=lods):
             return holefill.fill_colors_planar(views, depth, lods)
 
         fill_ms = event_ms(fill, iters=20, warmup=3)
         fill_plain_ms = event_ms(lambda: holefill.fill_colors_plain(
             views, depth, lods), iters=3, warmup=1)
-        fill_dev, fill_dev_warm, fill_split, n = _device_ms(torch, fill,
-                                                            flush)
-        retakes += n
-        # the fill's device activities are its 7 kernels: no copy (the
+        fill_dev, fill_dev_warm, fill_split, tries = _device_ms(
+            torch, fill, flush)
+        retakes += tries
+        # the fill's device activities are its 4 kernels: no copy (the
         # push's taps were uploaded once, at the first fill of this shape)
-        if EVENTS_SPLIT not in fill_split and set(fill_split) != {
-                "pull_kernel", "push_kernel"}:
+        if EVENTS_SPLIT not in fill_split and {
+                k.split("<", 1)[0] for k in fill_split} != FILL_ACTIVITIES:
             raise AssertionError(f"fill {path}: device activities "
                                  f"{fill_split}")
         fill_bound = _bound_of(4 * (5 + 4) * depth.numel(), 0)[0]

@@ -2,7 +2,9 @@
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
-on a nonzero CUDA error code, and adds one to its entry of :data:`LAUNCHES`.
+on a nonzero CUDA error code, and adds one to a kernel's entry of
+:data:`LAUNCHES` for each launch of it (``holefill.fill_cuda`` launches
+both fill kernels from one call).
 The plain PyTorch twins and the CPU/CUDA dispatch live in ``ops/`` beside
 their callers (``ops/stencil13.py``, ``ops/bake.py``, ``ops/gather.py``,
 ``ops/raymarch.py``, ``ops/holefill.py``, ``ops/hits.py``,

@@ -40,6 +40,7 @@ COMPILE_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)
+_PI = ctypes.POINTER(_I)
 # entry point -> argtypes (all return int, the CUDA error code)
 _SIGNATURES = {
     "rgbd_bilateral13": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -69,9 +70,12 @@ _SIGNATURES = {
     "rgbd_render_hit_gather": (_P, _P),
     "rgbd_render_compose": (_P, _P),
     "rgbd_render_params_size": (ctypes.POINTER(_I),),
-    "rgbd_holefill_pull": (_LL, _LL, _LL, _P, _I, _I, _P),
-    "rgbd_holefill_push": (_LL, _LL, _LL, _LL, ctypes.POINTER(_I), _I, _P,
-                           _P, _P, _I, _I, _P),
+    "rgbd_holefill_pull": (_LL, _LL, _LL, _P, _LL, _PI, _I, _I, _I, _PI,
+                           _P),
+    "rgbd_holefill_push": (_LL, _LL, _LL, _LL, _PI, _PI, _I, _I, _I, _P, _P,
+                           _P, _I, _I, _P),
+    "rgbd_holefill_fill": (_LL, _LL, _LL, _P, _LL, _PI, _PI, _I, _I, _I, _P,
+                           _P, _I, _I, _PI, _P),
     # a pointer to the parameter block (kernels/hits.py) and the stream
     "rgbd_hit_refine": (_P, _P),
     "rgbd_hit_shade": (_P, _P),

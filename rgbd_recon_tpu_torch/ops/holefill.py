@@ -14,10 +14,13 @@ fetches of the push are separable resample matrices (nearest selection and
 GL bilinear weights), as in the JAX package.
 
 ``fill_colors_planar`` is the dispatch: CUDA tensors go to the kernels of
-csrc/holefill.cu (kernels/holefill.py: one pull launch a level, one push
-launch), CPU tensors to the plain twin ``fill_colors_plain``. The push
-kernel reads the resample matrices as per-axis taps (``nearest_taps``,
-``bilinear_taps``: each row's nonzeros), packed by ``push_taps``.
+csrc/holefill.cu (kernels/holefill.py ``fill_cuda``: one call, a pull
+launch for every two pyramid levels, one push launch), CPU tensors to the
+plain twin ``fill_colors_plain``. The push kernel reads the resample
+matrices as per-axis taps (``nearest_taps``, ``bilinear_taps``: each row's
+nonzeros), packed by ``push_taps``; ``pyramid_offsets`` and
+``push_layout`` place the levels in one buffer and the push's staged
+rectangles in shared memory.
 """
 
 from __future__ import annotations
@@ -30,6 +33,18 @@ import torch
 import torch.nn.functional as F
 
 PLANES = 4  # r, g, b, alpha
+# csrc/holefill.cu's tiles, (rows, columns) a block of 256 threads owns: a
+# pull launch's last level by its steps (two: level l + 2, one: l + 1),
+# and the push's LOD 0 (four pixels a thread); the library refuses a push
+# whose ``push_layout`` is not its own tile's (push_layout_ok)
+PULL_TILES = {2: (8, 8), 1: (8, 32)}
+PUSH_TILE = (16, 64)
+# the dynamic shared memory a push block may take (csrc/holefill.cu
+# SMEM_MAX: no opt-in past 48 KB)
+PUSH_SMEM_MAX = 48 * 1024
+# each level of the pyramid buffer starts at a multiple of 64 floats (256
+# bytes, as an allocation would)
+_LEVEL_ALIGN = 64
 
 
 def _pull_planar(planes: Sequence[torch.Tensor], depth: torch.Tensor):
@@ -93,6 +108,48 @@ def pyramid_shapes(H: int, W: int, num_lods: int) -> List[Tuple[int, int]]:
             break
         shapes.append((max(h // 2, 1), max(w // 2, 1)))
     return shapes
+
+
+def pull_launches(num_levels: int) -> int:
+    """The pull kernel's launches for a pyramid of ``num_levels`` levels:
+    two levels a launch, the last one alone when the steps are odd."""
+    return num_levels // 2
+
+
+def pyramid_offsets(shapes) -> Tuple[List[int], int]:
+    """(offset of each level past LOD 0, floats in all) of the pyramid
+    ``shapes`` (LOD 0 first) in one buffer: level l as (5, Hl, Wl) at its
+    offset, each offset a multiple of 64 floats."""
+    offsets, total = [], 0
+    for h, w in shapes[1:]:
+        offsets.append(total)
+        total += -(-5 * h * w // _LEVEL_ALIGN) * _LEVEL_ALIGN
+    return offsets, total
+
+
+def push_rect_bound(n: int, n_l: int, t: int) -> int:
+    """Texels along one axis of level ``n_l`` that the taps of ``t``
+    consecutive pixels of an ``n``-pixel LOD 0 axis can reach: the nearest
+    and the bilinear taps of pixels y0 .. y0 + t - 1 span at most
+    ceil((t - 1) n_l / n) + 2 texels when n_l <= n (one more here, for the
+    float64 rounding of the bilinear centres), and never more than n_l."""
+    return min(n_l, -(-(t - 1) * n_l // n) + 3)
+
+
+def push_layout(shapes, tile: Tuple[int, int] = PUSH_TILE
+                ) -> Tuple[List[int], int, int]:
+    """(each level's rectangle offset past LOD 0, in texels of a plane;
+    the texels the rectangles reserve a plane; the push block's dynamic
+    shared memory in bytes) for the pyramid ``shapes``: a level reserves
+    its ``push_rect_bound`` rows times columns in each of the r, g, b,
+    alpha planes, and its per-axis taps take 5 words a tile row and
+    column."""
+    (H, W), (ty, tx) = shapes[0], tile
+    roff, texels = [], 0
+    for h, w in shapes[1:]:
+        roff.append(texels)
+        texels += push_rect_bound(H, h, ty) * push_rect_bound(W, w, tx)
+    return roff, texels, 16 * texels + 4 * 5 * (ty + tx) * (len(shapes) - 1)
 
 
 def _build_pyramid_planar(planes0, depth0, num_lods: int):
@@ -259,17 +316,12 @@ def fill_colors_planar(planes0: Sequence[torch.Tensor], depth0: torch.Tensor,
                        num_lods: int = 7) -> Tuple[List[torch.Tensor],
                                                    torch.Tensor]:
     """The pull-push of :func:`fill_colors_plain`: on CUDA tensors the
-    kernels of csrc/holefill.cu (a pull launch a level past LOD 0, then one
-    push launch; the planes may be strided views), on CPU tensors the plain
-    version. Same arguments and results; the depth is ``depth0`` itself."""
+    kernels of csrc/holefill.cu in one call (``pull_launches`` pull
+    launches, two levels each, then one push launch; the planes may be
+    strided views), on CPU tensors the plain version. Same arguments and
+    results; the depth is ``depth0`` itself."""
     if depth0.device.type == "cpu":
         return fill_colors_plain(planes0, depth0, num_lods)
-    from ..kernels.holefill import pull_cuda, push_cuda
+    from ..kernels.holefill import fill_cuda
 
-    H, W = depth0.shape
-    levels, cur = [], [*planes0, depth0]
-    for _ in pyramid_shapes(H, W, num_lods)[1:]:
-        nxt = pull_cuda(cur)                                # (5, Hl, Wl)
-        levels.append(nxt)
-        cur = list(nxt.unbind(0))
-    return list(push_cuda(planes0, levels).unbind(0)), depth0
+    return list(fill_cuda(planes0, depth0, num_lods).unbind(0)), depth0

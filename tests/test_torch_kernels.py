@@ -1262,12 +1262,16 @@ def test_render_marches_on_the_kernel(cuda, monkeypatch, config, marches):
 
 # (H, W), num_lods, kind (tests/holefill_cases.py): the render's 1280x720 at
 # 7 LODs, odd sizes, alpha <= 0 everywhere, alpha > 0 everywhere, a pyramid
-# that stops at 6 levels (37 -> 1 rows), at 2 levels, and of LOD 0 alone
+# that stops at 6 levels (37 -> 1 rows: 5 pull steps), at 2 levels, and of
+# LOD 0 alone; an odd number of pull steps by num_lods (81x97 at 6); the
+# small shapes whose one pull tile straddles every edge
 FILL_CASES = [((720, 1280), 7, "mixed"), ((81, 97), 7, "mixed"),
               ((81, 97), 7, "invalid"), ((81, 97), 7, "valid"),
               ((720, 1280), 7, "invalid"), ((53, 40), 5, "mixed"),
               ((37, 150), 7, "mixed"), ((2, 3), 7, "mixed"),
-              ((1, 5), 7, "mixed")]
+              ((1, 5), 7, "mixed"), ((81, 97), 6, "mixed"),
+              ((2, 2), 7, "mixed"), ((3, 5), 7, "mixed"),
+              ((5, 3), 7, "mixed")]
 FILL_COLOR_ATOL = 1e-6
 
 
@@ -1285,22 +1289,30 @@ def _bits_equal(a, b) -> bool:
 @pytest.mark.parametrize("shape,lods,kind", FILL_CASES)
 def test_holefill_pull_kernel_bit_exact(cuda, shape, lods, kind):
     """Each pull level of csrc/holefill.cu bit-equal to _pull_planar on
-    the card, from the twin's level below and along the kernel's own
-    chain."""
+    the card, along the kernel's own chain (two levels a launch, the last
+    alone when the steps are odd) and from each of the twin's levels (the
+    launch of the next two levels, or of the last one)."""
     from rgbd_recon_tpu_torch.kernels.holefill import pull_cuda
 
     planes = _fill_inputs(shape, kind, cuda)
     colors, depths = holefill._build_pyramid_planar(planes[:4], planes[4],
                                                     lods)
-    chain = planes
-    for l in range(1, len(colors)):
-        want = [*colors[l], depths[l]]
-        got = pull_cuda([*colors[l - 1], depths[l - 1]])
-        chain = list(pull_cuda(chain).unbind(0))
+    n = len(colors)
+    kernels.reset_launch_counts()
+    chain = pull_cuda(planes, n - 1)
+    assert kernels.launch_counts()["holefill_pull"] == holefill.pull_launches(
+        n)
+    assert len(chain) == n - 1
+    for l in range(1, n):
+        got = pull_cuda([*colors[l - 1], depths[l - 1]], min(2, n - l))
         torch.cuda.synchronize()
-        assert got.is_contiguous() and got.shape == (5, *depths[l].shape)
-        for name, g, c, w in zip("rgbad", got, chain, want):
-            assert _bits_equal(g, w), (l, name)
+        for k, g in enumerate(got):
+            want = [*colors[l + k], depths[l + k]]
+            assert g.is_contiguous() and g.shape == (5, *depths[l + k].shape)
+            for name, gp, w in zip("rgbad", g, want):
+                assert _bits_equal(gp, w), (l, k, name)
+        for name, c, w in zip("rgbad", chain[l - 1],
+                              [*colors[l], depths[l]]):
             assert _bits_equal(c, w), (l, name)
 
 
@@ -1335,10 +1347,11 @@ def test_holefill_push_kernel(cuda, shape, lods, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,lods,kind", FILL_CASES)
 def test_holefill_fill_on_the_kernels(cuda, monkeypatch, shape, lods, kind):
-    """fill_colors_planar on CUDA tensors: L - 1 pull launches and one push
-    launch, within atol 1e-6 of fill_colors_plain on the card (depth the
-    input itself); the (H, W, 4) image's strided views give the bits of
-    contiguous planes; a second fill uploads no taps."""
+    """fill_colors_planar on CUDA tensors: ceil((L - 1) / 2) pull launches
+    (two levels each) and one push launch, within atol 1e-6 of
+    fill_colors_plain on the card (depth the input itself); the (H, W, 4)
+    image's strided views give the bits of contiguous planes; a second
+    fill uploads no taps."""
     from rgbd_recon_tpu_torch.kernels import holefill as fill_kernels
 
     planes = _fill_inputs(shape, kind, cuda)
@@ -1346,7 +1359,8 @@ def test_holefill_fill_on_the_kernels(cuda, monkeypatch, shape, lods, kind):
     kernels.reset_launch_counts()
     got, depth = holefill.fill_colors_planar(planes[:4], planes[4], lods)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["holefill_pull"] == n_levels - 1
+    assert kernels.launch_counts()["holefill_pull"] == -(-(n_levels - 1)
+                                                         // 2)
     assert kernels.launch_counts()["holefill_push"] == 1
     want, want_depth = holefill.fill_colors_plain(planes[:4], planes[4],
                                                   lods)
@@ -1370,8 +1384,9 @@ def test_holefill_fill_on_the_kernels(cuda, monkeypatch, shape, lods, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("colorfill", [True, False])
 def test_render_fills_on_the_kernels(cuda, colorfill):
-    """A render on the card fills with the kernels: num_lods - 1 pulls
-    (64x48 at 3 LODs) and one push, none without colorfill."""
+    """A render on the card fills with the kernels: one pull launch for
+    the two levels past LOD 0 (64x48 at 3 LODs) and one push, none
+    without colorfill."""
     pipe, volume, maps, counts, cam, _ = _small_scene(cuda,
                                                       colorfill=colorfill)
     render = pipe.make_renderer(cam)
@@ -1379,9 +1394,47 @@ def test_render_fills_on_the_kernels(cuda, colorfill):
     out = render(volume, maps, counts)
     torch.cuda.synchronize()
     launched = kernels.launch_counts()
-    assert launched["holefill_pull"] == 2 * colorfill
+    assert launched["holefill_pull"] == int(colorfill)
     assert launched["holefill_push"] == int(colorfill)
     assert bool(torch.isfinite(out.color).all())
+
+
+@pytest.mark.cuda
+def test_holefill_fill_back_to_back_and_in_graphs(cuda):
+    """50 fills of the render's frame back to back on two inputs in turn,
+    then 3 replays of a captured fill after its inputs were overwritten
+    with others, each bit-equal to an eager fill of the same inputs."""
+    shape, lods = (720, 1280), 7
+    inputs = [_fill_inputs(shape, "mixed", cuda, seed=s)
+              for s in (23, 24, 25, 26)]
+    want = [holefill.fill_colors_planar(p[:4], p[4], lods)[0]
+            for p in inputs]
+    torch.cuda.synchronize()
+    outs = [holefill.fill_colors_planar(inputs[i % 2][:4], inputs[i % 2][4],
+                                        lods)[0] for i in range(50)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        for g, w in zip(out, want[i % 2]):
+            assert _bits_equal(g, w), i
+    static = [p.clone() for p in inputs[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        holefill.fill_colors_planar(static[:4], static[4], lods)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        got, depth = holefill.fill_colors_planar(static[:4], static[4], lods)
+    assert depth is static[4]
+    assert kernels.launch_counts()["holefill_pull"] == 3
+    for k in (1, 2, 3):
+        for dst, src in zip(static, inputs[k]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want[k]):
+            assert _bits_equal(g, w), k
 
 
 @pytest.mark.cuda
@@ -1395,6 +1448,40 @@ def test_holefill_pull_refusal_raises(cuda):
     with pytest.raises(RuntimeError, match="holefill_pull"):
         pull_cuda(tall)
     assert kernels.launch_counts()["holefill_pull"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(8, 64), (16, 32), (32, 64)])
+def test_holefill_push_refuses_another_tiles_layout(cuda, monkeypatch, tile):
+    """The library holds the push's shared-memory layout to its own tile:
+    ops/holefill.py's rectangles reserved for another tile raise, with no
+    launch, and the next fill of the right layout is as before."""
+    from rgbd_recon_tpu_torch.kernels import holefill as fill_kernels
+
+    planes = _fill_inputs((81, 97), "mixed", cuda)
+    want, _ = holefill.fill_colors_planar(planes[:4], planes[4], 7)
+    colors, _ = holefill._build_pyramid_planar(planes[:4], planes[4], 7)
+    levels = [torch.stack(c) for c in colors[1:]]
+    layout = holefill.push_layout
+    monkeypatch.setattr(fill_kernels, "push_layout",
+                        lambda shapes: layout(shapes, tile))
+    fill_kernels._plan.cache_clear()
+    fill_kernels._fill_plan.cache_clear()
+    try:
+        kernels.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="holefill_push"):
+            fill_kernels.push_cuda(colors[0], levels)
+        with pytest.raises(RuntimeError, match="holefill"):
+            holefill.fill_colors_planar(planes[:4], planes[4], 7)
+        assert kernels.launch_counts()["holefill_push"] == 0
+    finally:
+        monkeypatch.undo()
+        fill_kernels._plan.cache_clear()
+        fill_kernels._fill_plan.cache_clear()
+    got, _ = holefill.fill_colors_planar(planes[:4], planes[4], 7)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
 
 
 # ---- the hit path ----------------------------------------------------------
