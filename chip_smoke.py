@@ -889,6 +889,7 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
     overflow vector must drop blocks, tail rays and hits."""
     from rgbd_recon_tpu_torch.bench import kernel_inputs
     from rgbd_recon_tpu_torch.bench.trace import event_ms
+    from rgbd_recon_tpu_torch.kernels.render_stages import scan_plan
     from rgbd_recon_tpu_torch.ops import stage_calls
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
@@ -947,6 +948,9 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
                        device_split=split, bound_ms=bound_ms,
                        bound_by=bound_by, bytes=nbytes, ops=ops,
                        share_of_bound=bound_ms / cold)
+            if stage == "scan":
+                # blocks, threads, lanes a ray, the staged brick table
+                row["launch"] = scan_plan(a[0], a[1].shape, a[1].device)
             if stage == "compact":
                 lib_name, lib = kernel_inputs.library_compact(
                     torch, *a[:3], ids=want[0])
@@ -978,6 +982,7 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
                      f", {row['library_events_cold_ms']!r} ms cold "
                      "(events)"
                      if "library" in row else "")
+                  + (f"; launch {row['launch']}" if "launch" in row else "")
                   + f", on {card}", flush=True)
             del kern, plain, got, want, ka, kkw, pa, pkw
         for name in names:
@@ -1057,6 +1062,8 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             trace_retakes=retakes)
         if name == "march":
             row["host_split"] = sums["march"]["host_split"]
+        if name == "scan":
+            row["launch"] = calls_out[name][0]["launch"]
         if name == "compact":
             row.update(library=calls_out[name][0]["library"],
                        library_events_cold_ms=fast[
@@ -1476,7 +1483,11 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
     kernels' JSON rows: the fast frame's figures, the parity frame's under
     "parity"."""
     from rgbd_recon_tpu_torch.bench.trace import event_ms
-    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
+    from rgbd_recon_tpu_torch.kernels.hits import (
+        refine_cuda,
+        shade_cuda,
+        shade_plan,
+    )
     from rgbd_recon_tpu_torch.ops import hits
     from rgbd_recon_tpu_torch.ops import stage_calls
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
@@ -1553,7 +1564,9 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
             "hit_shade": (lambda: shade_cuda(**skernel),
                           lambda: hits.shade_hits_plain(*sargs, **skw),
                           s_bytes, s_err,
-                          dict(modes=modes, touched_bytes=s_touched)),
+                          dict(modes=modes, touched_bytes=s_touched,
+                               # blocks, threads, lanes a hit
+                               launch=shade_plan(hit.numel()))),
         }
         for name, (kern, plain, nbytes, err, extra) in work.items():
             ms = event_ms(kern, iters=20, warmup=3)
@@ -1573,8 +1586,9 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
                   f"{ms!r} ms (events; plain {plain_ms!r}), device "
                   f"{device_ms!r} ms cold L2, {device_ms_warm!r} warm "
                   f"{split}, bound {bound_ms!r} ms by {bound_by} ({nbytes} "
-                  f"B), {bound_ms / device_ms:.1%} of it, on "
-                  f"{card}", flush=True)
+                  f"B), {bound_ms / device_ms:.1%} of it"
+                  + (f"; launch {extra['launch']}" if "launch" in extra
+                     else "") + f", on {card}", flush=True)
         del volume, maps, counts, calls, rargs, rkw, sargs, skw, skernel, work
     del ppipe
     torch.cuda.empty_cache()

@@ -51,21 +51,45 @@
 // Bound on this card: bytes. Each hit reads a few texels of the oct or
 // march table and, per sensor, a few of the colour, depth and quality maps
 // (and of the calibration volumes), all gathered; the arithmetic is a few
-// hundred f32 operations a hit. Design: one thread a hit, 128 threads a
-// block (the render compacts the hits of 4x4 screen blocks next to each
-// other, so a warp's hits read neighbouring texels and share sectors);
-// every table and map read in place through the read-only path (__ldg),
-// bf16 entries loaded as 16 bits and shifted into an f32 (exact, as the
-// twin's .to(float32)); the colour map read as f32 and rounded to bf16 in
-// registers (no per-call bf16 copy), depth and quality read from their
-// own planes through their strides (no per-call stack), the camera and
-// the box's minimum read from their device tensors (no upload, no sync);
-// the per-hit inputs read through strides, so the render's column views
-// need no copy. A hit reads what its result needs: the live byte first,
+// hundred f32 operations a hit. What sets the time is the chain of
+// dependent gathers and the load instructions that issue them: each
+// gather's address depends on the one before (a projection, or a lookup of
+// cv_inv, then of cv_uv at its result, then the maps' taps), sensor after
+// sensor.
+//
+// Design, common to both: one thread a hit, 128 threads a block (the
+// cells' 101,376 hit slots are one wave of the card); every table and map
+// read in place through the read-only path (__ldg), bf16 entries loaded as
+// 16 bits and shifted into an f32 (exact, as the twin's .to(float32)); the
+// colour map read as f32 and rounded to bf16 in registers (no per-call
+// bf16 copy), depth and quality read from their own planes through their
+// strides (no per-call stack), the camera and the box's minimum read from
+// their device tensors (no upload, no sync); the per-hit inputs read
+// through strides, so the render's column views need no copy. The render
+// compacts the hits of 4x4 screen blocks next to each other, so
+// neighbouring hits read neighbouring texels and share sectors.
+//
+// hit_refine: a hit reads what its result needs: the live byte first,
 // then the ray and bracket only if it is live, the march's position only
-// where that is the result (not live, or the crossing not confirmed); the
-// shade reads nothing more of a hit that is not live. The sensor loop is
-// one loop in the thread.
+// where that is the result (not live, or the crossing not confirmed).
+//
+// hit_shade: the sensors are folded one after the other into the sums in
+// sensor order from 0.0f, as the twins' loop adds them. Each sensor's
+// gathers take as few load instructions as the layouts allow:
+//  - the projection models of every sensor (analytic blend) are staged
+//    once a block in shared memory as a 16-byte aligned record a sensor
+//    (MODEL_FLOATS), read as seven float4 in place of 26 loads;
+//  - a calibration-volume tap's 4 (cv_inv) or 2 (cv_uv) channels are one
+//    float4 / float2 load (the wrapper checks the volumes' 16- and 8-byte
+//    alignment); each channel's lerps keep their order;
+//  - a map's four taps' addresses are taken once for all its channels;
+//    the colour map's 3-channel texels stay scalar loads.
+// A hit's sensors spread over lanes of a warp, or gathered together in one
+// thread, cost more than they hide: the lanes repeat the hit's own work
+// (its normal, its view transform) and add the fold's shuffles, the
+// gathered sensors the registers of a second wave. Reciprocals 1 / x are
+// __frcp_rn (the bits of the IEEE division). A hit that is not live reads
+// nothing more than its live byte.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -193,6 +217,8 @@ __device__ __forceinline__ float mul(float a, float b) {
 __device__ __forceinline__ float dvd(float a, float b) {
   return __fdiv_rn(a, b);
 }
+// 1 / b, correctly rounded (the bits of dvd(1.0f, b))
+__device__ __forceinline__ float rcp(float b) { return __frcp_rn(b); }
 
 // a + b * t: the twins' position along a ray (a product, then a sum)
 __device__ __forceinline__ float along(float a, float b, float t) {
@@ -507,17 +533,6 @@ __device__ void normal_table(const ShadeParams& a, const T* table, float px,
 
 // ---- hit_shade: the sensor maps -------------------------------------------
 
-// a texel of sensor i's map of C channels at (y, x)
-__device__ __forceinline__ float texel(const float* m, const long long* s,
-                                       int i, int y, int x, int c) {
-  return __ldg(m + i * s[0] + y * s[1] + x * s[2] + c * s[3]);
-}
-
-__device__ __forceinline__ float plane(const float* m, const long long* s,
-                                       int i, int y, int x) {
-  return __ldg(m + i * s[0] + y * s[1] + x * s[2]);
-}
-
 struct Taps {
   int x0, x1, y0, y1;
   float fx, fy;
@@ -572,93 +587,189 @@ __device__ __forceinline__ Taps edge_taps(float u, float v, int H, int W) {
   return t;
 }
 
-// the blend of the four taps of a channel, rounding each to bf16 first
-// where bf16 is set (the twins' colors.to(torch.bfloat16))
-__device__ __forceinline__ float blend_taps(const float* m, const long long* s,
-                                            int i, const Taps& t, int c,
-                                            bool bf16) {
-  float r00 = texel(m, s, i, t.y0, t.x0, c);
-  float r01 = texel(m, s, i, t.y0, t.x1, c);
-  float r10 = texel(m, s, i, t.y1, t.x0, c);
-  float r11 = texel(m, s, i, t.y1, t.x1, c);
-  if (bf16) {
-    r00 = bf16_round(r00);
-    r01 = bf16_round(r01);
-    r10 = bf16_round(r10);
-    r11 = bf16_round(r11);
+// the four taps' texels of sensor i's map (strides s: sensor, row,
+// column), corners (y0, x0), (y0, x1), (y1, x0), (y1, x1): their addresses
+// taken once for every channel
+struct Corners {
+  const float* p[4];
+};
+
+__device__ __forceinline__ Corners corners(const float* m, const long long* s,
+                                           int i, const Taps& t) {
+  const float* base = m + i * s[0];
+  const long long r0 = t.y0 * s[1], r1 = t.y1 * s[1];
+  const long long c0 = t.x0 * s[2], c1 = t.x1 * s[2];
+  return Corners{{base + r0 + c0, base + r0 + c1, base + r1 + c0,
+                  base + r1 + c1}};
+}
+
+// the blend of the four taps at channel offset off, rounding each to bf16
+// first where bf16 is set (the twins' colors.to(torch.bfloat16))
+__device__ __forceinline__ float blend_taps(const Corners& q, long long off,
+                                            const Taps& t, bool bf16) {
+  float r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    r[k] = __ldg(q.p[k] + off);
+    if (bf16) r[k] = bf16_round(r[k]);
   }
-  return lerp(lerp(r00, r01, t.fx), lerp(r10, r11, t.fx), t.fy);
+  return lerp(lerp(r[0], r[1], t.fx), lerp(r[2], r[3], t.fx), t.fy);
 }
 
-__device__ __forceinline__ float blend_plane(const float* m,
-                                             const long long* s, int i,
-                                             const Taps& t) {
-  const float r00 = plane(m, s, i, t.y0, t.x0);
-  const float r01 = plane(m, s, i, t.y0, t.x1);
-  const float r10 = plane(m, s, i, t.y1, t.x0);
-  const float r11 = plane(m, s, i, t.y1, t.x1);
-  return lerp(lerp(r00, r01, t.fx), lerp(r10, r11, t.fx), t.fy);
+// the three colour channels of sensor i's (N, H, W, 3) map at the taps
+__device__ __forceinline__ void blend_color(const ShadeParams& a, int i,
+                                            const Taps& t, bool bf16,
+                                            float col[3]) {
+  const Corners q = corners(a.color, a.color_stride, i, t);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    col[j] = blend_taps(q, j * a.color_stride[3], t, bf16);
 }
 
-// calib/sensors.py ProjectionModels._projective for sensor i: A (2, 3),
-// b (2,), c (3,)
-__device__ __forceinline__ void projective(const float* A, const float* b,
-                                           const float* c, float px, float py,
-                                           float pz, float& u, float& v) {
-  float den = add(add(add(mul(px, __ldg(c)), mul(py, __ldg(c + 1))),
-                      mul(pz, __ldg(c + 2))),
+// calib/sensors.py ProjectionModels._projective: A (2, 3), b (2,), c (3,)
+__device__ __forceinline__ void projective(const float A[6], const float b[2],
+                                           const float c[3], float px,
+                                           float py, float pz, float& u,
+                                           float& v) {
+  float den = add(add(add(mul(px, c[0]), mul(py, c[1])), mul(pz, c[2])),
                   1.0f);
   den = fabsf(den) < 1e-8f ? 1e-8f : den;
-  const float inv = dvd(1.0f, den);
-  u = mul(add(add(add(mul(px, __ldg(A)), mul(py, __ldg(A + 1))),
-                  mul(pz, __ldg(A + 2))),
-              __ldg(b)),
+  const float inv = rcp(den);
+  u = mul(add(add(add(mul(px, A[0]), mul(py, A[1])), mul(pz, A[2])), b[0]),
           inv);
-  v = mul(add(add(add(mul(px, __ldg(A + 3)), mul(py, __ldg(A + 4))),
-                  mul(pz, __ldg(A + 5))),
-              __ldg(b + 1)),
+  v = mul(add(add(add(mul(px, A[3]), mul(py, A[4])), mul(pz, A[5])), b[1]),
           inv);
 }
 
-// trilinear_3d of sensor i's (D, H, W, C) volume at (x, y, z), channels
-// [0, nc)
+// sensor i's projection models as the block stages them: a record of
+// MODEL_FLOATS floats a sensor, 16-byte aligned, read as seven float4
+// (uv_num 0-5, uv_off 6-7, uv_den 8-10, d_off 11, d_lin 12-14, cuv_num
+// 16-21, cuv_off 22-23, cuv_den 24-26)
+constexpr int MODEL_FLOATS = 28;
+
+struct Models {
+  float uv_num[6], uv_off[2], uv_den[3], d_lin[3], d_off;
+  float cuv_num[6], cuv_off[2], cuv_den[3];
+};
+
+__device__ __forceinline__ Models load_models(const float* models, int i) {
+  const float4* q =
+      reinterpret_cast<const float4*>(models + i * MODEL_FLOATS);
+  float r[MODEL_FLOATS];
+#pragma unroll
+  for (int k = 0; k < MODEL_FLOATS / 4; ++k) {
+    const float4 v = q[k];
+    r[4 * k] = v.x;
+    r[4 * k + 1] = v.y;
+    r[4 * k + 2] = v.z;
+    r[4 * k + 3] = v.w;
+  }
+  Models m;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    m.uv_num[k] = r[k];
+    m.cuv_num[k] = r[16 + k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    m.uv_den[k] = r[8 + k];
+    m.d_lin[k] = r[12 + k];
+    m.cuv_den[k] = r[24 + k];
+  }
+  m.uv_off[0] = r[6];
+  m.uv_off[1] = r[7];
+  m.d_off = r[11];
+  m.cuv_off[0] = r[22];
+  m.cuv_off[1] = r[23];
+  return m;
+}
+
+// the block's record of every sensor's models (analytic blend), from the
+// wrapper's (N, 2, 3), (N, 2), (N, 3), (N, 3), (N,), (N, 2, 3), (N, 2),
+// (N, 3) tensors; the padding words are not read
+__device__ void stage_models(const ShadeParams& a, float* models) {
+  for (int k = threadIdx.x; k < a.N * MODEL_FLOATS; k += THREADS) {
+    const int i = k / MODEL_FLOATS, f = k % MODEL_FLOATS;
+    float v = 0.0f;
+    if (f < 6) v = __ldg(a.uv_num + i * 6 + f);
+    else if (f < 8) v = __ldg(a.uv_off + i * 2 + f - 6);
+    else if (f < 11) v = __ldg(a.uv_den + i * 3 + f - 8);
+    else if (f == 11) v = __ldg(a.d_off + i);
+    else if (f < 15) v = __ldg(a.d_lin + i * 3 + f - 12);
+    else if (f >= 16 && f < 22) v = __ldg(a.cuv_num + i * 6 + f - 16);
+    else if (f >= 22 && f < 24) v = __ldg(a.cuv_off + i * 2 + f - 22);
+    else if (f >= 24 && f < 27) v = __ldg(a.cuv_den + i * 3 + f - 24);
+    models[k] = v;
+  }
+}
+
+// a volume tap's C channels (C = 4: one float4 load, C = 2: one float2)
+template <int C>
+__device__ __forceinline__ void load_tap(const float* p, float* out);
+
+template <>
+__device__ __forceinline__ void load_tap<4>(const float* p, float* out) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+template <>
+__device__ __forceinline__ void load_tap<2>(const float* p, float* out) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  out[0] = v.x;
+  out[1] = v.y;
+}
+
+// trilinear_3d of sensor i's (D, H, W, C) volume at (x, y, z): the eight
+// taps' channels, then each channel's lerps in the twin's order
+template <int C>
 __device__ void volume_trilinear(const float* vol, int i, int D, int H,
-                                 int W, int C, int nc, float x, float y,
-                                 float z, float* out) {
+                                 int W, float x, float y, float z,
+                                 float* out) {
   const float cx = sub(mul(x, (float)W), 0.5f);
   const float cy = sub(mul(y, (float)H), 0.5f);
   const float cz = sub(mul(z, (float)D), 0.5f);
   const float x0f = floorf(cx), y0f = floorf(cy), z0f = floorf(cz);
   const float fx = sub(cx, x0f), fy = sub(cy, y0f), fz = sub(cz, z0f);
-  const int x0 = clamp_idx((int)x0f, W);
-  const int x1 = clamp_idx((int)add(x0f, 1.0f), W);
-  const int y0 = clamp_idx((int)y0f, H);
-  const int y1 = clamp_idx((int)add(y0f, 1.0f), H);
-  const int z0 = clamp_idx((int)z0f, D);
-  const int z1 = clamp_idx((int)add(z0f, 1.0f), D);
+  const int xs[2] = {clamp_idx((int)x0f, W),
+                     clamp_idx((int)add(x0f, 1.0f), W)};
+  const int ys[2] = {clamp_idx((int)y0f, H),
+                     clamp_idx((int)add(y0f, 1.0f), H)};
+  const int zs[2] = {clamp_idx((int)z0f, D),
+                     clamp_idx((int)add(z0f, 1.0f), D)};
   const float* base = vol + (long long)i * D * H * W * C;
-  for (int ch = 0; ch < nc; ++ch) {
-    auto g = [&](int zz, int yy, int xx) {
-      return __ldg(base + (((long long)zz * H + yy) * W + xx) * C + ch);
-    };
-    const float c00 = lerp(g(z0, y0, x0), g(z0, y0, x1), fx);
-    const float c01 = lerp(g(z0, y1, x0), g(z0, y1, x1), fx);
-    const float c10 = lerp(g(z1, y0, x0), g(z1, y0, x1), fx);
-    const float c11 = lerp(g(z1, y1, x0), g(z1, y1, x1), fx);
+  // tap[zz][yy][xx][ch]
+  float tap[2][2][2][C];
+#pragma unroll
+  for (int zz = 0; zz < 2; ++zz)
+#pragma unroll
+    for (int yy = 0; yy < 2; ++yy)
+#pragma unroll
+      for (int xx = 0; xx < 2; ++xx)
+        load_tap<C>(
+            base + (((long long)zs[zz] * H + ys[yy]) * W + xs[xx]) * C,
+            tap[zz][yy][xx]);
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    const float c00 = lerp(tap[0][0][0][ch], tap[0][0][1][ch], fx);
+    const float c01 = lerp(tap[0][1][0][ch], tap[0][1][1][ch], fx);
+    const float c10 = lerp(tap[1][0][0][ch], tap[1][0][1][ch], fx);
+    const float c11 = lerp(tap[1][1][0][ch], tap[1][1][1][ch], fx);
     out[ch] = lerp(lerp(c00, c01, fy), lerp(c10, c11, fy), fz);
   }
 }
 
-// nearest_3d of sensor i's (D, H, W, C) volume, channels [0, nc)
+// nearest_3d of sensor i's (D, H, W, C) volume
+template <int C>
 __device__ void volume_nearest(const float* vol, int i, int D, int H, int W,
-                               int C, int nc, float x, float y, float z,
-                               float* out) {
+                               float x, float y, float z, float* out) {
   const int xi = clamp_idx((int)mul(x, (float)W), W);
   const int yi = clamp_idx((int)mul(y, (float)H), H);
   const int zi = clamp_idx((int)mul(z, (float)D), D);
-  const float* p =
-      vol + ((((long long)i * D + zi) * H + yi) * W + xi) * C;
-  for (int ch = 0; ch < nc; ++ch) out[ch] = __ldg(p + ch);
+  load_tap<C>(vol + ((((long long)i * D + zi) * H + yi) * W + xi) * C, out);
 }
 
 struct Acc {
@@ -666,14 +777,14 @@ struct Acc {
 };
 
 // one sensor's term of the blendColors fold (ops/raymarch.py
-// _blend_accumulate; the analytic blend's loop body)
+// _blend_accumulate; the analytic blend's loop body), added to the sums
 __device__ __forceinline__ void accumulate(Acc& acc, const float col[3],
                                            float depth, float qual, float z,
                                            bool in_frustum, float limit) {
   const float dist = fabsf(sub(depth, z));
   const float q = (dist < limit && in_frustum) ? qual : 0.0f;
   const float w = dvd(q, add(dist, 0.01f));
-  const float w2 = in_frustum ? dvd(1.0f, clamp_min(dist, 1e-20f)) : 0.0f;
+  const float w2 = in_frustum ? rcp(clamp_min(dist, 1e-20f)) : 0.0f;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     acc.c[j] = add(acc.c[j], mul(col[j], w));
@@ -683,44 +794,44 @@ __device__ __forceinline__ void accumulate(Acc& acc, const float col[3],
   acc.w2 = add(acc.w2, w2);
 }
 
-// blend_colors_analytic at the world position -> rgba
-__device__ void blend_analytic(const ShadeParams& a, const float wp[3],
-                               float rgba[4]) {
+// blend_colors_analytic at the world position -> rgba; sensor i's
+// projection models read from the block's staged record `models`
+__device__ void blend_analytic(const ShadeParams& a, const float* models,
+                               const float wp[3], float rgba[4]) {
   Acc acc = {{0.0f, 0.0f, 0.0f}, 0.0f, {0.0f, 0.0f, 0.0f}, 0.0f};
   for (int i = 0; i < a.N; ++i) {
+    Models m = load_models(models, i);
     float u, v, cu, cv;
-    projective(a.uv_num + i * 6, a.uv_off + i * 2, a.uv_den + i * 3, wp[0],
-               wp[1], wp[2], u, v);
-    const float* g = a.d_lin + i * 3;
-    const float d =
-        add(add(add(mul(wp[0], __ldg(g)), mul(wp[1], __ldg(g + 1))),
-                mul(wp[2], __ldg(g + 2))),
-            __ldg(a.d_off + i));
+    projective(m.uv_num, m.uv_off, m.uv_den, wp[0], wp[1], wp[2], u, v);
+    const float d = add(add(add(mul(wp[0], m.d_lin[0]),
+                                mul(wp[1], m.d_lin[1])),
+                            mul(wp[2], m.d_lin[2])),
+                        m.d_off);
     const bool in_frustum = u >= 0.0f && u <= 1.0f && v >= 0.0f &&
                             v <= 1.0f && d >= 0.0f && d <= 1.0f;
-    projective(a.cuv_num + i * 6, a.cuv_off + i * 2, a.cuv_den + i * 3,
-               wp[0], wp[1], wp[2], cu, cv);
-    const Taps ct = quad_taps(cu, cv, a.Hc, a.Wc);
+    projective(m.cuv_num, m.cuv_off, m.cuv_den, wp[0], wp[1], wp[2], cu, cv);
     float col[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      col[j] = blend_taps(a.color, a.color_stride, i, ct, j, true);
+    blend_color(a, i, quad_taps(cu, cv, a.Hc, a.Wc), true, col);
     float depth, qual;
     if (a.dq_bilinear) {
       const Taps dt = quad_taps(u, v, a.Hd, a.Wd);
-      depth = blend_plane(a.depth, a.depth_stride, i, dt);
-      qual = blend_plane(a.quality, a.quality_stride, i, dt);
+      depth = blend_taps(corners(a.depth, a.depth_stride, i, dt), 0, dt,
+                         false);
+      qual = blend_taps(corners(a.quality, a.quality_stride, i, dt), 0, dt,
+                        false);
     } else {
-      const int xi = clamp_idx((int)mul(u, (float)a.Wd), a.Wd);
-      const int yi = clamp_idx((int)mul(v, (float)a.Hd), a.Hd);
-      depth = plane(a.depth, a.depth_stride, i, yi, xi);
-      qual = plane(a.quality, a.quality_stride, i, yi, xi);
+      const long long xi = clamp_idx((int)mul(u, (float)a.Wd), a.Wd);
+      const long long yi = clamp_idx((int)mul(v, (float)a.Hd), a.Hd);
+      const long long* ds = a.depth_stride;
+      const long long* qs = a.quality_stride;
+      depth = __ldg(a.depth + i * ds[0] + yi * ds[1] + xi * ds[2]);
+      qual = __ldg(a.quality + i * qs[0] + yi * qs[1] + xi * qs[2]);
     }
     accumulate(acc, col, depth, qual, d, in_frustum, a.limit);
   }
   const bool primary = acc.w > 0.0f;
-  const float inv_w = dvd(1.0f, clamp_min(acc.w, 1e-20f));
-  const float inv_w2 = dvd(1.0f, clamp_min(acc.w2, 1e-20f));
+  const float inv_w = rcp(clamp_min(acc.w, 1e-20f));
+  const float inv_w2 = rcp(clamp_min(acc.w2, 1e-20f));
 #pragma unroll
   for (int j = 0; j < 3; ++j)
     rgba[j] = primary ? mul(acc.c[j], inv_w) : mul(acc.c2[j], inv_w2);
@@ -737,27 +848,28 @@ __device__ void blend_volume(const ShadeParams& a, const float hp[3],
   for (int i = 0; i < a.N; ++i) {
     float look[4], pc[2];
     if (fast) {
-      volume_nearest(a.cv_inv, i, a.iD, a.iH, a.iW, 4, 4, hp[0], hp[1],
-                     hp[2], look);
-      volume_nearest(a.cv_uv, i, a.uD, a.uH, a.uW, 2, 2, look[0], look[1],
-                     look[2], pc);
+      volume_nearest<4>(a.cv_inv, i, a.iD, a.iH, a.iW, hp[0], hp[1], hp[2],
+                        look);
+      volume_nearest<2>(a.cv_uv, i, a.uD, a.uH, a.uW, look[0], look[1],
+                        look[2], pc);
     } else {
-      volume_trilinear(a.cv_inv, i, a.iD, a.iH, a.iW, 4, 4, hp[0], hp[1],
-                       hp[2], look);
-      volume_trilinear(a.cv_uv, i, a.uD, a.uH, a.uW, 2, 2, look[0], look[1],
-                       look[2], pc);
+      volume_trilinear<4>(a.cv_inv, i, a.iD, a.iH, a.iW, hp[0], hp[1],
+                          hp[2], look);
+      volume_trilinear<2>(a.cv_uv, i, a.uD, a.uH, a.uW, look[0], look[1],
+                          look[2], pc);
     }
     const bool in_frustum = look[3] > 0.99f;
-    const Taps ct = fast ? pair_taps(pc[0], pc[1], a.Hc, a.Wc)
-                         : edge_taps(pc[0], pc[1], a.Hc, a.Wc);
     float col[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      col[j] = blend_taps(a.color, a.color_stride, i, ct, j, fast);
+    blend_color(a, i,
+                fast ? pair_taps(pc[0], pc[1], a.Hc, a.Wc)
+                     : edge_taps(pc[0], pc[1], a.Hc, a.Wc),
+                fast, col);
     const Taps dt = fast ? pair_taps(look[0], look[1], a.Hd, a.Wd)
                          : edge_taps(look[0], look[1], a.Hd, a.Wd);
-    const float depth = blend_plane(a.depth, a.depth_stride, i, dt);
-    const float qual = blend_plane(a.quality, a.quality_stride, i, dt);
+    const float depth =
+        blend_taps(corners(a.depth, a.depth_stride, i, dt), 0, dt, false);
+    const float qual =
+        blend_taps(corners(a.quality, a.quality_stride, i, dt), 0, dt, false);
     accumulate(acc, col, depth, qual, look[2], in_frustum, a.limit);
   }
   // ops/raymarch.py _blend_finalize: divisions
@@ -821,6 +933,11 @@ __device__ __forceinline__ void to_view(const float* rot, const float v[3],
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) shade_kernel(const ShadeParams a) {
+  extern __shared__ __align__(16) float s_models[];
+  if (a.blend == BLEND_ANALYTIC) {
+    stage_models(a, s_models);
+    __syncthreads();
+  }
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= a.n) return;
   const long long r = i;
@@ -853,7 +970,7 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const ShadeParams a) {
   to_view(a.rot, nw, vn);
   float rgba[4];
   if (a.blend == BLEND_ANALYTIC)
-    blend_analytic(a, wp, rgba);
+    blend_analytic(a, s_models, wp, rgba);
   else
     blend_volume(a, hp, rgba);
   if (a.shade_mode == 1) {
@@ -867,12 +984,14 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const ShadeParams a) {
   for (int k = 0; k < 4; ++k) rgba_out[k] = rgba[k];
   // the window depth: (1 / near - 1 / z) / (1 / near - 1 / far), clamped
   const float z = clamp_min(-vp[2], a.near_clamp);
-  const float inv_z = mul(dvd(1.0f, z), 1.0f);
+  const float inv_z = mul(rcp(z), 1.0f);
   a.depth_win[r] = clamp_to(mul(sub(a.inv_near, inv_z), a.depth_scale), 0.0f,
                             1.0f);
 }
 
-int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
+int blocks_for(long long threads) {
+  return (int)((threads + THREADS - 1) / THREADS);
+}
 
 }  // namespace
 
@@ -893,20 +1012,38 @@ int rgbd_hit_refine(const void* params, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The shade's launch for n hits: {blocks, threads, lanes a hit}.
+int rgbd_hit_shade_plan(int n, int* out) {
+  out[0] = blocks_for(n);
+  out[1] = THREADS;
+  out[2] = 1;
+  return 0;
+}
+
 // One shade launch over the hits of a ShadeParams block; the table as for
-// rgbd_hit_refine.
+// rgbd_hit_refine. The calibration volumes (the volume blends) must be 16-
+// (cv_inv) and 8-byte (cv_uv) aligned: a tap is one vector load.
 int rgbd_hit_shade(const void* params, void* stream) {
   const ShadeParams* p = (const ShadeParams*)params;
   if (p->n < 0 || p->normal < NORMAL_OCT || p->normal > NORMAL_TRILINEAR ||
       p->blend < BLEND_ANALYTIC || p->blend > BLEND_VOLUME_FAST ||
       p->shade_mode < 0 || p->shade_mode > 2)
     return (int)cudaErrorInvalidValue;
+  if (p->blend != BLEND_ANALYTIC &&
+      ((reinterpret_cast<uintptr_t>(p->cv_inv) & 15) ||
+       (reinterpret_cast<uintptr_t>(p->cv_uv) & 7)))
+    return (int)cudaErrorMisalignedAddress;
+  // the analytic blend's models staged a block: at most 48 KB
+  const long long smem = p->blend == BLEND_ANALYTIC
+                             ? (long long)p->N * MODEL_FLOATS * 4 : 0;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   if (p->n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = blocks_for(p->n);
   if (p->table_f32)
-    shade_kernel<float><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+    shade_kernel<float><<<blocks, THREADS, smem, s>>>(*p);
   else
-    shade_kernel<unsigned short><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+    shade_kernel<unsigned short><<<blocks, THREADS, smem, s>>>(*p);
   return (int)cudaGetLastError();
 }
 

@@ -21,12 +21,37 @@
 //   axis keeps the first NaN, else the first of the extreme values;
 //   float -> int32 truncates (cvt.rzi), // of an int32 floors.
 //
-// Bound on this card: bytes. The scan reads the surface-brick grid and
-// writes 5 values a scan ray (its 53 samples a ray read the brick grid
-// through L1); the set-up, the bracket and the compose are one thread an
-// element and write what they own once. Each stage is a few microseconds
-// at the cells' 1280x720 camera: the design's aim is the host, not the
-// device (each stage replaces 40-400 launches and the syncs between them).
+// Bound on this card: the scan's operations, the other stages' bytes. The
+// set-up, the bracket, the hit gather and the compose are one thread an
+// element and write what they own once; each is a few microseconds at the
+// cells' 1280x720 camera, and the design's aim is the host (each stage
+// replaces 40-400 launches and the syncs between them).
+//
+// The scan (14,400 rays of 53 samples at the cells' camera: 26.8 M
+// operations, 0.0004 ms at the f32 peak; it reads 44 KB of brick grid and
+// writes 288 KB) takes its time from latency: each sample's brick lookup
+// depends on its position, and the grid is small. Its design:
+//  - a persistent grid sized to the card (SCAN_BLOCKS_PER_SM blocks an SM,
+//    the SM count passed by the wrapper), each block looping over its share
+//    of the rays;
+//  - the brick grid staged once a block into shared memory as a code a brick
+//    (surface -1 where occ, clear 0 where bsafe == 0, else 1) by 16-byte
+//    loads of occ and bsafe, 16 bricks a thread a step; the same pass
+//    reduces the surface bricks' AABB and count by warp reductions and one
+//    shared atomic a warp per word. The table holds grids of up to
+//    SCAN_TABLE_MAX bricks (98,304 bytes: a 46^3 grid; the cells' 20 x 22 x
+//    20 grid is 8,800); a larger grid reads its codes from occ and bsafe in
+//    global memory in the same kernel (scan_kernel<false>);
+//  - a ray's samples split over SCAN_LANES lanes of a warp, each lane a
+//    contiguous run of ceil(n_scan / SCAN_LANES) samples folded by the
+//    sequential rule, the lanes' partials combined by shuffles with the
+//    lower samples' run always the left operand: a NaN held stays, a NaN
+//    arriving wins, else strict < (> for last) replaces. The rule is
+//    associative over ordered runs, so first, last and fsurf keep the
+//    sequential fold's bits (signed zeros and NaNs included);
+//  - a sample's brick index (int)c // brick_vox, clamped to the grid, by
+//    a multiply and a shift in place of the integer division (exact below
+//    2^31; a negative index is brick 0 either way).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,6 +107,7 @@ struct RenderParams {
   int* num;
   int* overflow;
   int caps[5];  // ops/render_stages.py NUM_COUNTS
+  int sms;      // the card's SM count (the scan's grid)
 };
 
 __device__ __forceinline__ float t_min(float a, float b) {
@@ -102,11 +128,6 @@ __device__ __forceinline__ bool is_finite(float v) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return ((a % b) != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
 // ops/render_stages.py ray_dirs at pixel (py, px)
@@ -156,43 +177,139 @@ __device__ __forceinline__ float pool3(const float* v, int h, int w, int i,
 
 // ---- scan ----------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS) scan_kernel(RenderParams p) {
-  // the surface bricks' AABB, every block for itself (a few KB of bricks
-  // from L2)
-  __shared__ int s_lo[3], s_hi[3], s_count;
-  if (threadIdx.x < 3) {
-    const int n[3] = {p.Bz, p.By, p.Bx};
-    s_lo[threadIdx.x] = n[threadIdx.x];
-    s_hi[threadIdx.x] = -1;
+// lanes a scan ray (a power of two), blocks an SM, bricks the shared table
+// holds (a byte each), bricks a staging step of a thread
+constexpr int SCAN_LANES = 8;
+constexpr int SCAN_BLOCKS_PER_SM = 2;
+constexpr int SCAN_TABLE_MAX = 96 * 1024;
+constexpr int SCAN_CHUNK = 16;
+
+// a brick's code: the twin's field, -1 surface, 0 clear, 1 other
+__device__ __forceinline__ int brick_code(unsigned char occ, float bsafe) {
+  return occ ? -1 : (bsafe == 0.0f ? 0 : 1);
+}
+
+// the sequential fold of the extremes: a NaN held stays, a NaN arriving
+// wins, else a strictly smaller (larger) value replaces
+__device__ __forceinline__ float fold_min(float acc, float v) {
+  return (acc == acc && (v != v || v < acc)) ? v : acc;
+}
+
+__device__ __forceinline__ float fold_max(float acc, float v) {
+  return (acc == acc && (v != v || v > acc)) ? v : acc;
+}
+
+// bricks [k0, k0 + SCAN_CHUNK) of occ and bsafe into o and b (16-byte
+// loads where both are aligned and the run is whole; past the grid occ 0)
+__device__ __forceinline__ void load_chunk(const RenderParams& p, int k0,
+                                           int nb, bool vec,
+                                           unsigned char o[SCAN_CHUNK],
+                                           float b[SCAN_CHUNK]) {
+  if (vec && k0 + SCAN_CHUNK <= nb) {
+    const uint4 ov = __ldg(reinterpret_cast<const uint4*>(p.occ + k0));
+    const unsigned w[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+    for (int i = 0; i < SCAN_CHUNK; ++i)
+      o[i] = (w[i / 4] >> (8 * (i % 4))) & 0xff;
+#pragma unroll
+    for (int q = 0; q < SCAN_CHUNK / 4; ++q) {
+      const float4 bv =
+          __ldg(reinterpret_cast<const float4*>(p.bsafe + k0) + q);
+      b[4 * q] = bv.x;
+      b[4 * q + 1] = bv.y;
+      b[4 * q + 2] = bv.z;
+      b[4 * q + 3] = bv.w;
+    }
+    return;
   }
-  if (threadIdx.x == 0) s_count = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_CHUNK; ++i) {
+    const int k = k0 + i;
+    o[i] = k < nb ? p.occ[k] : 0;
+    b[i] = k < nb ? __ldg(p.bsafe + k) : 1.0f;
+  }
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(THREADS) scan_kernel(RenderParams p) {
+  extern __shared__ __align__(16) signed char s_code[];
+  // the surface bricks' AABB (lo z y x, hi z y x) and count
+  __shared__ int s_box[7];
+  const int nbz[3] = {p.Bz, p.By, p.Bx};
+  if (threadIdx.x < 3) {
+    s_box[threadIdx.x] = nbz[threadIdx.x];
+    s_box[3 + threadIdx.x] = -1;
+  }
+  if (threadIdx.x == 0) s_box[6] = 0;
   __syncthreads();
   {
-    int lo[3] = {p.Bz, p.By, p.Bx}, hi[3] = {-1, -1, -1}, cnt = 0;
     const int nb = p.Bz * p.By * p.Bx;
-    for (int k = threadIdx.x; k < nb; k += THREADS) {
-      if (p.occ[k]) {
-        const int z = k / (p.By * p.Bx), y = (k / p.Bx) % p.By,
-                  x = k % p.Bx;
-        lo[0] = min(lo[0], z);
-        lo[1] = min(lo[1], y);
-        lo[2] = min(lo[2], x);
-        hi[0] = max(hi[0], z);
-        hi[1] = max(hi[1], y);
-        hi[2] = max(hi[2], x);
-        ++cnt;
+    const bool vec = ((reinterpret_cast<uintptr_t>(p.occ) |
+                       reinterpret_cast<uintptr_t>(p.bsafe)) & 15) == 0;
+    int lo[3] = {p.Bz, p.By, p.Bx}, hi[3] = {-1, -1, -1}, cnt = 0;
+    for (int k0 = threadIdx.x * SCAN_CHUNK; k0 < nb;
+         k0 += THREADS * SCAN_CHUNK) {
+      unsigned char o[SCAN_CHUNK];
+      float b[SCAN_CHUNK];
+      load_chunk(p, k0, nb, vec, o, b);
+      if (STAGED) {
+        unsigned w[SCAN_CHUNK / 4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < SCAN_CHUNK; ++i)
+          w[i / 4] |= (unsigned)(brick_code(o[i], b[i]) & 0xff)
+                      << (8 * (i % 4));
+        if (k0 + SCAN_CHUNK <= nb) {
+          *reinterpret_cast<uint4*>(s_code + k0) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+        } else {
+          for (int i = 0; i < nb - k0; ++i)
+            s_code[k0 + i] = (signed char)(w[i / 4] >> (8 * (i % 4)));
+        }
+      }
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < SCAN_CHUNK; ++i) any |= o[i] != 0;
+      if (any) {
+        int x = k0 % p.Bx, y = (k0 / p.Bx) % p.By, z = k0 / (p.By * p.Bx);
+#pragma unroll
+        for (int i = 0; i < SCAN_CHUNK; ++i) {
+          if (o[i]) {
+            lo[0] = min(lo[0], z);
+            lo[1] = min(lo[1], y);
+            lo[2] = min(lo[2], x);
+            hi[0] = max(hi[0], z);
+            hi[1] = max(hi[1], y);
+            hi[2] = max(hi[2], x);
+            ++cnt;
+          }
+          if (++x == p.Bx) {
+            x = 0;
+            if (++y == p.By) {
+              y = 0;
+              ++z;
+            }
+          }
+        }
       }
     }
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      atomicMin(&s_lo[a], lo[a]);
-      atomicMax(&s_hi[a], hi[a]);
+      lo[a] = __reduce_min_sync(0xffffffffu, lo[a]);
+      hi[a] = __reduce_max_sync(0xffffffffu, hi[a]);
     }
-    atomicAdd(&s_count, cnt);
+    cnt = (int)__reduce_add_sync(0xffffffffu, (unsigned)cnt);
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        atomicMin(&s_box[a], lo[a]);
+        atomicMax(&s_box[3 + a], hi[a]);
+      }
+      atomicAdd(&s_box[6], cnt);
+    }
   }
   __syncthreads();
   if (blockIdx.x == 0 && threadIdx.x == 0)
-    p.counts[p.count_slot] = s_count;
+    p.counts[p.count_slot] = s_box[6];
   // box in (x, y, z): lo * brick_vox / n, min(hi + 1 ..., 1)
   const float bv = (float)p.brick_vox;
   const float inv_n[3] = {p.inv_X, p.inv_Y, p.inv_Z};
@@ -200,71 +317,103 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(RenderParams p) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const int ax = 2 - a;  // x <- brick axis 2, z <- brick axis 0
-    box_lo[a] = __fmul_rn(__fmul_rn((float)s_lo[ax], bv), inv_n[a]);
+    box_lo[a] = __fmul_rn(__fmul_rn((float)s_box[ax], bv), inv_n[a]);
     const float h =
-        __fmul_rn(__fmul_rn((float)(s_hi[ax] + 1), bv), inv_n[a]);
+        __fmul_rn(__fmul_rn((float)(s_box[3 + ax] + 1), bv), inv_n[a]);
     box_hi[a] = h != h ? h : fminf(h, 1.0f);
   }
 
-  const int ray = blockIdx.x * THREADS + threadIdx.x;
-  if (ray >= p.Hs * p.Ws) return;
-  const int i = ray / p.Ws, j = ray % p.Ws;
+  constexpr int L = SCAN_LANES;
+  static_assert(L >= 1 && L <= 16 && (L & (L - 1)) == 0,
+                "SCAN_LANES: a power of two up to 16");
+  constexpr int RAYS_A_STEP = THREADS / L;
+  const int lane = threadIdx.x % L;
+  // the lanes of this ray in its warp
+  const unsigned group = ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+  const int run = (p.n_scan + L - 1) / L;
+  const int k_begin = min(lane * run, p.n_scan);
+  const int k_end = min(k_begin + run, p.n_scan);
+  const int rays = p.Hs * p.Ws, plane = rays;
   const int half = p.ds / 2;
-  float d[3];
-  ray_dir(p, half + p.ds * p.sc * i, half + p.ds * p.sc * j, d);
   const float e[3] = {__ldg(p.eye), __ldg(p.eye + 1), __ldg(p.eye + 2)};
-  float l[3], h[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float inv = __fdiv_rn(1.0f, d[a]);
-    const float tb = __fmul_rn(inv, __fsub_rn(box_lo[a], e[a]));
-    const float tt = __fmul_rn(inv, __fsub_rn(box_hi[a], e[a]));
-    l[a] = t_min(tb, tt);
-    h[a] = t_max(tb, tt);
-  }
-  float s0 = t_max(t_max(l[0], l[1]), l[2]);
-  float s1 = t_min(t_min(h[0], h[1]), h[2]);
-  const bool valid = (s0 <= s1) && (s1 > 0.0f);
-  s0 = clamp_min0(s0);
-  s1 = valid ? s1 : -1.0f;
-  float spacing = __fmul_rn(__fsub_rn(s1, s0), p.inv_nscan1);
-  spacing = spacing != spacing ? spacing : fminf(spacing, p.step_len);
   const int n_dim[3] = {p.X, p.Y, p.Z};
   const int nb_dim[3] = {p.Bx, p.By, p.Bz};
-  float first = 0.0f, last = 0.0f, fsurf = 0.0f;
-  for (int k = 0; k < p.n_scan; ++k) {
-    const float t = __fadd_rn(s0, __fmul_rn((float)k, spacing));
-    int bi[3];
+  // v // brick_vox for 0 <= v < 2^31 as (v * magic) >> shift, magic =
+  // ceil(2^shift / brick_vox), shift = 31 + ceil(log2 brick_vox): exact,
+  // since (magic * brick_vox - 2^shift) * v < brick_vox * 2^31 <= 2^shift
+  const unsigned shift = 31u + (32u - __clz(p.brick_vox - 1));
+  const unsigned long long magic =
+      ((1ull << shift) + (unsigned long long)(p.brick_vox - 1)) /
+      (unsigned long long)p.brick_vox;
+  for (int ray = blockIdx.x * RAYS_A_STEP + threadIdx.x / L; ray < rays;
+       ray += gridDim.x * RAYS_A_STEP) {
+    const int i = ray / p.Ws, j = ray % p.Ws;
+    float d[3];
+    ray_dir(p, half + p.ds * p.sc * i, half + p.ds * p.sc * j, d);
+    float l[3], h[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float c = __fmul_rn(__fadd_rn(e[a], __fmul_rn(d[a], t)),
-                                (float)n_dim[a]);
-      bi[a] = clampi(floor_div((int)c, p.brick_vox), 0, nb_dim[a] - 1);
+      const float inv = __frcp_rn(d[a]);  // 1 / d, correctly rounded
+      const float tb = __fmul_rn(inv, __fsub_rn(box_lo[a], e[a]));
+      const float tt = __fmul_rn(inv, __fsub_rn(box_hi[a], e[a]));
+      l[a] = t_min(tb, tt);
+      h[a] = t_max(tb, tt);
     }
-    const int idx = (bi[2] * p.By + bi[1]) * p.Bx + bi[0];
-    const float s = p.occ[idx] ? -1.0f : (p.bsafe[idx] == 0.0f ? 0.0f : 1.0f);
-    const bool inside = valid && (t <= s1);
-    const bool tgt = (s < 0.5f) && inside;
-    const bool surf = (s < -0.5f) && inside;
-    const float cf = tgt ? t : INFINITY;
-    const float cl = surf ? t : -INFINITY;
-    const float cs = surf ? t : INFINITY;
-    if (k == 0) {
-      first = cf;
-      last = cl;
-      fsurf = cs;
-    } else {
-      if (first == first && (cf != cf || cf < first)) first = cf;
-      if (last == last && (cl != cl || cl > last)) last = cl;
-      if (fsurf == fsurf && (cs != cs || cs < fsurf)) fsurf = cs;
+    float s0 = t_max(t_max(l[0], l[1]), l[2]);
+    float s1 = t_min(t_min(h[0], h[1]), h[2]);
+    const bool valid = (s0 <= s1) && (s1 > 0.0f);
+    s0 = clamp_min0(s0);
+    s1 = valid ? s1 : -1.0f;
+    float spacing = __fmul_rn(__fsub_rn(s1, s0), p.inv_nscan1);
+    spacing = spacing != spacing ? spacing : fminf(spacing, p.step_len);
+    // this lane's run; a sample outside the interval leaves the fold as
+    // it is (its candidates are the identities inf, -inf, inf)
+    float first = INFINITY, last = -INFINITY, fsurf = INFINITY;
+    if (valid) {
+#pragma unroll 4
+      for (int k = k_begin; k < k_end; ++k) {
+        const float t = __fadd_rn(s0, __fmul_rn((float)k, spacing));
+        if (!(t <= s1)) continue;
+        int bi[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float c = __fmul_rn(__fadd_rn(e[a], __fmul_rn(d[a], t)),
+                                    (float)n_dim[a]);
+          // (int)c // brick_vox clamped to the grid: a negative index is
+          // brick 0, a non-negative one divided by the magic product
+          const unsigned long long v = (unsigned long long)max((int)c, 0);
+          bi[a] = min((int)((v * magic) >> shift), nb_dim[a] - 1);
+        }
+        const int idx = (bi[2] * p.By + bi[1]) * p.Bx + bi[0];
+        const int code =
+            STAGED ? (int)s_code[idx] : brick_code(p.occ[idx], p.bsafe[idx]);
+        if (code <= 0) first = fold_min(first, t);
+        if (code < 0) {
+          last = fold_max(last, t);
+          fsurf = fold_min(fsurf, t);
+        }
+      }
+    }
+    // the runs, lower samples on the left
+#pragma unroll
+    for (int s = 1; s < L; s <<= 1) {
+      const float f = __shfl_down_sync(group, first, s, L);
+      const float la = __shfl_down_sync(group, last, s, L);
+      const float fs = __shfl_down_sync(group, fsurf, s, L);
+      if (lane % (2 * s) == 0) {
+        first = fold_min(first, f);
+        last = fold_max(last, la);
+        fsurf = fold_min(fsurf, fs);
+      }
+    }
+    if (lane == 0) {
+      p.scan5[ray] = first;
+      p.scan5[plane + ray] = last;
+      p.scan5[2 * plane + ray] = fsurf;
+      p.scan5[3 * plane + ray] = s0;
+      p.scan5[4 * plane + ray] = valid ? s1 : 0.0f;
     }
   }
-  const int plane = p.Hs * p.Ws;
-  p.scan5[ray] = first;
-  p.scan5[plane + ray] = last;
-  p.scan5[2 * plane + ray] = fsurf;
-  p.scan5[3 * plane + ray] = s0;
-  p.scan5[4 * plane + ray] = valid ? s1 : 0.0f;
 }
 
 // ---- block set-up ---------------------------------------------------------
@@ -439,12 +588,43 @@ int rgbd_render_params_size(int* out) {
 
 // Each entry point takes the parameter block (host memory, copied into the
 // launch) and the stream; a stage of no elements launches nothing.
+// The scan's launch: {blocks, threads, lanes a ray, dynamic shared bytes,
+// 1 if the brick grid is staged in shared memory}. The grid is
+// SCAN_BLOCKS_PER_SM blocks an SM, fewer when the rays fill fewer, and one
+// block without rays (the surface-brick count is written all the same).
+int rgbd_render_scan_plan(const void* params, int* out) {
+  const RenderParams& p = *(const RenderParams*)params;
+  const long long rays = (long long)p.Hs * p.Ws;
+  const long long nb = (long long)p.Bz * p.By * p.Bx;
+  const int per_block = THREADS / SCAN_LANES;
+  long long blocks = (rays + per_block - 1) / per_block;
+  const long long cap = (long long)(p.sms > 0 ? p.sms : 1) * SCAN_BLOCKS_PER_SM;
+  blocks = blocks < cap ? blocks : cap;
+  const bool staged = nb <= SCAN_TABLE_MAX;
+  out[0] = blocks > 0 ? (int)blocks : 1;
+  out[1] = THREADS;
+  out[2] = SCAN_LANES;
+  out[3] = staged ? (int)((nb + 15) / 16 * 16) : 0;
+  out[4] = staged;
+  return 0;
+}
+
 int rgbd_render_scan(const void* params, void* stream) {
   const RenderParams& p = *(const RenderParams*)params;
-  const int blocks = blocks_for((long long)p.Hs * p.Ws);
-  // the surface-brick count is written even without scan rays
-  scan_kernel<<<blocks > 0 ? blocks : 1, THREADS, 0,
-                (cudaStream_t)stream>>>(p);
+  int plan[5];
+  rgbd_render_scan_plan(params, plan);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (plan[4]) {
+    if (plan[3] > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          scan_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          plan[3]);
+      if (err != cudaSuccess) return (int)err;
+    }
+    scan_kernel<true><<<plan[0], THREADS, plan[3], s>>>(p);
+  } else {
+    scan_kernel<false><<<plan[0], THREADS, 0, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 

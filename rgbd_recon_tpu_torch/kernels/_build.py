@@ -65,6 +65,7 @@ _SIGNATURES = {
     # a pointer to the parameter block (kernels/render_stages.py) and the
     # stream
     "rgbd_render_scan": (_P, _P),
+    "rgbd_render_scan_plan": (_P, _PI),
     "rgbd_render_block_setup": (_P, _P),
     "rgbd_render_bracket": (_P, _P),
     "rgbd_render_hit_gather": (_P, _P),
@@ -79,6 +80,7 @@ _SIGNATURES = {
     # a pointer to the parameter block (kernels/hits.py) and the stream
     "rgbd_hit_refine": (_P, _P),
     "rgbd_hit_shade": (_P, _P),
+    "rgbd_hit_shade_plan": (_I, _PI),
     "rgbd_hit_params_sizes": (ctypes.POINTER(_I),),
     "rgbd_pre_morph": (_P, _P, _I, _I, _I, _P),
     "rgbd_pre_lab": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),

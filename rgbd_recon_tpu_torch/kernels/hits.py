@@ -211,6 +211,14 @@ def refine_cuda(pos0, dn, lo_t, hi_t, hit, hit_pos, limit: float, oct=None,
     return out
 
 
+def shade_plan(n: int) -> dict:
+    """The shade's launch for ``n`` hits (csrc/hits.cu
+    rgbd_hit_shade_plan): blocks, threads, lanes a hit (one)."""
+    out = (ctypes.c_int * 3)()
+    _lib().rgbd_hit_shade_plan(int(n), out)
+    return dict(blocks=out[0], threads=out[1], lanes=out[2])
+
+
 def _small(t, dev, what, name):
     """The pointer of a contiguous f32 tensor on ``dev``."""
     if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
@@ -314,6 +322,10 @@ def shade_cuda(hit, hit_pos, color, depth, quality, *, normal: str,
     else:
         p.cv_inv = _small(cv_xyz_inv, dev, what, "cv_xyz_inv")
         p.cv_uv = _small(cv_uv, dev, what, "cv_uv")
+        # a tap's channels are one float4 (cv_inv) or float2 (cv_uv) load
+        if p.cv_inv % 16 or p.cv_uv % 8:
+            raise ValueError(f"{what}: cv_xyz_inv must start on 16 bytes and "
+                             "cv_uv on 8 (a tap is one vector load)")
         if (cv_xyz_inv.dim() != 5 or cv_xyz_inv.shape[0] != p.N
                 or cv_xyz_inv.shape[4] != 4 or cv_uv.dim() != 5
                 or cv_uv.shape[0] != p.N or cv_uv.shape[4] != 2):

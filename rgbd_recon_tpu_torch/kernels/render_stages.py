@@ -39,7 +39,7 @@ class RenderParams(ctypes.Structure):
         ("hrows", _P), ("hpos", _P), ("live", _P),
         ("blk_slot", _P), ("hit_slot", _P), ("rgba_h", _P), ("depth_h", _P),
         ("planes", _P), ("depth", _P), ("hit", _P), ("num", _P),
-        ("overflow", _P), ("caps", _I * NUM_COUNTS),
+        ("overflow", _P), ("caps", _I * NUM_COUNTS), ("sms", _I),
     ]
 
 
@@ -100,6 +100,32 @@ def _params(g) -> RenderParams:
     return RenderParams.from_buffer_copy(_geometry(g))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (read once a device)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scan_params(g, occ_shape, dev) -> RenderParams:
+    p = _params(g)
+    p.Bz, p.By, p.Bx = occ_shape
+    p.sms = _sm_count(dev.index if dev.index is not None
+                      else torch.cuda.current_device())
+    return p
+
+
+def scan_plan(g, occ_shape, dev) -> dict:
+    """The scan's launch on ``dev`` for the brick grid ``occ_shape``
+    (csrc/render_stages.cu rgbd_render_scan_plan): blocks, threads, lanes
+    a ray, dynamic shared bytes, and whether the brick grid is staged in
+    shared memory."""
+    out = (_I * 5)()
+    _lib().rgbd_render_scan_plan(ctypes.byref(_scan_params(g, occ_shape,
+                                                           dev)), out)
+    return dict(blocks=out[0], threads=out[1], lanes=out[2],
+                shared_bytes=out[3], staged=bool(out[4]))
+
+
 def _check(x, name, dtype, shape, dev):
     """``x``: a contiguous ``dtype`` tensor of ``shape`` on the CUDA device
     ``dev`` (``dev`` None: any CUDA device). Returns its device."""
@@ -153,9 +179,8 @@ def scan_cuda(g, occ, bsafe, cam, counts, count_slot):
     if not 0 <= count_slot < NUM_COUNTS:
         raise ValueError(f"count_slot must be in [0, {NUM_COUNTS}), got "
                          f"{count_slot}")
-    p = _params(g)
+    p = _scan_params(g, occ.shape, dev)
     _camera(p, cam, dev)
-    p.Bz, p.By, p.Bx = occ.shape
     scan5 = torch.empty((5, g.Hs, g.Ws), dtype=torch.float32, device=dev)
     p.occ, p.bsafe, p.scan5 = occ.data_ptr(), bsafe.data_ptr(), \
         scan5.data_ptr()

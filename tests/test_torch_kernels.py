@@ -33,6 +33,7 @@ from rgbd_recon_tpu_torch.ops.stage_calls import (
 from hit_cases import record_hits
 from holefill_cases import fill_planes
 import preprocess_cases
+from scan_cases import SCAN_CASES, scan_case
 
 torch.set_num_threads(2)
 
@@ -1534,14 +1535,15 @@ def _shade_args(args, **config):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sensors", [1, 4])
+@pytest.mark.parametrize("sensors", [1, 3, 4, 5])
 @pytest.mark.parametrize("name", sorted(HIT_CONFIGS))
 def test_hit_kernels_match_plain(cuda, name, sensors):
     """The refine kernel bit for bit against refine_hits_plain, and the
     shade kernel against shade_hits_plain in shade modes 0, 1 and 2 (mode
     0's rgba bit for bit, the window depth and modes 1-2 within HIT_ATOL,
     alpha bit for bit), on the hits one render records: compacted hit sets
-    padded past the live hits, bf16 and f32 tables, 1 and 4 sensors."""
+    padded past the live hits, bf16 and f32 tables, 1, 3, 4 and 5
+    sensors."""
     from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
     from rgbd_recon_tpu_torch.ops import hits
 
@@ -1698,6 +1700,33 @@ def test_hit_wrappers_raise_on_the_card(cuda):
     assert kernels.launch_counts()["hit_shade"] == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("volume", ["cv_xyz_inv", "cv_uv"])
+def test_hit_shade_refuses_unaligned_volumes(cuda, volume):
+    """The shade reads a calibration-volume tap as one float4 (cv_xyz_inv)
+    or float2 (cv_uv) load: a contiguous view one float off 16 (8) bytes
+    is refused with ValueError and launches nothing; the same values in an
+    aligned copy shade as the twin."""
+    from rgbd_recon_tpu_torch.kernels.hits import shade_cuda
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume_, maps, counts, cam = _hit_scene(cuda,
+                                                  **HIT_CONFIGS["parity"])
+    render = pipe.make_renderer(cam)
+    args, kwargs = record_hits(lambda: render(volume_, maps, counts))["shade"]
+    shade = hits.shade_kernel_args(*args, **kwargs)
+    assert shade["blend"] == "volume"
+    off = _offset_copy(shade[volume], 1)
+    assert off.is_contiguous() and off.data_ptr() % 8 == 4
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        shade_cuda(**dict(shade, **{volume: off}))
+    assert kernels.launch_counts()["hit_shade"] == 0
+    rgba, _ = shade_cuda(**dict(shade, **{volume: off.clone()}))
+    want, _ = hits.shade_hits_plain(*args, **kwargs)
+    assert _bits_equal(rgba, want)
+
+
 # ---- the preprocess chain's passes (csrc/preprocess.cu) -------------------
 
 # (sensors, depth h, w, colour h, w): the reference's 4 x 424 x 512 with a
@@ -1791,9 +1820,9 @@ def test_preprocess_kernels_match_twins(cuda, shape, on):
 
 
 def _offset_copy(x, floats):
-    """A contiguous copy of ``x`` that starts ``floats`` float32 entries
-    into its storage (off the 8- and 16-byte boundaries of the kernel's
-    vector loads)."""
+    """A contiguous copy of ``x`` that starts ``floats`` entries into its
+    storage (off the 8- and 16-byte boundaries of the kernels' vector
+    loads)."""
     buf = torch.empty(x.numel() + floats, dtype=x.dtype, device=x.device)
     view = buf[floats:].view(x.shape)
     view.copy_(x)
@@ -2169,6 +2198,140 @@ def test_render_stage_kernels_match_twins(cuda, name):
         assert all_bits_equal(got_after, want_after), stage
         stages.add(stage)
     assert stages == set(STAGES)
+
+
+def _scan_call(device):
+    """The first four arguments (g, occ, bsafe, cam) of the scan call of
+    the fast config's render on the small scene."""
+    _, render, args = render_stage_scene(device, "fast")
+    calls = record_stages(lambda: render.render_from_baked(*args))
+    (scan,) = [c for c in calls if c[0] == "scan"]
+    return scan[1][:4]
+
+
+def _scan_both(g, occ, bsafe, cam, slot=4):
+    """(kernel scan5, its counts, twin scan5, its counts) on the inputs."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import scan_cuda
+    from rgbd_recon_tpu_torch.ops.render_stages import scan_plain
+
+    dev = occ.device
+    kc = torch.full((5,), -1, dtype=torch.int32, device=dev)
+    kp = torch.full((5,), -1, dtype=torch.int32, device=dev)
+    got = scan_cuda(g, occ, bsafe, cam, kc, slot)
+    want = scan_plain(g, occ, bsafe, cam, kp, slot)
+    torch.cuda.synchronize()
+    return got, kc, want, kp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_render_stage_scan_crafted_cases(cuda, name):
+    """The scan kernel bit for bit against scan_plain on the card (all five
+    planes, NaNs included, and the surface-brick count) on the crafted
+    changes of a recorded call (tests/scan_cases.py): no surface brick,
+    every brick a surface brick, an eye inside the box, directions without
+    an x component with the eye inside the x slab and on its face."""
+    case = scan_case(*_scan_call(cuda), name)
+    kernels.reset_launch_counts()
+    got, kc, want, kp = _scan_both(*case)
+    assert kernels.launch_counts()["scan"] == 1
+    assert bits_equal(got, want)
+    assert torch.equal(kc, kp)
+    if name == "axis_parallel_on_face":
+        assert bool(torch.isnan(want[3]).all())
+
+
+# brick grids of the scan: the small scene's (staged), 64,000 bricks (a
+# staged table past 48 KB), 125,000 (past the shared table: the codes
+# from global memory); occ and bsafe at storage offsets 0 or 1 (scalar
+# staging)
+SCAN_GRIDS = [((30, 30, 30), 0), ((40, 40, 40), 0), ((50, 50, 50), 0),
+              ((40, 40, 40), 1), ((50, 50, 50), 1), (None, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", SCAN_GRIDS)
+def test_render_stage_scan_grids_and_layouts(cuda, shape, offset):
+    """The scan kernel bit for bit against scan_plain on seeded brick grids
+    of 27,000 to 125,000 bricks (staged in shared memory up to the
+    kernel's table, read from global memory past it: the launch plan says
+    which) and on occ / bsafe views one element off their storage's
+    start; its grid of at most two blocks an SM."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import scan_plan
+
+    g, occ, bsafe, cam = _scan_call(cuda)
+    if shape is not None:
+        gen = torch.Generator(cuda).manual_seed(sum(shape))
+        occ = torch.rand(shape, device=cuda, generator=gen) < 0.03
+        bsafe = torch.where(
+            torch.rand(shape, device=cuda, generator=gen) < 0.3, 0.0,
+            torch.rand(shape, device=cuda, generator=gen) * 4.0)
+        g = dataclasses.replace(g, vol_shape=tuple(n * g.brick_vox
+                                                   for n in shape))
+    if offset:
+        occ, bsafe = _offset_copy(occ, offset), _offset_copy(bsafe, offset)
+        assert occ.is_contiguous() and occ.data_ptr() % 16 == offset
+    plan = scan_plan(g, occ.shape, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan["staged"] == (occ.numel() <= 98_304)
+    assert 1 <= plan["blocks"] <= 2 * sms
+    got, kc, want, kp = _scan_both(g, occ, bsafe, cam)
+    assert bits_equal(got, want)
+    assert torch.equal(kc, kp)
+    assert bool(torch.isfinite(want[0]).any())
+
+
+@pytest.mark.cuda
+def test_render_stage_scan_back_to_back_and_in_graphs(cuda):
+    """50 scans launched back to back with no sync between them, each
+    bit-equal to scan_plain on its inputs; then a scan captured in a CUDA
+    graph on a side stream and replayed 3 times on changed inputs (grid
+    and camera copied into the captured tensors), each replay bit-equal to
+    an eager scan of the same inputs."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import scan_cuda
+    from rgbd_recon_tpu_torch.ops.render_stages import scan_plain
+
+    base = _scan_call(cuda)
+    cases = [scan_case(*base, SCAN_CASES[i % len(SCAN_CASES)])
+             for i in range(50)]
+    counts = [torch.full((5,), -1, dtype=torch.int32, device=cuda)
+              for _ in range(50)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = [scan_cuda(*c, counts[i], i % 5) for i, c in enumerate(cases)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["scan"] == 50
+    for i, c in enumerate(cases):
+        want_counts = torch.full((5,), -1, dtype=torch.int32, device=cuda)
+        want = scan_plain(*c, want_counts, i % 5)
+        assert bits_equal(got[i], want), i
+        assert torch.equal(counts[i], want_counts), i
+    # the graph
+    g, occ, bsafe, cam = base
+    static = scan_case(g, occ.clone(), bsafe.clone(), cam, "recorded")
+    _, s_occ, s_bsafe, s_cam = static
+    s_counts = torch.zeros(5, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        scan_cuda(*static, s_counts, 4)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = scan_cuda(*static, s_counts, 4)
+    for name in ("every_brick_surface", "eye_inside_box", "axis_parallel"):
+        _, c_occ, c_bsafe, c_cam = scan_case(*base, name)
+        s_occ.copy_(c_occ)
+        s_bsafe.copy_(c_bsafe)
+        s_cam.eye_vol.copy_(c_cam.eye_vol)
+        s_cam.rot.copy_(c_cam.rot)
+        graph.replay()
+        torch.cuda.synchronize()
+        e_counts = torch.zeros(5, dtype=torch.int32, device=cuda)
+        eager = scan_cuda(g, c_occ, c_bsafe, c_cam, e_counts, 4)
+        torch.cuda.synchronize()
+        assert bits_equal(out, eager), name
+        assert torch.equal(s_counts, e_counts), name
 
 
 @pytest.mark.cuda
