@@ -18,7 +18,8 @@ scan, the block set-up, four compactions, the coarse march, the bracket,
 phase 1, two tail stages, the hit gather, the compose) and one parity
 frame (the coarse and the full march, two compactions): every output and
 every array a stage updates in place bit-equal to its plain twin's, each
-march stage's rays, samples and longest ray printed; then the whole
+march stage's rays, samples and longest ray, the scan's and the bracket's
+launch shapes printed; then the whole
 ``render_from_baked`` on the kernels against it on the twins (hit mask,
 window depth, march steps, overflow, pre-fill planes, colour, bit for
 bit), once under ``torch.cuda.set_sync_debug_mode("error")`` (no host
@@ -37,7 +38,10 @@ timed on each layout. The hit kernels
 parity frame hand to ``ops.hits.refine_hits`` and ``shade_hits``: the
 refined positions and shade mode 0's rgba bit-equal to the twins, the
 window depth and modes 1 and 2 within HIT_ATOL (bit-equal flags
-printed), each kernel's bound by the bytes its data needs. Then it drives
+printed), each kernel's bound by the bytes its data needs. The
+preprocess kernels (``csrc/preprocess.cu``) are held and timed on the
+arguments one fast fuse hands each pass (the morph's launch shape and its
+pixels by exit printed). Then it drives
 four paths
 at reference scale through the entry points a user calls: 4 synthetic
 sensors at 512x424 depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm
@@ -889,7 +893,10 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
     overflow vector must drop blocks, tail rays and hits."""
     from rgbd_recon_tpu_torch.bench import kernel_inputs
     from rgbd_recon_tpu_torch.bench.trace import event_ms
-    from rgbd_recon_tpu_torch.kernels.render_stages import scan_plan
+    from rgbd_recon_tpu_torch.kernels.render_stages import (
+        bracket_plan,
+        scan_plan,
+    )
     from rgbd_recon_tpu_torch.ops import stage_calls
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
@@ -951,6 +958,9 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             if stage == "scan":
                 # blocks, threads, lanes a ray, the staged brick table
                 row["launch"] = scan_plan(a[0], a[1].shape, a[1].device)
+            if stage == "bracket":
+                # blocks, the thread block (ray column, row, slot), shared
+                row["launch"] = bracket_plan(a[0], a[5].shape[0])
             if stage == "compact":
                 lib_name, lib = kernel_inputs.library_compact(
                     torch, *a[:3], ids=want[0])
@@ -1062,7 +1072,7 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             trace_retakes=retakes)
         if name == "march":
             row["host_split"] = sums["march"]["host_split"]
-        if name == "scan":
+        if name in ("scan", "bracket"):
             row["launch"] = calls_out[name][0]["launch"]
         if name == "compact":
             row.update(library=calls_out[name][0]["library"],
@@ -1732,6 +1742,7 @@ def _phase3_preprocess(torch, pipe, frames, card, flush):
     from rgbd_recon_tpu_torch import kernels
     from rgbd_recon_tpu_torch.bench import kernel_inputs
     from rgbd_recon_tpu_torch.bench.trace import event_ms
+    from rgbd_recon_tpu_torch.kernels.preprocess import morph_plan
     from rgbd_recon_tpu_torch.ops import preprocess as pre
 
     calls = _record_preprocess(torch, lambda: pipe.fuse(frames))
@@ -1780,6 +1791,12 @@ def _phase3_preprocess(torch, pipe, frames, card, flush):
         pixels = got[0].shape[0] * got[0].shape[1] * got[0].shape[2]
         ops = ops_px * pixels
         extra = {}
+        if kname == "morph":
+            # its launch, and the pixels that take each of its exits
+            extra = dict(launch=morph_plan(a["depth"]),
+                         exits=kernel_inputs.morph_exits(torch, a["depth"]))
+            print(f"morph: launch {extra['launch']}; pixels by exit "
+                  f"{extra['exits']}", flush=True)
         if kname == "boundary":
             # the colour is read only around the pixels whose flags read it
             extra = _boundary_checks(torch, a)

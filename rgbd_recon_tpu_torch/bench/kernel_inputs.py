@@ -10,7 +10,9 @@ same inputs against the JAX package):
   from size to size beside the growth of n;
 - ``BOUNDARY_SHAPES``, ``boundary_maps`` and ``boundary_work``: maps with
   invalid edges at shapes that are no multiple of the boundary kernel's
-  tile, and the bytes and operations the pass needs on given maps.
+  tile, and the bytes and operations the pass needs on given maps;
+- ``morph_exits``: how many pixels of a depth map take each of the morph
+  kernel's exits.
 """
 
 from __future__ import annotations
@@ -158,3 +160,20 @@ def boundary_work(torch, depth2, lab, refine):
     nbytes = (depth2.numel() * 4 + int(window.sum()) * 3 * 4
               + pixels * (2 + 1) * 4)
     return nbytes, 10 * pixels + 375 * int(need.sum())
+
+
+def morph_exits(torch, depth):
+    """{exit: pixels} of the morph kernel on the (N, H, W) metric
+    ``depth``: ``valid`` (a valid centre writes itself), ``no_valid_tap``
+    (an invalid centre with no valid tap in its edge-clamped 3x3 window
+    writes +0.0), ``two_pass`` (the rest run both passes), and ``pixels``,
+    their sum."""
+    import torch.nn.functional as F
+
+    valid = (depth > 0.5) & (depth < 4.5)
+    padded = F.pad(valid.to(torch.float32)[:, None], (1, 1, 1, 1),
+                   mode="replicate")
+    near = F.max_pool2d(padded, 3, stride=1)[:, 0] > 0.0
+    return dict(valid=int(valid.sum()),
+                no_valid_tap=int((~valid & ~near).sum()),
+                two_pass=int((~valid & near).sum()), pixels=depth.numel())

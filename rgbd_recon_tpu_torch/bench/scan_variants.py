@@ -95,16 +95,18 @@ def _load(lib):
     return cdll
 
 
-def _registers(report: str) -> dict:
-    """{kernel instance: (registers, spill bytes)} of the scan kernels in a
-    ptxas -v report."""
+def _registers(report: str, kernel: str = "scan_kernel",
+               instances=("global", "staged")) -> dict:
+    """{kernel instance: (registers, spill bytes)} of ``kernel`` in a ptxas
+    -v report, a template instance named by ``instances`` (its bool
+    parameter false, true)."""
     out, name, spills = {}, None, 0
-    entry = re.compile(r"Compiling entry function '(\S*scan_kernel\S*)'")
+    entry = re.compile(rf"Compiling entry function '(\S*{kernel}\S*)'")
     for line in report.splitlines():
         m = entry.search(line)
         if m:
-            name, spills = ("staged" if "ILb1E" in m.group(1)
-                            else "global"), 0
+            name, spills = (instances[1] if "ILb1E" in m.group(1)
+                            else instances[0]), 0
         elif name and "spill stores" in line:
             spills = int(re.search(r"(\d+) bytes spill stores", line)[1])
         elif name and "registers" in line:
@@ -114,8 +116,9 @@ def _registers(report: str) -> dict:
     return out
 
 
-def _device_ms(calls: dict, flush, iters: int) -> dict:
-    """{frame: (cold, warm)} device ms a call of the scan kernel, from one
+def _device_ms(calls: dict, flush, iters: int,
+               kernel: str = "scan_kernel") -> dict:
+    """{frame: (cold, warm)} device ms a call of ``kernel``, from one
     torch.profiler trace of every frame's ``iters`` calls after ``flush``
     and then ``iters`` back to back, in that order (the trace taken again,
     at most TRACE_TRIES times, when it lacks a launch: the profiler can
@@ -136,12 +139,12 @@ def _device_ms(calls: dict, flush, iters: int) -> dict:
                         fn()
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
-                         if on_device(e) and "scan_kernel" in e.name),
+                         if on_device(e) and kernel in e.name),
                         key=lambda e: e.time_range.start)
         if len(events) == want:
             break
     else:
-        raise RuntimeError(f"the profiler recorded {len(events)} scan "
+        raise RuntimeError(f"the profiler recorded {len(events)} {kernel} "
                            f"launches of {want} in {TRACE_TRIES} traces")
     ms = [device_us(e) / 1e3 for e in events]
     out = {}

@@ -10,11 +10,12 @@
 // port their plain PyTorch twins (ops/preprocess.py *_plain) dispatch ~1,240
 // small launches a fuse; each kernel here is one.
 //
-// Every kernel but the boundary's runs one thread a pixel over (N, H, W),
-// 32 x 8 threads a block (a warp on one row: neighbouring threads read
-// neighbouring pixels, and a stencil's taps share their sectors through
-// L1), grid.z the sensor; the boundary's stages a tile in shared memory
-// and runs 4 pixels a thread (its section below). The twins' edge-replicated pads become clamped indices: no
+// The LAB, depth2, normals and quality kernels run one thread a pixel over
+// (N, H, W), 32 x 8 threads a block (a warp on one row: neighbouring
+// threads read neighbouring pixels, and a stencil's taps share their
+// sectors through L1), grid.z the sensor; the morph's and the boundary's
+// stage a tile in shared memory and run 4 pixels a thread (their sections
+// below). The twins' edge-replicated pads become clamped indices: no
 // padded copy. Every map is read in place in the layout the chain keeps
 // (depth2 (N, H, W, 2) interleaved, lab and normals (N, H, W, 3), the pixel
 // models (N, H, W, 3 / 2)), so no pass copies or stacks.
@@ -100,39 +101,124 @@ __device__ __forceinline__ bool pixel(int H, int W, int& n, int& y, int& x) {
 // twin ops/preprocess.py morph_dilate_plain: an invalid pixel takes the
 // two-pass outlier-rejecting mean of its valid 3x3 neighbours (dy outer,
 // dx inner, sums from +0)
+//
+// A block of 32 x 8 threads owns a tile of 128 x 8 pixels, 4 along a row a
+// thread; a warp holds 128 pixels of one row. A thread's 3 x 6 window
+// (rows y - 1 .. y + 1 clamped to the map, columns x - 1 .. x + 4 each
+// clamped as clamp_idx does) comes from registers: VEC (W % 4 == 0, both
+// pointers 16-byte aligned: the cells' W = 512) its 4 pixels of each row
+// as one float4 load, the column left of them from the lane before by
+// shuffle and the one right of them from the lane after (the warp's first
+// and last lanes, and a lane at the map's right edge, load theirs), its 4
+// outputs one float4 store; else 6 loads a row and the outputs float by
+// float. A row's float4 is read by the three rows' threads through L1.
+// (The tile staged in shared memory with its halo measured slower:
+// bench/bracket_morph_variants.py.)
+//
+// Most pixels need neither pass, and the exits keep the twin's bits: the
+// twin selects the centre where it is valid (0.5 < d < 4.5), and +0.0
+// where no tap is valid (cnt1 == 0: filled is then 0.0f whatever the
+// passes computed). Only an invalid centre with a valid tap (0.7% of the
+// cells' pixels) runs the two passes, in the twin's order. A NaN fails
+// both range tests, so it is invalid as in the twin.
+//
+// Bound: bytes, the map read once and written once (8 bytes a pixel).
+constexpr int MT_W = 4 * BLOCK_X;  // tile columns
+constexpr int MT_H = BLOCK_Y;      // tile rows
+
+__device__ __forceinline__ bool morph_valid(float d) {
+  return d > MIN_DEPTH && d < MAX_DEPTH;
+}
+
+// the 3 x 6 window of the pixels x .. x + 3 of row y (rows y - 1 .. y + 1,
+// columns x - 1 .. x + 4, each clamped to the map); every lane of the warp
+// takes part (the shuffles), also past the map's edge
+template <bool VEC>
+__device__ __forceinline__ void morph_window(const float* __restrict__ d,
+                                             int H, int W, int x0, int y0,
+                                             float v[3][6]) {
+  const int x = x0 + 4 * threadIdx.x, y = y0 + threadIdx.y;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float* row = d + (long long)clamp_idx(y - 1 + r, H) * W;
+    if (VEC) {
+      float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (x < W) m = __ldg(reinterpret_cast<const float4*>(row + x));
+      v[r][1] = m.x;
+      v[r][2] = m.y;
+      v[r][3] = m.z;
+      v[r][4] = m.w;
+      float left = __shfl_up_sync(0xffffffffu, m.w, 1);
+      float right = __shfl_down_sync(0xffffffffu, m.x, 1);
+      if (threadIdx.x == 0) left = __ldg(row + clamp_idx(x - 1, W));
+      if (threadIdx.x == BLOCK_X - 1 || x + 4 >= W)
+        right = __ldg(row + clamp_idx(x + 4, W));
+      v[r][0] = left;
+      v[r][5] = right;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+        v[r][j] = __ldg(row + clamp_idx(x - 1 + j, W));
+    }
+  }
+}
+
+template <bool VEC>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
     morph_kernel(const float* __restrict__ depth, float* __restrict__ out,
                  int H, int W) {
-  int n, y, x;
-  if (!pixel(H, W, n, y, x)) return;
-  const float* d = depth + (long long)n * H * W;
-  float s[9];
-  float sum1 = 0.0f, cnt1 = 0.0f;
+  const int x0 = blockIdx.x * MT_W, y0 = blockIdx.y * MT_H;
+  const long long base = (long long)blockIdx.z * H * W;
+  float v[3][6];
+  morph_window<VEC>(depth + base, H, W, x0, y0, v);
+  const int x = x0 + 4 * threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= W || y >= H) return;
+  float res[4];
 #pragma unroll
-  for (int dy = -1; dy <= 1; ++dy) {
+  for (int j = 0; j < 4; ++j) {
+    const float c = v[1][1 + j];
+    bool any = false;
 #pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int t = (dy + 1) * 3 + dx + 1;
-      s[t] = __ldg(d + clamp_idx(y + dy, H) * W + clamp_idx(x + dx, W));
-      const bool v = s[t] > MIN_DEPTH && s[t] < MAX_DEPTH;
-      sum1 = sum1 + (v ? s[t] : 0.0f);
-      cnt1 = cnt1 + (v ? 1.0f : 0.0f);
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) any |= morph_valid(v[dy][j + dx]);
+    res[j] = morph_valid(c) ? c : 0.0f;
+    if (morph_valid(c) || !any) continue;
+    // the two passes, the twin's order
+    float sum1 = 0.0f, cnt1 = 0.0f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float t = v[dy][j + dx];
+        const bool ok = morph_valid(t);
+        sum1 = sum1 + (ok ? t : 0.0f);
+        cnt1 = cnt1 + (ok ? 1.0f : 0.0f);
+      }
     }
-  }
-  const float avg = sum1 / fmaxf(cnt1, 1.0f);
-  float sum2 = 0.0f, cnt2 = 0.0f;
+    const float avg = sum1 / fmaxf(cnt1, 1.0f);
+    float sum2 = 0.0f, cnt2 = 0.0f;
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const bool v = s[t] > MIN_DEPTH && s[t] < MAX_DEPTH &&
-                   fabsf(avg - s[t]) < F(0.2);
-    sum2 = sum2 + (v ? s[t] : 0.0f);
-    cnt2 = cnt2 + (v ? 1.0f : 0.0f);
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float t = v[dy][j + dx];
+        const bool ok = morph_valid(t) && fabsf(avg - t) < F(0.2);
+        sum2 = sum2 + (ok ? t : 0.0f);
+        cnt2 = cnt2 + (ok ? 1.0f : 0.0f);
+      }
+    }
+    res[j] = cnt2 > 0.0f ? sum2 / fmaxf(cnt2, 1.0f) : 0.0f;
   }
-  float filled = cnt2 > 0.0f ? sum2 / fmaxf(cnt2, 1.0f) : 0.0f;
-  filled = cnt1 > 0.0f ? filled : 0.0f;
-  const float c = s[4];
-  out[(long long)n * H * W + y * W + x] =
-      (c > MIN_DEPTH && c < MAX_DEPTH) ? c : filled;
+  float* o = out + base + (long long)y * W + x;
+  if (VEC) {
+    *reinterpret_cast<float4*>(o) = make_float4(res[0], res[1], res[2],
+                                                res[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (x + j < W) o[j] = res[j];
+  }
 }
 
 // ---- lab: pre_depth.fs:129-137, glsl/inc_color.glsl --------------------------
@@ -544,11 +630,31 @@ const dim3 kBlock(BLOCK_X, BLOCK_Y);
 
 extern "C" {
 
+// The morph's launch on these pointers and sizes: {grid x, y, z, threads
+// x, y, 1 if the vector path runs}.
+int rgbd_pre_morph_plan(const void* depth, const void* out, int N, int H,
+                        int W, int* plan) {
+  plan[0] = (W + MT_W - 1) / MT_W;
+  plan[1] = (H + MT_H - 1) / MT_H;
+  plan[2] = N;
+  plan[3] = BLOCK_X;
+  plan[4] = BLOCK_Y;
+  plan[5] = W % 4 == 0 && ((uintptr_t)depth | (uintptr_t)out) % 16 == 0;
+  return 0;
+}
+
 // (N, H, W) metric depth -> (N, H, W) morphed depth.
 int rgbd_pre_morph(const void* depth, void* out, int N, int H, int W,
                    void* stream) {
-  morph_kernel<<<grid_of(N, H, W), kBlock, 0, (cudaStream_t)stream>>>(
-      (const float*)depth, (float*)out, H, W);
+  int plan[6];
+  rgbd_pre_morph_plan(depth, out, N, H, W, plan);
+  const dim3 grid(plan[0], plan[1], plan[2]);
+  if (plan[5])
+    morph_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        (const float*)depth, (float*)out, H, W);
+  else
+    morph_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        (const float*)depth, (float*)out, H, W);
   return (int)cudaGetLastError();
 }
 

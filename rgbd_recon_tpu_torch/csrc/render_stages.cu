@@ -22,10 +22,13 @@
 //   float -> int32 truncates (cvt.rzi), // of an int32 floors.
 //
 // Bound on this card: the scan's operations, the other stages' bytes. The
-// set-up, the bracket, the hit gather and the compose are one thread an
-// element and write what they own once; each is a few microseconds at the
-// cells' 1280x720 camera, and the design's aim is the host (each stage
-// replaces 40-400 launches and the syncs between them).
+// set-up, the hit gather and the compose are one thread an element and
+// write what they own once; each is a few microseconds at the cells'
+// 1280x720 camera, and the design's aim is the host (each stage replaces
+// 40-400 launches and the syncs between them). The bracket runs a block
+// slot's rays as one lane group: the slot's pools and bracket once, a
+// thread a ray for its direction and its row, the thread block's rows
+// stored as whole lines (its section below).
 //
 // The scan (14,400 rays of 53 samples at the cells' camera: 26.8 M
 // operations, 0.0004 ms at the f32 peak; it reads 44 KB of brick grid and
@@ -458,57 +461,157 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---- bracket --------------------------------------------------------------
+// A thread block of (ds, ds, slots) threads: a block slot's B2 = ds^2 rays
+// are one lane group (threadIdx.x the ray's column in its block, .y its
+// row, .z the slot), BRACKET_THREADS / B2 slots a thread block (at most
+// BRACKET_MAX_SLOTS, blockDim.z's limit; B2 at most 1024, the wrapper
+// refuses a larger one). The slot's work runs once:
+//  1. a thread a slot reads its block index and derives its row and column
+//     (the one division);
+//  2. the block's 27 window taps of the three grids (edge-clamped, row-major
+//     from the centre's row above) and its interval columns (blk's start
+//     and length, s_end, the flags) staged into shared memory, a word a
+//     thread, only for live slots (a padding slot's rows need none);
+//  3. a thread a slot folds the pools in pool3's order (the centre, then
+//     the 9 taps row-major, t_min / t_max: the same bits as the sequential
+//     pool3) and computes f_start, len_brkt and len_full;
+//  4. a thread a ray: its direction and its start point, its 32-byte row
+//     staged in shared memory; the thread block's rows, contiguous in
+//     ray8, then stored as float4 words by consecutive threads: whole
+//     lines (two float4 stores a thread straight to its row measured
+//     slower: bench/bracket_morph_variants.py).
+// Bound: bytes, most of them the rows written (5.9 of the cells' 6.2 MB).
+// Shared memory is dynamic: 32 bytes a thread for the rows, 160 a slot.
+constexpr int BRACKET_THREADS = 256;
+constexpr int BRACKET_MAX_SLOTS = 64;
+constexpr int BRACKET_MAX_B2 = 1024;
+// staged words a slot: 27 taps, s_start, length, s_end, the flags; the
+// stride 33 keeps step 3's threads (a slot each) on distinct banks
+constexpr int SLOT_WORDS = 32;
+constexpr int SLOT_STRIDE = SLOT_WORDS + 1;
+// shared bytes a slot: block, row, column, live; the taps; the start and
+// lengths
+constexpr int SLOT_BYTES = 4 * 4 + SLOT_STRIDE * 4 + 3 * 4;
 
-__global__ void __launch_bounds__(THREADS) bracket_kernel(RenderParams p) {
-  const long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (r >= (long long)p.capB * p.B2) return;
-  const int slot = (int)(r / p.B2), k = (int)(r % p.B2);
-  const long long bid = __ldg(p.blk_idx + slot);
-  const bool live = bid < p.NB;
-  const int b = live ? (int)bid : p.NB - 1;
-  const int by = b / p.Wb, bx = b % p.Wb;
-  const float* hit_g = p.grid;
-  const float* lo_g = p.grid + p.NB;
-  const float* hi_g = p.grid + 2 * p.NB;
-  const bool all9 = pool3<true>(hit_g, p.Hb, p.Wb, by, bx) > 0.5f;
-  const float lo9 = pool3<true>(lo_g, p.Hb, p.Wb, by, bx);
-  const float hi9 = pool3<false>(hi_g, p.Hb, p.Wb, by, bx);
-  const float* row = p.blk + (long long)b * 8;
-  const float s_start = row[7];
-  const float length = row[6];
-  const float s_end = p.s_end[b];
-  const bool found = (p.bflags[b] & 2) != 0;
-  const bool ok = all9 && (__fsub_rn(hi9, lo9) < p.bracket_max) &&
-                  (__fsub_rn(lo9, s_start) < p.lo_gap);
-  float b_lo, b_hi;
-  if (p.per_block) {
-    const float spread = __fmul_rn(__fsub_rn(hi9, lo9), 0.125f);
-    const float lo_b = lo_g[b], hi_b = hi_g[b];
-    b_lo = __fsub_rn(__fsub_rn(is_finite(lo_b) ? lo_b : s_start, p.margin),
-                     spread);
-    b_hi = __fadd_rn(__fadd_rn(is_finite(hi_b) ? hi_b : s_end, p.margin),
-                     spread);
-  } else {
-    b_lo = __fsub_rn(lo9, p.margin);
-    b_hi = __fadd_rn(hi9, p.margin);
+// block slots a thread block of the launch
+int bracket_slots(int B2) {
+  const int s = B2 > 0 ? BRACKET_THREADS / B2 : 1;
+  return s < 1 ? 1 : (s > BRACKET_MAX_SLOTS ? BRACKET_MAX_SLOTS : s);
+}
+
+__global__ void __launch_bounds__(BRACKET_MAX_B2)
+    bracket_kernel(RenderParams p) {
+  const int slots = blockDim.z;
+  const int nthreads = blockDim.x * blockDim.y * slots;
+  extern __shared__ float4 s_dyn[];
+  float4* s_rows = s_dyn;  // 2 words a thread
+  int(*s_blk)[4] = reinterpret_cast<int(*)[4]>(s_rows + 2 * nthreads);
+  float* s_tap = reinterpret_cast<float*>(s_blk + slots);
+  float(*s_ray)[3] =
+      reinterpret_cast<float(*)[3]>(s_tap + slots * SLOT_STRIDE);
+  const int tid =
+      (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+  const int slot0 = blockIdx.x * slots;
+  // 1. a slot's block (the padding's: block NB - 1, whose directions its
+  //    rows carry)
+  if (tid < slots) {
+    const int slot = slot0 + tid;
+    int b = p.NB - 1, live = 0;
+    if (slot < p.capB) {
+      const long long bid = __ldg(p.blk_idx + slot);
+      live = bid < p.NB;
+      b = live ? (int)bid : p.NB - 1;
+    }
+    const int by = b / p.Wb;
+    s_blk[tid][0] = b;
+    s_blk[tid][1] = by;
+    s_blk[tid][2] = b - by * p.Wb;
+    s_blk[tid][3] = live;
   }
-  const float f_start = ok ? t_max(b_lo, s_start) : s_start;
-  const float len_brkt =
-      (found && ok) ? clamp_min0(__fsub_rn(t_min(b_hi, s_end), f_start))
-                    : length;
-  const float len_full =
-      clamp_min0(found ? __fsub_rn(s_end, f_start) : 0.0f);
-  const float start = live ? f_start : 0.0f;
-  float d[3];
-  ray_dir(p, by * p.ds + k / p.ds, bx * p.ds + k % p.ds, d);
-  float* out = p.ray8 + r * 8;
+  __syncthreads();
+  // 2. the live slots' taps and interval columns, a word a thread
+  for (int i = tid; i < slots * SLOT_WORDS; i += nthreads) {
+    const int s = i / SLOT_WORDS, t = i % SLOT_WORDS;
+    if (!s_blk[s][3] || t > 30) continue;
+    const int b = s_blk[s][0];
+    float v;
+    if (t < 27) {
+      const int g = t / 9, w = t - 9 * g, dy = w / 3, dx = w - 3 * dy;
+      const int y = clampi(s_blk[s][1] + dy - 1, 0, p.Hb - 1);
+      const int x = clampi(s_blk[s][2] + dx - 1, 0, p.Wb - 1);
+      v = __ldg(p.grid + (long long)g * p.NB + y * p.Wb + x);
+    } else if (t == 27) {
+      v = __ldg(p.blk + (long long)b * 8 + 7);
+    } else if (t == 28) {
+      v = __ldg(p.blk + (long long)b * 8 + 6);
+    } else if (t == 29) {
+      v = __ldg(p.s_end + b);
+    } else {
+      v = __int_as_float((int)p.bflags[b]);
+    }
+    s_tap[s * SLOT_STRIDE + t] = v;
+  }
+  __syncthreads();
+  // 3. a thread a slot: the pools (pool3's order), the bracket
+  if (tid < slots) {
+    float start = 0.0f, len_full = 0.0f, len_brkt = 0.0f;
+    if (s_blk[tid][3]) {
+      const float* tp = s_tap + tid * SLOT_STRIDE;
+      float all = tp[4], lo9 = tp[9 + 4], hi9 = tp[18 + 4];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    out[a] = __fadd_rn(__ldg(p.eye + a), __fmul_rn(d[a], start));
-    out[3 + a] = d[a];
+      for (int w = 0; w < 9; ++w) {
+        all = t_min(all, tp[w]);
+        lo9 = t_min(lo9, tp[9 + w]);
+        hi9 = t_max(hi9, tp[18 + w]);
+      }
+      const bool all9 = all > 0.5f;
+      const float s_start = tp[27], length = tp[28], s_end = tp[29];
+      const bool found = (__float_as_int(tp[30]) & 2) != 0;
+      const bool ok = all9 && (__fsub_rn(hi9, lo9) < p.bracket_max) &&
+                      (__fsub_rn(lo9, s_start) < p.lo_gap);
+      float b_lo, b_hi;
+      if (p.per_block) {
+        // the block's own coarse bracket: its window's centre taps
+        const float spread = __fmul_rn(__fsub_rn(hi9, lo9), 0.125f);
+        const float lo_b = tp[9 + 4], hi_b = tp[18 + 4];
+        b_lo = __fsub_rn(
+            __fsub_rn(is_finite(lo_b) ? lo_b : s_start, p.margin), spread);
+        b_hi = __fadd_rn(
+            __fadd_rn(is_finite(hi_b) ? hi_b : s_end, p.margin), spread);
+      } else {
+        b_lo = __fsub_rn(lo9, p.margin);
+        b_hi = __fadd_rn(hi9, p.margin);
+      }
+      start = ok ? t_max(b_lo, s_start) : s_start;
+      len_brkt = (found && ok)
+                     ? clamp_min0(__fsub_rn(t_min(b_hi, s_end), start))
+                     : length;
+      len_full = clamp_min0(found ? __fsub_rn(s_end, start) : 0.0f);
+    }
+    s_ray[tid][0] = start;
+    s_ray[tid][1] = len_full;
+    s_ray[tid][2] = len_brkt;
   }
-  out[6] = live ? len_full : 0.0f;
-  out[7] = live ? len_brkt : 0.0f;
+  __syncthreads();
+  // 4. a thread a ray, its row staged; the thread block's rows (contiguous
+  //    in ray8) stored as whole lines
+  const int s = threadIdx.z, slot = slot0 + s;
+  if (slot < p.capB) {
+    float d[3];
+    ray_dir(p, s_blk[s][1] * p.ds + threadIdx.y,
+            s_blk[s][2] * p.ds + threadIdx.x, d);
+    const float start = s_ray[s][0];
+    float pos[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      pos[a] = __fadd_rn(__ldg(p.eye + a), __fmul_rn(d[a], start));
+    s_rows[2 * tid] = make_float4(pos[0], pos[1], pos[2], d[0]);
+    s_rows[2 * tid + 1] = make_float4(d[1], d[2], s_ray[s][1], s_ray[s][2]);
+  }
+  __syncthreads();
+  const int words = 2 * min(slots, p.capB - slot0) * p.B2;
+  float4* rows = reinterpret_cast<float4*>(p.ray8) + 2LL * slot0 * p.B2;
+  for (int i = tid; i < words; i += nthreads) rows[i] = s_rows[i];
 }
 
 // ---- hits -----------------------------------------------------------------
@@ -636,11 +739,28 @@ int rgbd_render_block_setup(const void* params, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The bracket's launch: {blocks, threads x, y, z (the ray's column, its
+// row, the slot), dynamic shared bytes}; blocks 0 without slots.
+int rgbd_render_bracket_plan(const void* params, int* out) {
+  const RenderParams& p = *(const RenderParams*)params;
+  const int slots = bracket_slots(p.B2);
+  out[0] = p.capB > 0 ? (p.capB + slots - 1) / slots : 0;
+  out[1] = p.ds;
+  out[2] = p.ds;
+  out[3] = slots;
+  out[4] = p.B2 * slots * 32 + slots * SLOT_BYTES;
+  return 0;
+}
+
 int rgbd_render_bracket(const void* params, void* stream) {
   const RenderParams& p = *(const RenderParams*)params;
-  const int blocks = blocks_for((long long)p.capB * p.B2);
-  if (blocks == 0) return 0;
-  bracket_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(p);
+  if (p.B2 != p.ds * p.ds || p.B2 < 1 || p.B2 > BRACKET_MAX_B2)
+    return (int)cudaErrorInvalidValue;
+  int plan[5];
+  rgbd_render_bracket_plan(params, plan);
+  if (plan[0] == 0) return 0;
+  bracket_kernel<<<plan[0], dim3(plan[1], plan[2], plan[3]), plan[4],
+                   (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

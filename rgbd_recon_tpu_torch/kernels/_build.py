@@ -68,6 +68,7 @@ _SIGNATURES = {
     "rgbd_render_scan_plan": (_P, _PI),
     "rgbd_render_block_setup": (_P, _P),
     "rgbd_render_bracket": (_P, _P),
+    "rgbd_render_bracket_plan": (_P, _PI),
     "rgbd_render_hit_gather": (_P, _P),
     "rgbd_render_compose": (_P, _P),
     "rgbd_render_params_size": (ctypes.POINTER(_I),),
@@ -83,6 +84,7 @@ _SIGNATURES = {
     "rgbd_hit_shade_plan": (_I, _PI),
     "rgbd_hit_params_sizes": (ctypes.POINTER(_I),),
     "rgbd_pre_morph": (_P, _P, _I, _I, _I, _P),
+    "rgbd_pre_morph_plan": (_P, _P, _I, _I, _I, _PI),
     "rgbd_pre_lab": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
     "rgbd_pre_depth2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _P),

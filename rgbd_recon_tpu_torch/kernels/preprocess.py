@@ -1,7 +1,9 @@
 """Launch wrappers of csrc/preprocess.cu (the preprocess chain's per-pixel
-passes: one launch a pass, one thread a pixel)."""
+passes: one launch a pass)."""
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -58,6 +60,19 @@ def _launch(name: str, dev: torch.device, entry: str, *args) -> None:
             *args, torch.cuda.current_stream(dev).cuda_stream)
     check(err, name)
     LAUNCHES[name] += 1
+
+
+def morph_plan(depth: torch.Tensor) -> dict:
+    """The morph's launch on ``depth`` (csrc/preprocess.cu
+    rgbd_pre_morph_plan; the output, a fresh allocation, is 16-byte
+    aligned): grid, threads a block, and whether the vector path (16-byte
+    loads and stores, 4 pixels a thread) runs."""
+    N, H, W = _map_shape(depth, "depth")
+    plan = (ctypes.c_int * 6)()
+    library().rgbd_pre_morph_plan(depth.data_ptr(), depth.data_ptr(), N, H,
+                                  W, plan)
+    return dict(grid=tuple(plan[:3]), threads=tuple(plan[3:5]),
+                vector=bool(plan[5]))
 
 
 def morph_cuda(depth: torch.Tensor) -> torch.Tensor:

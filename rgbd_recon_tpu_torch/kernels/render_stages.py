@@ -206,8 +206,29 @@ def block_setup_cuda(g, scan5, cam):
     return blk, s_end, flags, grid
 
 
+# the bracket's thread block holds a block slot's B2 = ds^2 rays
+# (csrc/render_stages.cu BRACKET_MAX_B2)
+BRACKET_MAX_B2 = 1024
+
+
+def bracket_plan(g, capB: int) -> dict:
+    """The bracket's launch for ``capB`` block slots of geometry ``g``
+    (csrc/render_stages.cu rgbd_render_bracket_plan): blocks, the thread
+    block (the ray's column, its row, the slot) and its dynamic shared
+    bytes."""
+    p = _params(g)
+    p.capB = capB
+    out = (_I * 5)()
+    _lib().rgbd_render_bracket_plan(ctypes.byref(p), out)
+    return dict(blocks=out[0], threads=(out[1], out[2], out[3]),
+                shared_bytes=out[4])
+
+
 def bracket_cuda(g, grid, blk, s_end, flags, blk_idx, cam):
     """:func:`ops.render_stages.bracket_plain` in one launch."""
+    if g.B2 > BRACKET_MAX_B2:
+        raise ValueError(f"bracket: {g.B2} rays a block (ds {g.ds}), at most "
+                         f"{BRACKET_MAX_B2}")
     NB = g.NB
     dev = _check(grid, "grid", torch.float32, (3, NB), None)
     _check(blk, "blk", torch.float32, (NB, 8), dev)
@@ -223,6 +244,8 @@ def bracket_cuda(g, grid, blk, s_end, flags, blk_idx, cam):
     p = _params(g)
     _camera(p, cam, dev)
     ray8 = torch.empty((R, 8), dtype=torch.float32, device=dev)
+    if ray8.data_ptr() % 16:
+        raise RuntimeError("bracket: the ray rows are not 16-byte aligned")
     p.grid, p.blk, p.s_end, p.bflags = (grid.data_ptr(), blk.data_ptr(),
                                         s_end.data_ptr(), flags.data_ptr())
     p.blk_idx, p.capB, p.ray8 = blk_idx.data_ptr(), capB, ray8.data_ptr()

@@ -147,3 +147,93 @@ def quality_sums(seed: int, n: int, h: int, w: int):
     border[rng.random((n, h, w)) < 0.3] = 0.0
     wr = (169.0 - border) * rng.uniform(0.0, 1.0, (n, h, w))
     return border, wr.astype(np.float32)
+
+
+MORPH_CASES = ("all_valid", "all_invalid", "isolated_holes",
+               "single_valid_in_hole", "at_limits", "nan_inf",
+               "near_threshold", "chain")
+
+
+def _morph_mean(window):
+    """The morph's first-pass mean of a 3x3 f32 window (dy outer, dx inner,
+    sums from +0), as the twin computes it."""
+    f32 = np.float32
+    s, c = f32(0.0), f32(0.0)
+    for t in window.reshape(-1):
+        ok = f32(0.5) < t < f32(4.5)
+        s = f32(s + (t if ok else f32(0.0)))
+        c = f32(c + (f32(1.0) if ok else f32(0.0)))
+    return f32(s / max(c, f32(1.0)))
+
+
+def threshold_windows():
+    """3x3 windows with an invalid centre whose valid taps lie around the
+    second pass's 0.2 from the first-pass mean: taps 1.0 and 1.4 about a
+    mean of 1.2 (0.2 apart in decimals), and the two f32 taps on either
+    side of the test |mean - t| < f32(0.2) (valid depths lie on a grid of
+    2^-24 or coarser, where f32(0.2) is not, so no tap meets it exactly)."""
+    f32 = np.float32
+    out = [np.array([[1.0, 1.4, 1.0], [1.4, 0.0, 1.0], [1.4, 1.0, 1.4]],
+                    f32)]
+    base = np.full((3, 3), 1.2, f32)
+    base[1, 1] = 0.0
+    # from a tap just past 0.2 below the mean, up one ulp at a time
+    s = f32(1.2 - 0.2 * 8.0 / 7.0) - f32(64 * 2.0 ** -23)
+    outside = None
+    for _ in range(512):
+        w = base.copy()
+        w[2, 2] = s
+        if not abs(_morph_mean(w) - s) < f32(0.2):
+            outside = w
+        elif outside is not None:
+            out += [outside, w]
+            break
+        s = np.nextafter(s, f32(2.0))
+    if len(out) != 3:
+        raise AssertionError("no tap found on either side of 0.2")
+    return out
+
+
+def morph_cases(seed: int, n: int, h: int, w: int):
+    """{case: (n, h, w) f32 metric depth} for the morph: every pixel valid,
+    none valid (0, 0.3, 4.8, exactly 0.5 and 4.5, NaN, +-inf), isolated
+    holes in a valid map, one valid pixel in a hole, depths at and one ulp
+    around 0.5 and 4.5, NaN and +-inf among valid depths, the windows of
+    :func:`threshold_windows` tiled over a hole, and the chain's own
+    frame."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    shape = (n, h, w)
+    valid = rng.uniform(0.6, 4.4, shape).astype(f32)
+    bad = np.array([0.0, 0.3, 4.8, 0.5, 4.5, np.nan, np.inf, -np.inf], f32)
+    limits = np.array([0.5, 4.5, np.nextafter(f32(0.5), f32(1.0)),
+                       np.nextafter(f32(0.5), f32(0.0)),
+                       np.nextafter(f32(4.5), f32(0.0)),
+                       np.nextafter(f32(4.5), f32(5.0)), 2.0, 0.0], f32)
+    cases = {"all_valid": valid,
+             "all_invalid": bad[rng.integers(0, len(bad), shape)]}
+    holes = valid.copy()
+    holes[rng.random(shape) < 0.1] = 0.0
+    cases["isolated_holes"] = holes
+    single = np.zeros(shape, f32)
+    single[:, h // 2, w // 2] = 1.7
+    single[:, 0, w - 1] = 3.3
+    cases["single_valid_in_hole"] = single
+    cases["at_limits"] = limits[rng.integers(0, len(limits), shape)]
+    noisy = valid.copy()
+    u = rng.random(shape)
+    noisy[u < 0.05] = np.nan
+    noisy[(u >= 0.05) & (u < 0.1)] = np.inf
+    noisy[(u >= 0.1) & (u < 0.15)] = -np.inf
+    noisy[(u >= 0.15) & (u < 0.3)] = 0.0
+    cases["nan_inf"] = noisy
+    windows = threshold_windows()
+    tiled = np.zeros((n, h + 4, w + 4), f32)
+    k = 0
+    for y in range(0, h + 1, 4):
+        for x in range(0, w + 1, 4):
+            tiled[:, y: y + 3, x: x + 3] = windows[k % len(windows)]
+            k += 1
+    cases["near_threshold"] = np.ascontiguousarray(tiled[:, :h, :w])
+    cases["chain"] = chain_inputs(seed, n, h, w, 4, 4)["depths"]
+    return cases

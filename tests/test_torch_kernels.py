@@ -30,6 +30,7 @@ from rgbd_recon_tpu_torch.ops.stage_calls import (
     replay,
 )
 
+import bracket_cases
 from hit_cases import record_hits
 from holefill_cases import fill_planes
 import preprocess_cases
@@ -1858,6 +1859,41 @@ def test_preprocess_boundary_kernel_at_odd_tiles(cuda, shape, refine):
     assert kernels.launch_counts()["boundary"] == 8
 
 
+# (sensors, h, w, storage offset in floats, the vector path): W = 512 and
+# other multiples of 4 (float4 staging and stores), odd widths and a view 4
+# bytes into its storage (the scalar path)
+MORPH_MAPS = [(1, 424, 512, 0, True), (2, 9, 4, 0, True),
+              (1, 17, 132, 0, True), (2, 7, 3, 0, False),
+              (1, 11, 5, 0, False), (1, 9, 513, 0, False),
+              (1, 1, 1, 0, False), (2, 9, 512, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,offset,vector", MORPH_MAPS)
+def test_preprocess_morph_kernel_on_crafted_maps(cuda, n, h, w, offset,
+                                                 vector):
+    """The morph kernel bit-equal to morph_dilate_plain on the card on
+    tests/preprocess_cases.py's crafted maps (all valid, none valid,
+    isolated holes, one valid pixel in a hole, depths at and around 0.5 and
+    4.5, NaN and +-inf, taps on either side of 0.2 from the first-pass mean,
+    the chain's frame): the vector path where W % 4 == 0 and the map is
+    16-byte aligned, else the scalar path; one launch a call."""
+    from rgbd_recon_tpu_torch.kernels import preprocess as kp
+    from rgbd_recon_tpu_torch.ops import preprocess as pre
+
+    cases = preprocess_cases.morph_cases(9, n, h, w)
+    kernels.reset_launch_counts()
+    for name, depth in cases.items():
+        d = torch.from_numpy(depth).to(cuda)
+        if offset:
+            d = _offset_copy(d, offset)
+            assert d.data_ptr() % 16 == 4 * offset
+        assert kp.morph_plan(d)["vector"] == vector
+        assert _bits_equal(kp.morph_cuda(d), pre.morph_dilate_plain(d)), name
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["morph"] == len(cases)
+
+
 _PRE_PASSES = ("morph_dilate", "lab_colors", "bilateral_lab", "boundary",
                "normals", "quality")
 
@@ -2332,6 +2368,108 @@ def test_render_stage_scan_back_to_back_and_in_graphs(cuda):
         torch.cuda.synchronize()
         assert bits_equal(out, eager), name
         assert torch.equal(s_counts, e_counts), name
+
+
+# (ds, block slots): 1, 4, 9, 16 and 64 rays a block, slot counts that are
+# no multiple of a thread block's slots (256 / B2, at most 64)
+BRACKET_GEOMETRIES = [(1, 1), (1, 65), (1, 130), (2, 15), (2, 17), (2, 70),
+                      (3, 29), (4, 1), (4, 17), (4, 33), (4, 122), (8, 3),
+                      (8, 5), (8, 122)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_block", [False, True])
+@pytest.mark.parametrize("ds,capB", BRACKET_GEOMETRIES)
+def test_render_stage_bracket_geometries(cuda, ds, capB, per_block):
+    """The bracket kernel bit for bit against bracket_plain on the card on
+    tests/bracket_cases.py's grids (NaNs, signed zeros, infinities, at
+    their edges and corners too; padding slots) at ds 1, 2, 3, 4 and 8 and
+    block slot counts that leave a thread block part full; its launch plan
+    (ds x ds x slots threads, ceil(capB / slots) blocks, 32 bytes of rows a
+    thread and 160 a slot of shared memory)."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import (
+        bracket_cuda,
+        bracket_plan,
+    )
+    from rgbd_recon_tpu_torch.ops.render_stages import bracket_plain
+
+    kernels.reset_launch_counts()
+    for seed in (1, 2):
+        args = bracket_cases.bracket_case(seed, ds, capB, cuda,
+                                          per_block=per_block)
+        got = bracket_cuda(*args)
+        want = bracket_plain(*args)
+        torch.cuda.synchronize()
+        assert bits_equal(got, want), seed
+    slots = min(max(256 // (ds * ds), 1), 64)
+    assert bracket_plan(args[0], capB) == dict(
+        blocks=-(-capB // slots), threads=(ds, ds, slots),
+        shared_bytes=ds * ds * slots * 32 + slots * (16 + 33 * 4 + 12))
+    assert kernels.launch_counts()["bracket"] == 2
+
+
+@pytest.mark.cuda
+def test_render_stage_bracket_refusals(cuda):
+    """ds = 33 (1,089 rays a block, past a 1,024-thread block) is refused
+    with ValueError, before any launch."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import bracket_cuda
+
+    args = bracket_cases.bracket_case(1, 33, 4, cuda, Hb=2, Wb=3)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="at most 1024"):
+        bracket_cuda(*args)
+    assert kernels.launch_counts()["bracket"] == 0
+
+
+@pytest.mark.cuda
+def test_render_stage_bracket_back_to_back_and_in_graphs(cuda):
+    """50 brackets launched back to back with no sync between them (the
+    fast config's recorded call and seeded grids), each bit-equal to
+    bracket_plain on its inputs; then a bracket captured in a CUDA graph on
+    a side stream and replayed 3 times on changed grids, block rows,
+    interval ends, flags and block lists (copied into the captured
+    tensors), each replay bit-equal to an eager bracket of the same
+    inputs."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import bracket_cuda
+    from rgbd_recon_tpu_torch.ops.render_stages import bracket_plain
+
+    _, render, args = render_stage_scene(cuda, "fast")
+    calls = record_stages(lambda: render.render_from_baked(*args))
+    (rec,) = [c[1] for c in calls if c[0] == "bracket"]
+    cases = [tuple(c.clone() if isinstance(c, torch.Tensor) else c
+                   for c in rec) if i % 5 == 0 else
+             bracket_cases.bracket_case(i, 4, 40 + i, cuda,
+                                        per_block=i % 2 == 1)
+             for i in range(50)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = [bracket_cuda(*c) for c in cases]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bracket"] == 50
+    for i, c in enumerate(cases):
+        assert bits_equal(got[i], bracket_plain(*c)), i
+    # the graph: a seeded case's tensors, refilled from three others
+    static = bracket_cases.bracket_case(100, 4, 64, cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        bracket_cuda(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = bracket_cuda(*static)
+    for seed in (101, 102, 103):
+        new = bracket_cases.bracket_case(seed, 4, 64, cuda)
+        for k in range(1, 6):
+            static[k].copy_(new[k])
+        static[6].eye_vol.copy_(new[6].eye_vol)
+        static[6].rot.copy_(new[6].rot)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = bracket_cuda(*new)
+        torch.cuda.synchronize()
+        assert bits_equal(out, eager), seed
+        assert bits_equal(out, bracket_plain(*new)), seed
 
 
 @pytest.mark.cuda
