@@ -18,8 +18,8 @@ scan, the block set-up, four compactions, the coarse march, the bracket,
 phase 1, two tail stages, the hit gather, the compose) and one parity
 frame (the coarse and the full march, two compactions): every output and
 every array a stage updates in place bit-equal to its plain twin's, each
-march stage's rays, samples and longest ray, the scan's and the bracket's
-launch shapes printed; then the whole
+march stage's rays, samples and longest ray, the scan's, the block
+set-up's and the bracket's launch shapes printed; then the whole
 ``render_from_baked`` on the kernels against it on the twins (hit mask,
 window depth, march steps, overflow, pre-fill planes, colour, bit for
 bit), once under ``torch.cuda.set_sync_debug_mode("error")`` (no host
@@ -38,7 +38,9 @@ timed on each layout. The hit kernels
 parity frame hand to ``ops.hits.refine_hits`` and ``shade_hits``: the
 refined positions and shade mode 0's rgba bit-equal to the twins, the
 window depth and modes 1 and 2 within HIT_ATOL (bit-equal flags
-printed), each kernel's bound by the bytes its data needs. The
+printed), each kernel's bound by the bytes its data needs and its launch
+shape (the refine's with its samples a chunk and whether its per-hit
+inputs took the row path). The
 preprocess kernels (``csrc/preprocess.cu``) are held and timed on the
 arguments one fast fuse hands each pass (the morph's launch shape and its
 pixels by exit printed). Then it drives
@@ -894,6 +896,7 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
     from rgbd_recon_tpu_torch.bench import kernel_inputs
     from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.kernels.render_stages import (
+        block_setup_plan,
         bracket_plan,
         scan_plan,
     )
@@ -958,6 +961,10 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             if stage == "scan":
                 # blocks, threads, lanes a ray, the staged brick table
                 row["launch"] = scan_plan(a[0], a[1].shape, a[1].device)
+            if stage == "block_setup":
+                # tiles across and down, the thread block (the block's
+                # column and row in its tile), static shared bytes
+                row["launch"] = block_setup_plan(a[0])
             if stage == "bracket":
                 # blocks, the thread block (ray column, row, slot), shared
                 row["launch"] = bracket_plan(a[0], a[5].shape[0])
@@ -1072,7 +1079,7 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             trace_retakes=retakes)
         if name == "march":
             row["host_split"] = sums["march"]["host_split"]
-        if name in ("scan", "bracket"):
+        if name in ("scan", "block_setup", "bracket"):
             row["launch"] = calls_out[name][0]["launch"]
         if name == "compact":
             row.update(library=calls_out[name][0]["library"],
@@ -1494,7 +1501,9 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
     "parity"."""
     from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.kernels.hits import (
+        input_rows,
         refine_cuda,
+        refine_plan,
         shade_cuda,
         shade_plan,
     )
@@ -1570,7 +1579,13 @@ def _phase3_hits(torch, pipe, camera, frames, card, flush):
                            r_bytes, r_err,
                            dict(bit_equal=True, moved=moved,
                                 confirmed=confirmed,
-                                touched_bytes=r_touched)),
+                                touched_bytes=r_touched,
+                                # blocks, threads, lanes a hit, samples a
+                                # chunk; the per-hit inputs as one row
+                                launch=dict(refine_plan(hit.numel()),
+                                            row_path=bool(input_rows(
+                                                [*rargs[0], *rargs[1],
+                                                 *rargs[2:4]]))))),
             "hit_shade": (lambda: shade_cuda(**skernel),
                           lambda: hits.shade_hits_plain(*sargs, **skw),
                           s_bytes, s_err,

@@ -59,19 +59,47 @@
 //
 // Design, common to both: one thread a hit, 128 threads a block (the
 // cells' 101,376 hit slots are one wave of the card); every table and map
-// read in place through the read-only path (__ldg), bf16 entries loaded as
-// 16 bits and shifted into an f32 (exact, as the twin's .to(float32)); the
+// read in place through the read-only path (__ldg), bf16 entries shifted
+// into an f32 (exact, as the twin's .to(float32)); an oct row's 8 corners
+// one 16-byte load (two in f32), shared by the refine and the shade; the
 // colour map read as f32 and rounded to bf16 in registers (no per-call
 // bf16 copy), depth and quality read from their own planes through their
 // strides (no per-call stack), the camera and the box's minimum read from
-// their device tensors (no upload, no sync); the per-hit inputs read
-// through strides, so the render's column views need no copy. The render
+// their device tensors (no upload, no sync); the per-hit inputs read in
+// place, so the render's column views need no copy. The render
 // compacts the hits of 4x4 screen blocks next to each other, so
 // neighbouring hits read neighbouring texels and share sectors.
 //
-// hit_refine: a hit reads what its result needs: the live byte first,
-// then the ray and bracket only if it is live, the march's position only
-// where that is the result (not live, or the crossing not confirmed).
+// hit_refine: what sets its time is the chain of dependent loads a hit
+// waits on, so each round of loads is issued whole:
+//  - the ray and bracket: where they are columns 0-7 of one row-major
+//    (n, 8) f32 tensor on 16 bytes (the render's hit rows; the wrapper
+//    finds it), two float4 loads issued with the live byte, before the
+//    live test (a dead hit's row is in bounds); any other layout, the
+//    strided scalar loads, only for a live hit;
+//  - an oct row (8 corners, 16 bytes in bf16, 32 in f32) one uint4 or two
+//    float4 loads (the wrapper checks the table's 16-byte alignment), its
+//    brick and local index by a multiply and a shift in place of runtime
+//    divisions by brick_vox (exact below 2^31, Divisor below);
+//  - the widened bracket's K samples in chunks of REFINE_CHUNK: every
+//    sample's position, then every sample's slot load, then every row
+//    load, and only then the test for the first rising sign change, after
+//    each chunk (the cells' K = 8 is two chunks; their first rise lies at
+//    samples 3-5). The same bits as one sample after the other with a
+//    break: each d_k is the same function of the same inputs, and the
+//    first k with d_k > 0 and d_k-1 <= 0 the same k (a NaN fails both
+//    tests). A chunk of 8 held 119 registers, so the cells' 792 blocks
+//    took two waves, and measured slower, as did 8 under a bound of 80
+//    registers (spills);
+//  - the bracket's two ends (the oct table without widening, or the march
+//    table's pair_trilinear taps) sampled the same way: both samples'
+//    loads (2 slots and 2 rows, or 16 table entries) before the first
+//    lerp (the SASS of refine_kernel<float> issues the march table's 16
+//    loads, then its first lerp);
+//  - the march's position read only where it is the result (not live, or
+//    the crossing not confirmed).
+// A hit's samples spread over lanes of a warp (a sample a lane, the first
+// rising pair by a ballot) measured slower: bench/setup_refine_variants.py.
 //
 // hit_shade: the sensors are folded one after the other into the sums in
 // sensor order from 0.0f, as the twins' loop adds them. Each sensor's
@@ -124,6 +152,8 @@ struct RefineParams {
   long long hit_stride;
   float* out;  // (n, 3)
   int n;
+  // in[0..7] as the rows of one (n, 8) f32 tensor on 16 bytes, else null
+  const float* rows8;
 };
 
 struct ShadeParams {
@@ -257,6 +287,29 @@ __device__ __forceinline__ float secant_den(float d) {
   return fabsf(d) < 1e-20f ? 1e-20f : d;
 }
 
+// v // d for 0 <= v < 2^31 as (v * magic) >> shift, magic =
+// ceil(2^shift / d), shift = 31 + ceil(log2 d): exact, since
+// (magic * d - 2^shift) * v < d * 2^31 <= 2^shift
+struct Divisor {
+  unsigned long long magic;
+  unsigned shift;
+};
+
+Divisor divisor(int d) {
+  if (d < 1) d = 1;  // no oct table: brick_vox unused
+  unsigned l = 0;
+  while ((1ll << l) < (long long)d) ++l;
+  Divisor q;
+  q.shift = 31u + l;
+  q.magic = ((1ull << q.shift) + (unsigned long long)(d - 1)) /
+            (unsigned long long)d;
+  return q;
+}
+
+__device__ __forceinline__ int div_by(int v, const Divisor& q) {
+  return (int)(((unsigned long long)v * q.magic) >> q.shift);
+}
+
 // ---- the march table ------------------------------------------------------
 
 // ops/raymarch.py sample_nearest_p, then clamp_min(floor) where floor_on
@@ -271,39 +324,76 @@ __device__ float table_nearest(const T* table, float px, float py, float pz,
   return floor_on ? clamp_min(v, floor) : v;
 }
 
+// ops/sampling.py pair_trilinear's taps: the 4 (z, y) rows' x pairs
+struct TriTaps {
+  long long base[4];
+  int x0, x1;
+  float fx, fy, fz;
+};
+
+__device__ __forceinline__ TriTaps trilinear_taps(float px, float py,
+                                                  float pz, int D, int H,
+                                                  int W) {
+  TriTaps t;
+  const float cx = sub(mul(px, (float)W), 0.5f);
+  const float cy = sub(mul(py, (float)H), 0.5f);
+  const float cz = sub(mul(pz, (float)D), 0.5f);
+  const float x0f = floorf(cx), y0f = floorf(cy), z0f = floorf(cz);
+  t.fx = x0f < 0.0f ? 0.0f : sub(cx, x0f);
+  t.fy = sub(cy, y0f);
+  t.fz = sub(cz, z0f);
+  t.x0 = clamp_idx((int)x0f, W);
+  t.x1 = min(t.x0 + 1, W - 1);
+  const int y0 = clamp_idx((int)y0f, H);
+  const int y1 = clamp_idx((int)add(y0f, 1.0f), H);
+  const int z0 = clamp_idx((int)z0f, D);
+  const int z1 = clamp_idx((int)add(z0f, 1.0f), D);
+  const int zs[4] = {z0, z0, z1, z1};
+  const int ys[4] = {y0, y1, y0, y1};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) t.base[k] = ((long long)zs[k] * H + ys[k]) * W;
+  return t;
+}
+
+// the taps' 8 entries: pair k's x0 and x1 at 2k and 2k + 1
+template <typename T>
+__device__ __forceinline__ void trilinear_load(const T* table,
+                                               const TriTaps& t, float e[8]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    e[2 * k] = load_entry(table, t.base[k] + t.x0);
+    e[2 * k + 1] = load_entry(table, t.base[k] + t.x1);
+  }
+}
+
+// pair_trilinear's value of the loaded taps, each clamped from below by
+// floor where floor_on
+__device__ __forceinline__ float trilinear_value(const TriTaps& t,
+                                                 const float e[8],
+                                                 int floor_on, float floor) {
+  float pair[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float a = e[2 * k], b = e[2 * k + 1];
+    if (floor_on) {
+      a = clamp_min(a, floor);
+      b = clamp_min(b, floor);
+    }
+    pair[k] = lerp(a, b, t.fx);
+  }
+  return lerp(lerp(pair[0], pair[1], t.fy), lerp(pair[2], pair[3], t.fy),
+              t.fz);
+}
+
 // ops/sampling.py pair_trilinear with its clamp floor
 template <typename T>
 __device__ float table_trilinear(const T* table, float px, float py, float pz,
                                  int D, int H, int W, int floor_on,
                                  float floor) {
-  const float cx = sub(mul(px, (float)W), 0.5f);
-  const float cy = sub(mul(py, (float)H), 0.5f);
-  const float cz = sub(mul(pz, (float)D), 0.5f);
-  const float x0f = floorf(cx), y0f = floorf(cy), z0f = floorf(cz);
-  const float fx = x0f < 0.0f ? 0.0f : sub(cx, x0f);
-  const float fy = sub(cy, y0f);
-  const float fz = sub(cz, z0f);
-  const int x0 = clamp_idx((int)x0f, W);
-  const int x1 = min(x0 + 1, W - 1);
-  const int y0 = clamp_idx((int)y0f, H);
-  const int y1 = clamp_idx((int)add(y0f, 1.0f), H);
-  const int z0 = clamp_idx((int)z0f, D);
-  const int z1 = clamp_idx((int)add(z0f, 1.0f), D);
-  float pair[4];
-  const int zs[4] = {z0, z0, z1, z1};
-  const int ys[4] = {y0, y1, y0, y1};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const long long base = ((long long)zs[k] * H + ys[k]) * W;
-    float a = load_entry(table, base + x0);
-    float b = load_entry(table, base + x1);
-    if (floor_on) {
-      a = clamp_min(a, floor);
-      b = clamp_min(b, floor);
-    }
-    pair[k] = lerp(a, b, fx);
-  }
-  return lerp(lerp(pair[0], pair[1], fy), lerp(pair[2], pair[3], fy), fz);
+  const TriTaps t = trilinear_taps(px, py, pz, D, H, W);
+  float e[8];
+  trilinear_load(table, t, e);
+  return trilinear_value(t, e, floor_on, floor);
 }
 
 // ---- the oct cell-corner table ---------------------------------------------
@@ -314,30 +404,85 @@ struct Cell {
   bool valid;
 };
 
-// ops/raymarch.py OctVolume._cells: the anchor cell's eight corners
-template <typename T>
-__device__ Cell oct_cell(const T* rows, const int* slots, float px, float py,
-                         float pz, int D, int H, int W, int v) {
-  Cell cell;
+// an anchor cell's place: its fractions, its brick's flat id and the
+// cell's index in the brick
+struct CellAt {
+  float fx, fy, fz;
+  int bid, local;
+};
+
+// ops/raymarch.py OctVolume._cells up to the slot lookup; q divides by
+// the brick edge v
+__device__ __forceinline__ CellAt oct_locate(float px, float py, float pz,
+                                             int D, int H, int W, int v,
+                                             const Divisor& q) {
+  CellAt at;
   const float cx = sub(mul(px, (float)W), 0.5f);
   const float cy = sub(mul(py, (float)H), 0.5f);
   const float cz = sub(mul(pz, (float)D), 0.5f);
   const float x0f = floorf(cx), y0f = floorf(cy), z0f = floorf(cz);
-  cell.fx = x0f < 0.0f ? 0.0f : clamp_to(sub(cx, x0f), 0.0f, 1.0f);
-  cell.fy = y0f < 0.0f ? 0.0f : clamp_to(sub(cy, y0f), 0.0f, 1.0f);
-  cell.fz = z0f < 0.0f ? 0.0f : clamp_to(sub(cz, z0f), 0.0f, 1.0f);
+  at.fx = x0f < 0.0f ? 0.0f : clamp_to(sub(cx, x0f), 0.0f, 1.0f);
+  at.fy = y0f < 0.0f ? 0.0f : clamp_to(sub(cy, y0f), 0.0f, 1.0f);
+  at.fz = z0f < 0.0f ? 0.0f : clamp_to(sub(cz, z0f), 0.0f, 1.0f);
   const int x0 = clamp_idx((int)x0f, W);
   const int y0 = clamp_idx((int)y0f, H);
   const int z0 = clamp_idx((int)z0f, D);
-  const int Bx = W / v, By = H / v;
-  const int bid = ((z0 / v) * By + y0 / v) * Bx + x0 / v;
-  const int slot = __ldg(slots + bid);
+  const int bx = div_by(x0, q), by = div_by(y0, q), bz = div_by(z0, q);
+  at.bid = (bz * div_by(H, q) + by) * div_by(W, q) + bx;
+  at.local = ((z0 - bz * v) * v + (y0 - by * v)) * v + (x0 - bx * v);
+  return at;
+}
+
+// an oct row's 8 corners in one load: 16 bytes of bf16, or two float4
+__device__ __forceinline__ void load_row(const float* rows, long long row,
+                                         float c[8]) {
+  const float4* r = reinterpret_cast<const float4*>(rows) + 2 * row;
+  const float4 lo = __ldg(r), hi = __ldg(r + 1);
+  c[0] = lo.x;
+  c[1] = lo.y;
+  c[2] = lo.z;
+  c[3] = lo.w;
+  c[4] = hi.x;
+  c[5] = hi.y;
+  c[6] = hi.z;
+  c[7] = hi.w;
+}
+
+__device__ __forceinline__ void load_row(const unsigned short* rows,
+                                         long long row, float c[8]) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(rows) + row);
+  const unsigned int u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c[2 * k] = __uint_as_float(u[k] << 16);
+    c[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+  }
+}
+
+// OctVolume.sample_p's lerps of a valid cell
+__device__ __forceinline__ float cell_value(const float c[8], float fx,
+                                            float fy, float fz) {
+  const float c00 = lerp(c[0], c[1], fx);
+  const float c01 = lerp(c[2], c[3], fx);
+  const float c10 = lerp(c[4], c[5], fx);
+  const float c11 = lerp(c[6], c[7], fx);
+  return lerp(lerp(c00, c01, fy), lerp(c10, c11, fy), fz);
+}
+
+// ops/raymarch.py OctVolume._cells: the anchor cell's eight corners
+template <typename T>
+__device__ Cell oct_cell(const T* rows, const int* slots, float px, float py,
+                         float pz, int D, int H, int W, int v,
+                         const Divisor& q) {
+  const CellAt at = oct_locate(px, py, pz, D, H, W, v, q);
+  Cell cell;
+  cell.fx = at.fx;
+  cell.fy = at.fy;
+  cell.fz = at.fz;
+  const int slot = __ldg(slots + at.bid);
   cell.valid = slot >= 0;
   if (cell.valid) {
-    const long long local = ((z0 % v) * v + y0 % v) * v + x0 % v;
-    const long long row = (long long)slot * (v * v * v) + local;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) cell.c[k] = load_entry(rows, row * 8 + k);
+    load_row(rows, (long long)slot * (v * v * v) + at.local, cell.c);
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k) cell.c[k] = 0.0f;
@@ -345,32 +490,45 @@ __device__ Cell oct_cell(const T* rows, const int* slots, float px, float py,
   return cell;
 }
 
-// OctVolume.sample_p: the cell's trilinear value, fill off the table
-template <typename T>
-__device__ float oct_sample(const T* rows, const int* slots, float px,
-                            float py, float pz, int D, int H, int W, int v,
-                            float fill) {
-  const Cell e = oct_cell(rows, slots, px, py, pz, D, H, W, v);
-  if (!e.valid) return fill;
-  const float c00 = lerp(e.c[0], e.c[1], e.fx);
-  const float c01 = lerp(e.c[2], e.c[3], e.fx);
-  const float c10 = lerp(e.c[4], e.c[5], e.fx);
-  const float c11 = lerp(e.c[6], e.c[7], e.fx);
-  return lerp(lerp(c00, c01, e.fy), lerp(c10, c11, e.fy), e.fz);
+// OctVolume.sample_p of N positions (those below n): every position,
+// then every slot load, then every row load, then the lerps; fill off
+// the table
+template <typename T, int N>
+__device__ __forceinline__ void oct_samples(const T* rows, const int* slots,
+                                            const float px[N],
+                                            const float py[N],
+                                            const float pz[N], int n, int D,
+                                            int H, int W, int v,
+                                            const Divisor& q, float fill,
+                                            float out[N]) {
+  CellAt at[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (k < n) at[k] = oct_locate(px[k], py[k], pz[k], D, H, W, v, q);
+  int slot[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) slot[k] = k < n ? __ldg(slots + at[k].bid) : -1;
+  float c[N][8];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (slot[k] >= 0) {
+      load_row(rows, (long long)slot[k] * (v * v * v) + at[k].local, c[k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[k][j] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    out[k] = slot[k] >= 0 ? cell_value(c[k], at[k].fx, at[k].fy, at[k].fz)
+                          : fill;
 }
 
 // ---- hit_refine -----------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ float refine_sample(const RefineParams& a,
-                                               const T* table, float px,
-                                               float py, float pz) {
-  if (a.oct)
-    return oct_sample(table, a.slots, px, py, pz, a.D, a.H, a.W,
-                      a.brick_vox, a.neg_limit);
-  return table_trilinear(table, px, py, pz, a.D, a.H, a.W, a.floor_on,
-                         a.floor);
-}
+// the widened bracket's samples a round of loads (a compile-time constant:
+// 72 registers, 7 blocks of 128 an SM, the cells' 792 blocks one wave)
+constexpr int REFINE_CHUNK = 4;
 
 // the march's position, the result of a hit that is not live or whose
 // bracket does not confirm the crossing: read only for those
@@ -381,42 +539,125 @@ __device__ __forceinline__ void keep_march_pos(const RefineParams& a,
     out[k] = __ldg(a.in[8 + k] + r * a.stride[8 + k]);
 }
 
+// a read-only float4 load issued where it is written (not moved past the
+// live test that follows it)
+__device__ __forceinline__ float4 ldg4_here(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// the oct table's samples (fill -limit off it) at t[0 .. n) along the ray
+// (n <= N), every load of the N samples issued before the first lerp
+template <typename T, int N>
+__device__ __forceinline__ void oct_ray_samples(const RefineParams& a,
+                                                const Divisor& q,
+                                                const T* table,
+                                                const float p0[3],
+                                                const float dir[3],
+                                                const float t[N], int n,
+                                                float out[N]) {
+  float px[N], py[N], pz[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    px[k] = along(p0[0], dir[0], t[k]);
+    py[k] = along(p0[1], dir[1], t[k]);
+    pz[k] = along(p0[2], dir[2], t[k]);
+  }
+  oct_samples<T, N>(table, a.slots, px, py, pz, n, a.D, a.H, a.W,
+                    a.brick_vox, q, a.neg_limit, out);
+}
+
+// the bracket's two ends t[0], t[1]: the oct table's samples or the march
+// table's pair_trilinear, both samples' loads (2 slots and 2 rows, or 16
+// entries) issued before the first lerp
+template <typename T>
+__device__ __forceinline__ void end_samples(const RefineParams& a,
+                                            const Divisor& q, const T* table,
+                                            const float p0[3],
+                                            const float dir[3],
+                                            const float t[2], float out[2]) {
+  if (a.oct) {
+    oct_ray_samples<T, 2>(a, q, table, p0, dir, t, 2, out);
+    return;
+  }
+  TriTaps taps[2];
+  float e[2][8];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    taps[k] = trilinear_taps(along(p0[0], dir[0], t[k]),
+                             along(p0[1], dir[1], t[k]),
+                             along(p0[2], dir[2], t[k]), a.D, a.H, a.W);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) trilinear_load(table, taps[k], e[k]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    out[k] = trilinear_value(taps[k], e[k], a.floor_on, a.floor);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    refine_kernel(const RefineParams a) {
+    refine_kernel(const RefineParams a, const Divisor q) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= a.n) return;
   const long long r = i;
   float* out = a.out + r * 3;
-  if (!__ldg(a.hit + r * a.hit_stride)) {
+  // the live byte and, from one (n, 8) row, the ray and bracket: one round
+  const bool live = __ldg(a.hit + r * a.hit_stride) != 0;
+  float v[8];
+  if (a.rows8) {
+    const float4 lo = ldg4_here(a.rows8 + r * 8);
+    const float4 hi = ldg4_here(a.rows8 + r * 8 + 4);
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = lo.z;
+    v[3] = lo.w;
+    v[4] = hi.x;
+    v[5] = hi.y;
+    v[6] = hi.z;
+    v[7] = hi.w;
+  }
+  if (!live) {
     keep_march_pos(a, r, out);
     return;
   }
-  float v[8];
+  if (!a.rows8) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __ldg(a.in[k] + r * a.stride[k]);
-  const float p0x = v[0], p0y = v[1], p0z = v[2];
-  const float dx = v[3], dy = v[4], dz = v[5];
+    for (int k = 0; k < 8; ++k) v[k] = __ldg(a.in[k] + r * a.stride[k]);
+  }
+  const float p0[3] = {v[0], v[1], v[2]};
+  const float dir[3] = {v[3], v[4], v[5]};
   const float lo = v[6], hi = v[7];
   const T* table = (const T*)a.table;
   float tstar;
   if (a.oct && a.widen_k >= 3) {
-    // the widened bracket: K samples, the first rising sign change
+    // the widened bracket: K samples a chunk at a time, the first rising
+    // sign change after each chunk
     const float span_lo = sub(lo, a.widen_lo);
     const float span = add(sub(hi, lo), a.widen_span);
     float prev = 0.0f, d_lo = 0.0f, d_hi = 0.0f;
     int kstar = -1;
-    for (int k = 0; k < a.widen_k; ++k) {
-      const float tk = add(span_lo, mul(mul((float)k, a.inv_km1), span));
-      const float d = refine_sample(a, table, along(p0x, dx, tk),
-                                    along(p0y, dy, tk), along(p0z, dz, tk));
-      if (k > 0 && d > 0.0f && prev <= 0.0f) {
-        kstar = k - 1;
-        d_lo = prev;
-        d_hi = d;
-        break;
+    for (int k0 = 0; k0 < a.widen_k && kstar < 0; k0 += REFINE_CHUNK) {
+      float t[REFINE_CHUNK], d[REFINE_CHUNK];
+#pragma unroll
+      for (int c = 0; c < REFINE_CHUNK; ++c)
+        t[c] = add(span_lo, mul(mul((float)(k0 + c), a.inv_km1), span));
+      oct_ray_samples<T, REFINE_CHUNK>(a, q, table, p0, dir, t,
+                                       a.widen_k - k0, d);
+#pragma unroll
+      for (int c = 0; c < REFINE_CHUNK; ++c) {
+        const int k = k0 + c;
+        if (k < a.widen_k && kstar < 0) {
+          if (k > 0 && d[c] > 0.0f && prev <= 0.0f) {
+            kstar = k - 1;
+            d_lo = prev;
+            d_hi = d[c];
+          }
+          prev = d[c];
+        }
       }
-      prev = d;
     }
     if (kstar < 0) {
       keep_march_pos(a, r, out);
@@ -425,32 +666,32 @@ __global__ void __launch_bounds__(THREADS)
     const float step = mul(span, a.inv_km1);
     const float t_lo = add(span_lo, mul((float)kstar, step));
     const float t_hi = add(t_lo, step);
-    const float ts = sub(t_hi, mul(sub(t_hi, t_lo),
-                                   dvd(d_hi, secant_den(sub(d_hi, d_lo)))));
-    const float dm = refine_sample(a, table, along(p0x, dx, ts),
-                                   along(p0y, dy, ts), along(p0z, dz, ts));
-    const bool up = dm > 0.0f;
-    const float t_lo2 = up ? t_lo : ts;
-    const float d_lo2 = up ? d_lo : dm;
-    const float t_hi2 = up ? ts : t_hi;
-    const float d_hi2 = up ? dm : d_hi;
+    float ts[1] = {sub(t_hi, mul(sub(t_hi, t_lo),
+                                 dvd(d_hi, secant_den(sub(d_hi, d_lo)))))};
+    float dm[1];
+    oct_ray_samples<T, 1>(a, q, table, p0, dir, ts, 1, dm);
+    const bool up = dm[0] > 0.0f;
+    const float t_lo2 = up ? t_lo : ts[0];
+    const float d_lo2 = up ? d_lo : dm[0];
+    const float t_hi2 = up ? ts[0] : t_hi;
+    const float d_hi2 = up ? dm[0] : d_hi;
     tstar = sub(t_hi2, mul(sub(t_hi2, t_lo2),
                            dvd(d_hi2, secant_den(sub(d_hi2, d_lo2)))));
   } else {
-    // the secant of the bracket's ends
-    const float v1 = refine_sample(a, table, along(p0x, dx, hi),
-                                   along(p0y, dy, hi), along(p0z, dz, hi));
-    const float v0 = refine_sample(a, table, along(p0x, dx, lo),
-                                   along(p0y, dy, lo), along(p0z, dz, lo));
+    // the secant of the bracket's ends, both samples' loads in one round
+    const float t[2] = {hi, lo};
+    float d[2];
+    end_samples<T>(a, q, table, p0, dir, t, d);
+    const float v1 = d[0], v0 = d[1];
     if (!(v1 > 0.0f && v0 <= 0.0f)) {
       keep_march_pos(a, r, out);
       return;
     }
     tstar = sub(hi, mul(sub(hi, lo), dvd(v1, secant_den(sub(v1, v0)))));
   }
-  out[0] = along(p0x, dx, tstar);
-  out[1] = along(p0y, dy, tstar);
-  out[2] = along(p0z, dz, tstar);
+  out[0] = along(p0[0], dir[0], tstar);
+  out[1] = along(p0[1], dir[1], tstar);
+  out[2] = along(p0[2], dir[2], tstar);
 }
 
 // ---- hit_shade: the normal ------------------------------------------------
@@ -458,10 +699,11 @@ __global__ void __launch_bounds__(THREADS)
 // OctVolume.gradient_p, negated and normalised; the toward-camera
 // fallback off the table (ops/hits.py shade_hits_plain)
 template <typename T>
-__device__ void normal_oct(const ShadeParams& a, const T* rows, float px,
-                           float py, float pz, float g[3]) {
+__device__ void normal_oct(const ShadeParams& a, const Divisor& q,
+                           const T* rows, float px, float py, float pz,
+                           float g[3]) {
   const Cell e = oct_cell(rows, a.slots, px, py, pz, a.D, a.H, a.W,
-                          a.brick_vox);
+                          a.brick_vox, q);
   if (e.valid) {
     const float* c = e.c;
     const float wx0 = sub(1.0f, e.fx), wx1 = e.fx;
@@ -490,11 +732,12 @@ __device__ void normal_oct(const ShadeParams& a, const T* rows, float px,
     g[2] = dvd(-gz, n);
     return;
   }
-  const float q[3] = {px, py, pz};
+  const float pos[3] = {px, py, pz};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float w = sub(__ldg(a.eye + k),
-                        add(mul(q[k], a.bbox_size[k]), __ldg(a.bbox_min + k)));
+                        add(mul(pos[k], a.bbox_size[k]),
+                            __ldg(a.bbox_min + k)));
     g[k] = mul(w, a.bbox_size[k]);
   }
   unit3(g[0], g[1], g[2]);
@@ -932,7 +1175,8 @@ __device__ __forceinline__ void to_view(const float* rot, const float v[3],
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) shade_kernel(const ShadeParams a) {
+__global__ void __launch_bounds__(THREADS)
+    shade_kernel(const ShadeParams a, const Divisor q) {
   extern __shared__ __align__(16) float s_models[];
   if (a.blend == BLEND_ANALYTIC) {
     stage_models(a, s_models);
@@ -953,7 +1197,7 @@ __global__ void __launch_bounds__(THREADS) shade_kernel(const ShadeParams a) {
   const T* table = (const T*)a.table;
   float grad[3];
   if (a.normal == NORMAL_OCT)
-    normal_oct(a, table, hp[0], hp[1], hp[2], grad);
+    normal_oct(a, q, table, hp[0], hp[1], hp[2], grad);
   else
     normal_table(a, table, hp[0], hp[1], hp[2], grad);
   // volume gradient -> world normal (the box scale's inverse transpose)
@@ -997,18 +1241,33 @@ int blocks_for(long long threads) {
 
 extern "C" {
 
+// The refine's launch for n hits: {blocks, threads, lanes a hit, the
+// widened bracket's samples a chunk}.
+int rgbd_hit_refine_plan(int n, int* out) {
+  out[0] = blocks_for(n);
+  out[1] = THREADS;
+  out[2] = 1;
+  out[3] = REFINE_CHUNK;
+  return 0;
+}
+
 // One refine launch over the hits of a RefineParams block. The table is
-// bf16 (table_f32 = 0) or f32; the oct table needs brick-aligned D, H, W.
-// n = 0 launches nothing.
+// bf16 (table_f32 = 0) or f32; the oct table needs brick-aligned D, H, W
+// and rows on 16 bytes, rows8 16 bytes too. n = 0 launches nothing.
 int rgbd_hit_refine(const void* params, void* stream) {
   const RefineParams* p = (const RefineParams*)params;
   if (p->n < 0) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(p->rows8) & 15) ||
+      (p->oct && (reinterpret_cast<uintptr_t>(p->table) & 15)))
+    return (int)cudaErrorMisalignedAddress;
   if (p->n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const Divisor q = divisor(p->brick_vox);
   if (p->table_f32)
-    refine_kernel<float><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+    refine_kernel<float><<<blocks_for(p->n), THREADS, 0, s>>>(*p, q);
   else
-    refine_kernel<unsigned short><<<blocks_for(p->n), THREADS, 0, s>>>(*p);
+    refine_kernel<unsigned short><<<blocks_for(p->n), THREADS, 0, s>>>(*p,
+                                                                        q);
   return (int)cudaGetLastError();
 }
 
@@ -1029,9 +1288,11 @@ int rgbd_hit_shade(const void* params, void* stream) {
       p->blend < BLEND_ANALYTIC || p->blend > BLEND_VOLUME_FAST ||
       p->shade_mode < 0 || p->shade_mode > 2)
     return (int)cudaErrorInvalidValue;
-  if (p->blend != BLEND_ANALYTIC &&
-      ((reinterpret_cast<uintptr_t>(p->cv_inv) & 15) ||
-       (reinterpret_cast<uintptr_t>(p->cv_uv) & 7)))
+  if ((p->blend != BLEND_ANALYTIC &&
+       ((reinterpret_cast<uintptr_t>(p->cv_inv) & 15) ||
+        (reinterpret_cast<uintptr_t>(p->cv_uv) & 7))) ||
+      (p->normal == NORMAL_OCT &&
+       (reinterpret_cast<uintptr_t>(p->table) & 15)))
     return (int)cudaErrorMisalignedAddress;
   // the analytic blend's models staged a block: at most 48 KB
   const long long smem = p->blend == BLEND_ANALYTIC
@@ -1040,10 +1301,11 @@ int rgbd_hit_shade(const void* params, void* stream) {
   if (p->n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = blocks_for(p->n);
+  const Divisor q = divisor(p->brick_vox);
   if (p->table_f32)
-    shade_kernel<float><<<blocks, THREADS, smem, s>>>(*p);
+    shade_kernel<float><<<blocks, THREADS, smem, s>>>(*p, q);
   else
-    shade_kernel<unsigned short><<<blocks, THREADS, smem, s>>>(*p);
+    shade_kernel<unsigned short><<<blocks, THREADS, smem, s>>>(*p, q);
   return (int)cudaGetLastError();
 }
 

@@ -22,13 +22,15 @@
 //   float -> int32 truncates (cvt.rzi), // of an int32 floors.
 //
 // Bound on this card: the scan's operations, the other stages' bytes. The
-// set-up, the hit gather and the compose are one thread an element and
-// write what they own once; each is a few microseconds at the cells'
-// 1280x720 camera, and the design's aim is the host (each stage replaces
-// 40-400 launches and the syncs between them). The bracket runs a block
-// slot's rays as one lane group: the slot's pools and bracket once, a
-// thread a ray for its direction and its row, the thread block's rows
-// stored as whole lines (its section below).
+// hit gather and the compose are one thread an element and write what they
+// own once; each is a few microseconds at the cells' 1280x720 camera, and
+// the design's aim is the host (each stage replaces 40-400 launches and the
+// syncs between them). The set-up runs a 2-D tile of blocks a thread block:
+// the tile's scan cells staged once, each cell's five pools folded once, a
+// thread a block for its interval and its direction, the tile's rows stored
+// as whole lines (its section below). The bracket runs a block slot's rays
+// as one lane group: the slot's pools and bracket once, a thread a ray for
+// its direction and its row, the thread block's rows stored as whole lines.
 //
 // The scan (14,400 rays of 53 samples at the cells' camera: 26.8 M
 // operations, 0.0004 ms at the f32 peak; it reads 44 KB of brick grid and
@@ -133,9 +135,11 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// ops/render_stages.py ray_dirs at pixel (py, px)
-__device__ __forceinline__ void ray_dir(const RenderParams& p, int py,
-                                        int px, float d[3]) {
+// ops/render_stages.py ray_dirs at pixel (py, px), the camera's rotation
+// in registers
+__device__ __forceinline__ void ray_dir(const RenderParams& p,
+                                        const float rot[9], int py, int px,
+                                        float d[3]) {
   const float xs = __fsub_rn(
       __fmul_rn(__fmul_rn(__fadd_rn((float)px, 0.5f), p.inv_W), 2.0f),
       1.0f);
@@ -147,9 +151,9 @@ __device__ __forceinline__ void ray_dir(const RenderParams& p, int py,
   float dv[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float a = __fmul_rn(xx, __ldg(p.rot + 3 * j));
-    const float b = __fmul_rn(yy, __ldg(p.rot + 3 * j + 1));
-    dv[j] = __fmul_rn(__fsub_rn(__fadd_rn(a, b), __ldg(p.rot + 3 * j + 2)),
+    const float a = __fmul_rn(xx, rot[3 * j]);
+    const float b = __fmul_rn(yy, rot[3 * j + 1]);
+    dv[j] = __fmul_rn(__fsub_rn(__fadd_rn(a, b), rot[3 * j + 2]),
                       p.inv_bbox[j]);
   }
   const float n2 = __fadd_rn(
@@ -160,22 +164,35 @@ __device__ __forceinline__ void ray_dir(const RenderParams& p, int py,
   for (int j = 0; j < 3; ++j) d[j] = __fmul_rn(dv[j], inv_n);
 }
 
-// _pool3 at (i, j) of an (h, w) plane with row stride w: the centre, then
-// op with the 9 taps of the edge-padded window in row-major order
-template <bool MIN>
-__device__ __forceinline__ float pool3(const float* v, int h, int w, int i,
-                                       int j) {
-  float out = v[i * w + j];
+// the same, the rotation read from the device
+__device__ __forceinline__ void ray_dir(const RenderParams& p, int py,
+                                        int px, float d[3]) {
+  float rot[9];
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int y = clampi(i + dy - 1, 0, h - 1);
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const float tap = v[y * w + clampi(j + dx - 1, 0, w - 1)];
-      out = MIN ? t_min(out, tap) : t_max(out, tap);
-    }
-  }
-  return out;
+  for (int k = 0; k < 9; ++k) rot[k] = __ldg(p.rot + k);
+  ray_dir(p, rot, py, px, d);
+}
+
+// v // d for 0 <= v < 2^31 as (v * magic) >> shift, magic =
+// ceil(2^shift / d), shift = 31 + ceil(log2 d): exact, since
+// (magic * d - 2^shift) * v < d * 2^31 <= 2^shift
+struct Divisor {
+  unsigned long long magic;
+  unsigned shift;
+};
+
+Divisor divisor(int d) {
+  unsigned l = 0;
+  while ((1ll << l) < (long long)d) ++l;
+  Divisor q;
+  q.shift = 31u + l;
+  q.magic = ((1ull << q.shift) + (unsigned long long)(d - 1)) /
+            (unsigned long long)d;
+  return q;
+}
+
+__device__ __forceinline__ int div_by(int v, const Divisor& q) {
+  return (int)(((unsigned long long)v * q.magic) >> q.shift);
 }
 
 // ---- scan ----------------------------------------------------------------
@@ -420,44 +437,125 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(RenderParams p) {
 }
 
 // ---- block set-up ---------------------------------------------------------
+// A thread block is a tile of SETUP_TX x SETUP_TY blocks (threadIdx.x the
+// block's column in the tile, .y its row; a warp is a tile row). Four
+// steps:
+//  1. the tile's scan cells (those of its blocks, i = by // sc and
+//     j = bx // sc by a multiply and a shift) with a halo of one, staged
+//     into shared memory from the five scan5 planes, clamped to the scan
+//     grid as _pool3's edge padding: at sc = 2, 6 x 18 cells, 540 words;
+//  2. each (cell, plane) pooled once by a thread, in _pool3's order (the
+//     centre, then the 9 taps row-major, t_min / t_max): the twin's bits,
+//     each pool folded once where the sc^2 blocks of a cell each folded
+//     the five;
+//  3. a thread a block: its cell's five pools, the interval, the centre
+//     ray's direction (the rotation read before the staging, its loads in
+//     flight with the scan's) and start point; s_end, the flags and the
+//     three grids stored by consecutive threads;
+//  4. the block's 32-byte row staged in shared memory; each tile row's
+//     rows, contiguous in blk, stored by its warp as float4 words by
+//     consecutive threads: whole lines.
+// Any sc >= 1 fits: a tile's blocks span at most SETUP_TY x SETUP_TX cells
+// (sc = 1). Bound: bytes, most of them the rows written (1.84 of the cells'
+// 3.11 MB).
+constexpr int SETUP_TX = 32;
+constexpr int SETUP_TY = 8;
+constexpr int SETUP_THREADS = SETUP_TX * SETUP_TY;
+static_assert(SETUP_TX == 32, "a tile row is a warp");
+// staged cells a tile at most: its cells (sc = 1) and a halo of one
+constexpr int SETUP_ROWS = SETUP_TY + 2;
+constexpr int SETUP_COLS = SETUP_TX + 2;
+// the static shared bytes: the staged cells, the pools, the rows
+constexpr int SETUP_SHARED = 5 * SETUP_ROWS * SETUP_COLS * 4 +
+                             5 * SETUP_TY * SETUP_TX * 4 +
+                             SETUP_THREADS * 32;
 
-__global__ void __launch_bounds__(THREADS)
-    block_setup_kernel(RenderParams p) {
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= p.NB) return;
-  const int by = b / p.Wb, bx = b % p.Wb;
-  const int i = by / p.sc, j = bx / p.sc;
-  const int plane = p.Hs * p.Ws;
-  const float first = pool3<true>(p.scan5, p.Hs, p.Ws, i, j);
-  const float last = pool3<false>(p.scan5 + plane, p.Hs, p.Ws, i, j);
-  const float fsurf = pool3<true>(p.scan5 + 2 * plane, p.Hs, p.Ws, i, j);
-  const float s0p = pool3<true>(p.scan5 + 3 * plane, p.Hs, p.Ws, i, j);
-  const float s1p = pool3<false>(p.scan5 + 4 * plane, p.Hs, p.Ws, i, j);
-  const bool found = is_finite(first) && is_finite(last);
-  float s_start = t_max(
-      t_max(__fsub_rn(first, p.pad),
-            __fsub_rn(__fsub_rn(fsurf, p.brick_norm), p.pad)),
-      s0p);
-  const float s_end =
-      t_min(__fadd_rn(__fadd_rn(last, p.step_len), p.pad), s1p);
-  const float length =
-      found ? clamp_min0(__fsub_rn(s_end, s_start)) : 0.0f;
-  s_start = found ? s_start : 0.0f;
-  float d[3];
-  ray_dir(p, by * p.ds + p.ds / 2, bx * p.ds + p.ds / 2, d);
-  float* row = p.blk + (long long)b * 8;
+__global__ void __launch_bounds__(SETUP_THREADS)
+    block_setup_kernel(RenderParams p, Divisor q) {
+  __shared__ float s_cell[5][SETUP_ROWS][SETUP_COLS];
+  __shared__ float s_pool[5][SETUP_TY][SETUP_TX];
+  __shared__ float4 s_rows[SETUP_TY][2 * SETUP_TX];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int bx0 = blockIdx.x * SETUP_TX, by0 = blockIdx.y * SETUP_TY;
+  const int bx = bx0 + tx, by = by0 + ty;
+  const bool active = bx < p.Wb && by < p.Hb;
+  // the tile's cells: rows i0 .. i0 + rows - 1, columns j0 .. j0 + cols - 1
+  const int i0 = div_by(by0, q), j0 = div_by(bx0, q);
+  const int rows = div_by(min(by0 + SETUP_TY, p.Hb) - 1, q) - i0 + 1;
+  const int cols = div_by(min(bx0 + SETUP_TX, p.Wb) - 1, q) - j0 + 1;
+  float rot[9], eye[3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    row[a] = __fadd_rn(__ldg(p.eye + a), __fmul_rn(d[a], s_start));
-    row[3 + a] = d[a];
+  for (int k = 0; k < 9; ++k) rot[k] = __ldg(p.rot + k);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) eye[k] = __ldg(p.eye + k);
+  // 1. stage the cells and their halo, clamped to the scan grid
+  const int plane = p.Hs * p.Ws;
+  for (int r = ty; r < rows + 2; r += SETUP_TY) {
+    const int y = clampi(i0 - 1 + r, 0, p.Hs - 1);
+    for (int c = tx; c < cols + 2; c += SETUP_TX) {
+      const float* src = p.scan5 + y * p.Ws + clampi(j0 - 1 + c, 0, p.Ws - 1);
+#pragma unroll
+      for (int k = 0; k < 5; ++k) s_cell[k][r][c] = __ldg(src + k * plane);
+    }
   }
-  row[6] = length;
-  row[7] = s_start;
-  p.s_end[b] = s_end;
-  p.bflags[b] = (unsigned char)((length > 0.0f ? 1 : 0) | (found ? 2 : 0));
-  p.grid[b] = 0.0f;
-  p.grid[p.NB + b] = INFINITY;
-  p.grid[2 * p.NB + b] = -INFINITY;
+  __syncthreads();
+  // 2. a thread a (cell, plane): first, fsurf and s0 pooled by min, last
+  //    and s1 by max
+  const int cells = rows * cols;
+  for (int w = ty * SETUP_TX + tx; w < 5 * cells; w += SETUP_THREADS) {
+    const int k = w / cells, rc = w - k * cells;
+    const int r = rc / cols, c = rc - r * cols;
+    const bool lo = k != 1 && k != 4;
+    float out = s_cell[k][r + 1][c + 1];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float tap = s_cell[k][r + dy][c + dx];
+        out = lo ? t_min(out, tap) : t_max(out, tap);
+      }
+    }
+    s_pool[k][r][c] = out;
+  }
+  __syncthreads();
+  // 3. a thread a block
+  if (active) {
+    const int r = div_by(by, q) - i0, c = div_by(bx, q) - j0;
+    const float first = s_pool[0][r][c], last = s_pool[1][r][c];
+    const float fsurf = s_pool[2][r][c], s0p = s_pool[3][r][c];
+    const float s1p = s_pool[4][r][c];
+    const bool found = is_finite(first) && is_finite(last);
+    float s_start = t_max(
+        t_max(__fsub_rn(first, p.pad),
+              __fsub_rn(__fsub_rn(fsurf, p.brick_norm), p.pad)),
+        s0p);
+    const float s_end =
+        t_min(__fadd_rn(__fadd_rn(last, p.step_len), p.pad), s1p);
+    const float length =
+        found ? clamp_min0(__fsub_rn(s_end, s_start)) : 0.0f;
+    s_start = found ? s_start : 0.0f;
+    float d[3];
+    ray_dir(p, rot, by * p.ds + p.ds / 2, bx * p.ds + p.ds / 2, d);
+    float pos[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      pos[a] = __fadd_rn(eye[a], __fmul_rn(d[a], s_start));
+    const int b = by * p.Wb + bx;
+    p.s_end[b] = s_end;
+    p.bflags[b] = (unsigned char)((length > 0.0f ? 1 : 0) | (found ? 2 : 0));
+    p.grid[b] = 0.0f;
+    p.grid[p.NB + b] = INFINITY;
+    p.grid[2 * p.NB + b] = -INFINITY;
+    s_rows[ty][2 * tx] = make_float4(pos[0], pos[1], pos[2], d[0]);
+    s_rows[ty][2 * tx + 1] = make_float4(d[1], d[2], length, s_start);
+  }
+  // 4. the tile row's rows, contiguous in blk, as whole lines
+  __syncwarp();
+  if (by < p.Hb) {
+    const int words = 2 * min(SETUP_TX, p.Wb - bx0);
+    float4* dst = reinterpret_cast<float4*>(p.blk) + 2LL * (by * p.Wb + bx0);
+    for (int w = tx; w < words; w += SETUP_TX) dst[w] = s_rows[ty][w];
+  }
 }
 
 // ---- bracket --------------------------------------------------------------
@@ -472,9 +570,9 @@ __global__ void __launch_bounds__(THREADS)
 //     from the centre's row above) and its interval columns (blk's start
 //     and length, s_end, the flags) staged into shared memory, a word a
 //     thread, only for live slots (a padding slot's rows need none);
-//  3. a thread a slot folds the pools in pool3's order (the centre, then
-//     the 9 taps row-major, t_min / t_max: the same bits as the sequential
-//     pool3) and computes f_start, len_brkt and len_full;
+//  3. a thread a slot folds the pools in _pool3's order (the centre, then
+//     the 9 taps row-major, t_min / t_max: the twin's bits) and computes
+//     f_start, len_brkt and len_full;
 //  4. a thread a ray: its direction and its start point, its 32-byte row
 //     staged in shared memory; the thread block's rows, contiguous in
 //     ray8, then stored as float4 words by consecutive threads: whole
@@ -552,7 +650,7 @@ __global__ void __launch_bounds__(BRACKET_MAX_B2)
     s_tap[s * SLOT_STRIDE + t] = v;
   }
   __syncthreads();
-  // 3. a thread a slot: the pools (pool3's order), the bracket
+  // 3. a thread a slot: the pools (_pool3's order), the bracket
   if (tid < slots) {
     float start = 0.0f, len_full = 0.0f, len_brkt = 0.0f;
     if (s_blk[tid][3]) {
@@ -731,11 +829,28 @@ int rgbd_render_scan(const void* params, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The set-up's launch: {tiles across, tiles down, threads x, y (the
+// block's column and row in its tile), static shared bytes}; no tiles
+// without blocks.
+int rgbd_render_block_setup_plan(const void* params, int* out) {
+  const RenderParams& p = *(const RenderParams*)params;
+  const bool any = p.Hb > 0 && p.Wb > 0;
+  out[0] = any ? (p.Wb + SETUP_TX - 1) / SETUP_TX : 0;
+  out[1] = any ? (p.Hb + SETUP_TY - 1) / SETUP_TY : 0;
+  out[2] = SETUP_TX;
+  out[3] = SETUP_TY;
+  out[4] = SETUP_SHARED;
+  return 0;
+}
+
 int rgbd_render_block_setup(const void* params, void* stream) {
   const RenderParams& p = *(const RenderParams*)params;
-  const int blocks = blocks_for(p.NB);
-  if (blocks == 0) return 0;
-  block_setup_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(p);
+  if (p.sc < 1) return (int)cudaErrorInvalidValue;
+  int plan[5];
+  rgbd_render_block_setup_plan(params, plan);
+  if (plan[0] == 0) return 0;
+  block_setup_kernel<<<dim3(plan[0], plan[1]), dim3(plan[2], plan[3]), 0,
+                       (cudaStream_t)stream>>>(p, divisor(p.sc));
   return (int)cudaGetLastError();
 }
 

@@ -67,6 +67,7 @@ _SIGNATURES = {
     "rgbd_render_scan": (_P, _P),
     "rgbd_render_scan_plan": (_P, _PI),
     "rgbd_render_block_setup": (_P, _P),
+    "rgbd_render_block_setup_plan": (_P, _PI),
     "rgbd_render_bracket": (_P, _P),
     "rgbd_render_bracket_plan": (_P, _PI),
     "rgbd_render_hit_gather": (_P, _P),
@@ -80,6 +81,7 @@ _SIGNATURES = {
                            _P, _I, _I, _PI, _P),
     # a pointer to the parameter block (kernels/hits.py) and the stream
     "rgbd_hit_refine": (_P, _P),
+    "rgbd_hit_refine_plan": (_I, _PI),
     "rgbd_hit_shade": (_P, _P),
     "rgbd_hit_shade_plan": (_I, _PI),
     "rgbd_hit_params_sizes": (ctypes.POINTER(_I),),

@@ -31,7 +31,7 @@ class RefineParams(ctypes.Structure):
         ("floor", _F), ("widen_lo", _F), ("widen_span", _F),
         ("inv_km1", _F), ("ins", _P * _REFINE_IN),
         ("stride", _LL * _REFINE_IN), ("hit", _P), ("hit_stride", _LL),
-        ("out", _P), ("n", _I),
+        ("out", _P), ("n", _I), ("rows8", _P),
     ]
 
 
@@ -147,6 +147,25 @@ def _check_oct(oct, dev, what):
             or s.numel() != (D // v) * (H // v) * (W // v)):
         raise ValueError(f"{what}: an oct table of (M, 8) rows and one int32 "
                          "slot a brick of a brick-aligned volume")
+    # a row is one 16-byte load (two in f32)
+    if oct.rows.data_ptr() % 16:
+        raise ValueError(f"{what}: the oct rows must start on 16 bytes")
+
+
+def input_rows(ins) -> int:
+    """The address of the (n, 8) f32 rows whose columns 0-7 are the 8
+    per-hit inputs ``ins`` (1-D views: pos0 x y z, dir x y z, lo_t, hi_t),
+    where the rows are row-major and start on 16 bytes (the render's hit
+    rows: csrc/hits.cu reads a row as two float4); else 0, the kernel's
+    strided scalar path."""
+    base = ins[0].data_ptr()
+    if base % 16 or ins[0].dim() != 1:
+        return 0
+    for k, x in enumerate(ins[:8]):
+        if x.data_ptr() != base + 4 * k or (x.numel() > 1
+                                            and x.stride(0) != 8):
+            return 0
+    return base
 
 
 def refine_cuda(pos0, dn, lo_t, hi_t, hit, hit_pos, limit: float, oct=None,
@@ -194,6 +213,7 @@ def refine_cuda(pos0, dn, lo_t, hi_t, hit, hit_pos, limit: float, oct=None,
     for k, x in enumerate(ins):
         p.ins[k] = x.data_ptr()
         p.stride[k] = x.stride(0)
+    p.rows8 = input_rows(ins)
     p.hit = mask.data_ptr()
     p.hit_stride = mask.stride(0)
     out = torch.empty(tuple(shape) + (3,), dtype=torch.float32, device=dev)
@@ -209,6 +229,15 @@ def refine_cuda(pos0, dn, lo_t, hi_t, hit, hit_pos, limit: float, oct=None,
     check(err, what)
     LAUNCHES["hit_refine"] += 1
     return out
+
+
+def refine_plan(n: int) -> dict:
+    """The refine's launch for ``n`` hits (csrc/hits.cu
+    rgbd_hit_refine_plan): blocks, threads, lanes a hit (one), and the
+    widened bracket's samples a chunk (a round of loads)."""
+    out = (ctypes.c_int * 4)()
+    _lib().rgbd_hit_refine_plan(int(n), out)
+    return dict(blocks=out[0], threads=out[1], lanes=out[2], chunk=out[3])
 
 
 def shade_plan(n: int) -> dict:

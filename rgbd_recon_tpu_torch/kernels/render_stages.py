@@ -189,8 +189,23 @@ def scan_cuda(g, occ, bsafe, cam, counts, count_slot):
     return scan5
 
 
+def block_setup_plan(g) -> dict:
+    """The set-up's launch for geometry ``g`` (csrc/render_stages.cu
+    rgbd_render_block_setup_plan): tiles across and down, the thread
+    block (the block's column and row in its tile) and its static shared
+    bytes."""
+    out = (_I * 5)()
+    _lib().rgbd_render_block_setup_plan(ctypes.byref(_params(g)), out)
+    return dict(blocks=(out[0], out[1]), threads=(out[2], out[3]),
+                shared_bytes=out[4])
+
+
 def block_setup_cuda(g, scan5, cam):
-    """:func:`ops.render_stages.block_setup_plain` in one launch."""
+    """:func:`ops.render_stages.block_setup_plain` in one launch. Any scan
+    stride sc >= 1 (a tile's cells fit its staging at every one); another
+    raises ValueError."""
+    if g.sc < 1:
+        raise ValueError(f"block_setup: scan stride {g.sc}, at least 1")
     dev = _check(scan5, "scan5", torch.float32, (5, g.Hs, g.Ws), None)
     p = _params(g)
     _camera(p, cam, dev)
@@ -199,6 +214,9 @@ def block_setup_cuda(g, scan5, cam):
     s_end = torch.empty(NB, dtype=torch.float32, device=dev)
     flags = torch.empty(NB, dtype=torch.uint8, device=dev)
     grid = torch.empty((3, NB), dtype=torch.float32, device=dev)
+    if blk.data_ptr() % 16:
+        raise RuntimeError("block_setup: the block rows are not 16-byte "
+                           "aligned")
     p.scan5, p.blk, p.s_end = scan5.data_ptr(), blk.data_ptr(), \
         s_end.data_ptr()
     p.bflags, p.grid = flags.data_ptr(), grid.data_ptr()

@@ -35,6 +35,7 @@ from hit_cases import record_hits
 from holefill_cases import fill_planes
 import preprocess_cases
 from scan_cases import SCAN_CASES, scan_case
+import setup_refine_cases
 
 torch.set_num_threads(2)
 
@@ -2530,3 +2531,255 @@ def test_render_stage_no_host_sync(cuda, name):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert int(out.hit.sum()) > 50
+
+
+# ---- the block set-up's tiles and the refine's rounds of loads -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hb,Wb,sc,ds", setup_refine_cases.SETUP_GEOMETRIES)
+def test_render_stage_block_setup_geometries(cuda, Hb, Wb, sc, ds):
+    """The set-up kernel bit for bit against block_setup_plain on the card
+    (blk, s_end, flags, grid) on tests/setup_refine_cases.py's planes
+    (NaNs, signed zeros and infinities at their edges and corners, and
+    planes without them) at the cells' camera, ragged tiles, Hs * sc > Hb
+    and scan strides 1 to 5; its launch plan (a 32 x 8 tile of blocks a
+    thread block, 20,112 bytes of static shared memory)."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import (
+        block_setup_cuda,
+        block_setup_plan,
+    )
+    from rgbd_recon_tpu_torch.ops.render_stages import block_setup_plain
+
+    kernels.reset_launch_counts()
+    for seed, specials in ((1, True), (2, True), (3, False)):
+        g, scan5, cam = setup_refine_cases.setup_case(seed, Hb, Wb, sc, ds,
+                                                      cuda, specials)
+        got = block_setup_cuda(g, scan5, cam)
+        want = block_setup_plain(g, scan5, cam)
+        torch.cuda.synchronize()
+        assert all_bits_equal(got, want), seed
+    assert block_setup_plan(g) == dict(
+        blocks=(-(-Wb // 32), -(-Hb // 8)), threads=(32, 8),
+        shared_bytes=5 * 10 * 34 * 4 + 5 * 8 * 32 * 4 + 256 * 32)
+    assert kernels.launch_counts()["block_setup"] == 3
+
+
+@pytest.mark.cuda
+def test_render_stage_block_setup_refusals(cuda):
+    """A scan stride below 1 is refused with ValueError, before any
+    launch."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import block_setup_cuda
+
+    g = setup_refine_cases.geometry(9, 13, 0, 4)
+    cam = setup_refine_cases.camera(1, cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="scan stride"):
+        block_setup_cuda(g, torch.zeros((5, 5, 7), device=cuda), cam)
+    assert kernels.launch_counts()["block_setup"] == 0
+
+
+@pytest.mark.cuda
+def test_render_stage_block_setup_back_to_back_and_in_graphs(cuda):
+    """50 set-ups launched back to back with no sync between them (the
+    fast config's recorded call and seeded planes at three geometries),
+    each bit-equal to block_setup_plain on its inputs; then a set-up
+    captured in a CUDA graph on a side stream and replayed 3 times on
+    changed planes and cameras (copied into the captured tensors), each
+    replay bit-equal to an eager set-up of the same inputs."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import block_setup_cuda
+    from rgbd_recon_tpu_torch.ops.render_stages import block_setup_plain
+
+    _, render, args = render_stage_scene(cuda, "fast")
+    calls = record_stages(lambda: render.render_from_baked(*args))
+    (rec,) = [c[1] for c in calls if c[0] == "block_setup"]
+    geoms = setup_refine_cases.SETUP_GEOMETRIES
+    cases = [(rec[0], rec[1].clone(), rec[2]) if i % 5 == 0 else
+             setup_refine_cases.setup_case(i, *geoms[i % 3], cuda,
+                                           specials=i % 2 == 1)
+             for i in range(50)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = [block_setup_cuda(*c) for c in cases]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["block_setup"] == 50
+    for i, c in enumerate(cases):
+        assert all_bits_equal(got[i], block_setup_plain(*c)), i
+    static = setup_refine_cases.setup_case(100, *geoms[1], cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        block_setup_cuda(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = block_setup_cuda(*static)
+    for seed in (101, 102, 103):
+        new = setup_refine_cases.setup_case(seed, *geoms[1], cuda,
+                                            specials=seed != 102)
+        static[1].copy_(new[1])
+        static[2].eye_vol.copy_(new[2].eye_vol)
+        static[2].rot.copy_(new[2].rot)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = block_setup_cuda(*new)
+        torch.cuda.synchronize()
+        assert all_bits_equal(out, eager), seed
+        assert all_bits_equal(out, block_setup_plain(*new)), seed
+
+
+def _refine_call(device):
+    """The refine call one render of the fast config records (the oct
+    table in bf16, the widened bracket; the 8 per-hit inputs are columns
+    of the hit rows)."""
+    pipe, volume, maps, counts, cam = _hit_scene(device, num_sensors=2)
+    render = pipe.make_renderer(cam)
+    return record_hits(lambda: render(volume, maps, counts))["refine"]
+
+
+def _refine_inputs(args, path):
+    """The refine's arguments with its 8 per-hit inputs laid out by
+    ``path``: "rows" as recorded (column views of the (n, 8) hit rows),
+    "separate" (a contiguous tensor each), "offset" (the rows copied into
+    an (n, 8) view 4 bytes past 16)."""
+    pos0, dn, lo, hi = args[0], args[1], args[2], args[3]
+    ins = [*pos0, *dn, lo, hi]
+    if path == "separate":
+        ins = [x.clone() for x in ins]
+    elif path == "offset":
+        n = lo.shape[0]
+        flat = torch.empty(n * 8 + 4, device=lo.device)
+        rows = flat[1:1 + n * 8].view(n, 8)
+        rows.copy_(torch.stack(ins, dim=1))
+        ins = [rows[:, k] for k in range(8)]
+    return (tuple(ins[:3]), tuple(ins[3:6]), ins[6], ins[7]) + tuple(args[4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 8, 17])
+@pytest.mark.parametrize("rows_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("path", ["rows", "separate", "offset"])
+def test_hit_refine_input_paths(cuda, path, rows_dtype, K):
+    """The refine kernel bit for bit against refine_hits_plain on a
+    render's hits, on both input paths (the hit rows' column views take
+    the two-float4 row path; separate tensors and rows 4 bytes off 16 the
+    strided scalar one), bf16 and f32 oct rows, and K = 3, 8 and 17
+    widened samples (one ragged chunk, two whole chunks, five chunks)."""
+    from rgbd_recon_tpu_torch.kernels.hits import (
+        input_rows,
+        refine_cuda,
+        refine_plan,
+    )
+    from rgbd_recon_tpu_torch.ops import hits
+
+    args, kwargs = _refine_call(cuda)
+    args = _refine_inputs(args, path)
+    ins = [*args[0], *args[1], args[2], args[3]]
+    assert (input_rows(ins) != 0) == (path == "rows")
+    oct = kwargs["oct"]
+    kw = dict(kwargs, oct=dataclasses.replace(oct, rows=oct.rows.to(
+        rows_dtype)), widen_samples=K)
+    assert kw["widen_steps"] > 0.0
+    kernels.reset_launch_counts()
+    got = refine_cuda(*args, **kw)
+    assert kernels.launch_counts()["hit_refine"] == 1
+    want = hits.refine_hits_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    assert bool((want != args[5]).any())
+    n = args[4].shape[0]
+    assert refine_plan(n) == dict(blocks=-(-n // 128), threads=128, lanes=1,
+                                  chunk=4)
+
+
+@pytest.mark.cuda
+def test_hit_refine_back_to_back_and_in_graphs(cuda):
+    """50 refines launched back to back with no sync between them (the
+    recorded call on the row path and the scalar path, at K = 8 and 17 in
+    turn), each bit-equal to refine_hits_plain on its inputs; then a refine
+    captured in a CUDA graph and replayed 3 times on changed hit rows and
+    live masks (copied into the captured tensors), each replay bit-equal to
+    an eager refine of the same inputs."""
+    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda
+    from rgbd_recon_tpu_torch.ops import hits
+
+    args, kwargs = _refine_call(cuda)
+    rng = np.random.default_rng(5)
+    cases = []
+    for i in range(50):
+        a = _refine_inputs(args, ("rows", "separate")[i % 2])
+        if i % 3:
+            live = torch.from_numpy(rng.random(a[4].shape[0]) < 0.7)
+            a = a[:4] + (a[4] & live.to(cuda),) + a[5:]
+        cases.append((a, dict(kwargs, widen_samples=(8, 17)[i % 4 == 3])))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = [refine_cuda(*a, **kw) for a, kw in cases]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["hit_refine"] == 50
+    for i, (a, kw) in enumerate(cases):
+        assert _bits_equal(got[i], hits.refine_hits_plain(*a, **kw)), i
+    # the graph: the hit rows (the row path) and the live mask refilled
+    pos0, dn, lo, hi, hit, hit_pos, limit = args
+    rows = pos0[0].as_strided((lo.shape[0], 8), (8, 1))
+    assert rows[:, 7].data_ptr() == hi.data_ptr()
+    static_rows, static_hit = rows.clone(), hit.clone()
+    static = ((static_rows[:, 0], static_rows[:, 1], static_rows[:, 2]),
+              (static_rows[:, 3], static_rows[:, 4], static_rows[:, 5]),
+              static_rows[:, 6], static_rows[:, 7], static_hit, hit_pos,
+              limit)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        refine_cuda(*static, **kwargs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = refine_cuda(*static, **kwargs)
+    for seed in (1, 2, 3):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        new_rows = rows.clone()
+        new_rows[:, 6:] += 0.002 * torch.randn(
+            (rows.shape[0], 2), generator=g, device=cuda)
+        new_hit = hit & (torch.rand(hit.shape, generator=g, device=cuda)
+                         < 0.8)
+        static_rows.copy_(new_rows)
+        static_hit.copy_(new_hit)
+        graph.replay()
+        torch.cuda.synchronize()
+        new = ((new_rows[:, 0], new_rows[:, 1], new_rows[:, 2]),
+               (new_rows[:, 3], new_rows[:, 4], new_rows[:, 5]),
+               new_rows[:, 6], new_rows[:, 7], new_hit, hit_pos, limit)
+        eager = refine_cuda(*new, **kwargs)
+        torch.cuda.synchronize()
+        assert _bits_equal(out, eager), seed
+        assert _bits_equal(out, hits.refine_hits_plain(*new, **kwargs)), seed
+
+
+@pytest.mark.cuda
+def test_hit_kernels_refuse_unaligned_oct_rows(cuda):
+    """Oct rows that do not start on 16 bytes (a row is one 16-byte load)
+    are refused by the refine and the shade with ValueError, before any
+    launch."""
+    from rgbd_recon_tpu_torch.kernels.hits import refine_cuda, shade_cuda
+    from rgbd_recon_tpu_torch.ops import hits
+
+    pipe, volume, maps, counts, cam = _hit_scene(cuda, num_sensors=2)
+    render = pipe.make_renderer(cam)
+    calls = record_hits(lambda: render(volume, maps, counts))
+    args, kwargs = calls["refine"]
+    oct = kwargs["oct"]
+    flat = torch.empty(oct.rows.numel() + 4, dtype=oct.rows.dtype,
+                       device=cuda)
+    rows = flat[4:].view(oct.rows.shape)
+    rows.copy_(oct.rows)
+    assert rows.data_ptr() % 16 == 8
+    off = dataclasses.replace(oct, rows=rows)
+    sargs, skw = calls["shade"]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        refine_cuda(*args, **dict(kwargs, oct=off))
+    sargs = sargs[:13] + (off,)
+    with pytest.raises(ValueError, match="16 bytes"):
+        shade_cuda(**hits.shade_kernel_args(*sargs, **skw))
+    counts = kernels.launch_counts()
+    assert counts["hit_refine"] == 0 and counts["hit_shade"] == 0
