@@ -894,10 +894,12 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
     OVERFLOW_CONFIG's render on the kernels against the twins: its
     overflow vector must drop blocks, tail rays and hits."""
     from rgbd_recon_tpu_torch.bench import kernel_inputs
+    from rgbd_recon_tpu_torch.bench.hit_gather_variants import sector_bytes
     from rgbd_recon_tpu_torch.bench.trace import event_ms
     from rgbd_recon_tpu_torch.kernels.render_stages import (
         block_setup_plan,
         bracket_plan,
+        hit_gather_plan,
         scan_plan,
     )
     from rgbd_recon_tpu_torch.ops import stage_calls
@@ -968,6 +970,11 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             if stage == "bracket":
                 # blocks, the thread block (ray column, row, slot), shared
                 row["launch"] = bracket_plan(a[0], a[5].shape[0])
+            if stage == "hit_gather":
+                # blocks, threads (a slot each); the bytes it moves
+                # counted in 32-byte sectors
+                row["launch"] = hit_gather_plan(a[2].numel())
+                row["sector_bytes"] = sector_bytes(*a, want)
             if stage == "compact":
                 lib_name, lib = kernel_inputs.library_compact(
                     torch, *a[:3], ids=want[0])
@@ -1000,6 +1007,8 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
                      "(events)"
                      if "library" in row else "")
                   + (f"; launch {row['launch']}" if "launch" in row else "")
+                  + (f"; {row['sector_bytes']} B in 32-byte sectors"
+                     if "sector_bytes" in row else "")
                   + f", on {card}", flush=True)
             del kern, plain, got, want, ka, kkw, pa, pkw
         for name in names:
@@ -1079,7 +1088,7 @@ def _phase3_render(torch, pipe, frames, camera, card, flush):
             trace_retakes=retakes)
         if name == "march":
             row["host_split"] = sums["march"]["host_split"]
-        if name in ("scan", "block_setup", "bracket"):
+        if name in ("scan", "block_setup", "bracket", "hit_gather"):
             row["launch"] = calls_out[name][0]["launch"]
         if name == "compact":
             row.update(library=calls_out[name][0]["library"],

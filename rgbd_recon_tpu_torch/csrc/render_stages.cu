@@ -22,10 +22,11 @@
 //   float -> int32 truncates (cvt.rzi), // of an int32 floors.
 //
 // Bound on this card: the scan's operations, the other stages' bytes. The
-// hit gather and the compose are one thread an element and write what they
-// own once; each is a few microseconds at the cells' 1280x720 camera, and
-// the design's aim is the host (each stage replaces 40-400 launches and the
-// syncs between them). The set-up runs a 2-D tile of blocks a thread block:
+// compose is one thread a pixel and writes what it owns once; the design's
+// aim there is the host (each stage replaces 40-400 launches and the syncs
+// between them). The hit gather runs a thread a hit slot: its two rows in
+// one round of 16-byte loads, its row out as two float4 stores (its section
+// below). The set-up runs a 2-D tile of blocks a thread block:
 // the tile's scan cells staged once, each cell's five pools folded once, a
 // thread a block for its interval and its direction, the tile's rows stored
 // as whole lines (its section below). The bracket runs a block slot's rays
@@ -713,27 +714,42 @@ __global__ void __launch_bounds__(BRACKET_MAX_B2)
 }
 
 // ---- hits -----------------------------------------------------------------
+// A thread a hit slot, GATHER_THREADS slots a thread block:
+//  1. the slot's ray id, then its two rows in one round of 16-byte loads:
+//     ray8's two float4 (pos0, dir) and st8's float4 and float2 at 0 and 4
+//     (lo_t; hi_t, hit_t); a padding slot reads row R - 1, whose row the
+//     refine reads before it knows the live byte;
+//  2. its hrows row as two float4 stores (a warp's rows: one 1 KB span), its
+//     position (pos0 + dir * hit_t, rounded as the twin) as three stores and
+//     its live byte.
+// The slot's stores leave as soon as its loads land. Measured slower on
+// the H100 (bench/hit_gather_variants.py): the thread block's rows,
+// positions and live bytes staged in shared memory and stored as 16-byte
+// words by consecutive threads (the bracket's and the set-up's form: a
+// warp's stores wait behind the block's slowest load), staged a warp at a
+// time, four slots a thread, and 256 or 512 threads a block. Bound: bytes
+// (the cells' 8.50 MB; 10.9 MB counted in 32-byte sectors); its loads alone
+// and its stores alone each take about four fifths of its time.
+constexpr int GATHER_THREADS = 128;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GATHER_THREADS)
     hit_gather_kernel(RenderParams p) {
-  const int h = blockIdx.x * THREADS + threadIdx.x;
+  const long long h = (long long)blockIdx.x * GATHER_THREADS + threadIdx.x;
   if (h >= p.capH) return;
   const long long id = __ldg(p.hit_idx + h);
   const bool live = id < p.R;
   const long long r = live ? id : p.R - 1;
-  const float* ray = p.ray8 + r * 8;
-  const float* st = p.st8 + r * 8;
-  const float hit_t = __ldg(st + 5);
-  float* out = p.hrows + (long long)h * 8;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float p0 = __ldg(ray + a), d = __ldg(ray + 3 + a);
-    out[a] = p0;
-    out[3 + a] = d;
-    p.hpos[(long long)h * 3 + a] = __fadd_rn(p0, __fmul_rn(d, hit_t));
-  }
-  out[6] = __ldg(st + 3);
-  out[7] = __ldg(st + 4);
+  const float4* ray = reinterpret_cast<const float4*>(p.ray8) + 2 * r;
+  const float4 a = __ldg(ray), b = __ldg(ray + 1);
+  const float4 s = __ldg(reinterpret_cast<const float4*>(p.st8) + 2 * r);
+  const float2 t = __ldg(reinterpret_cast<const float2*>(p.st8 + 8 * r + 4));
+  float4* row = reinterpret_cast<float4*>(p.hrows) + 2 * h;
+  row[0] = a;
+  row[1] = make_float4(b.x, b.y, s.w, t.x);
+  float* pos = p.hpos + 3 * h;
+  pos[0] = __fadd_rn(a.x, __fmul_rn(a.w, t.y));
+  pos[1] = __fadd_rn(a.y, __fmul_rn(b.x, t.y));
+  pos[2] = __fadd_rn(a.z, __fmul_rn(b.y, t.y));
   p.live[h] = live;
 }
 
@@ -879,11 +895,21 @@ int rgbd_render_bracket(const void* params, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int rgbd_render_hit_gather(const void* params, void* stream) {
+// The hit gather's launch: {blocks, threads (a slot each)}; blocks 0
+// without slots.
+int rgbd_render_hit_gather_plan(const void* params, int* out) {
   const RenderParams& p = *(const RenderParams*)params;
-  const int blocks = blocks_for(p.capH);
-  if (blocks == 0) return 0;
-  hit_gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(p);
+  out[0] = (int)(((long long)p.capH + GATHER_THREADS - 1) / GATHER_THREADS);
+  out[1] = GATHER_THREADS;
+  return 0;
+}
+
+int rgbd_render_hit_gather(const void* params, void* stream) {
+  int plan[2];
+  rgbd_render_hit_gather_plan(params, plan);
+  if (plan[0] == 0) return 0;
+  hit_gather_kernel<<<plan[0], GATHER_THREADS, 0, (cudaStream_t)stream>>>(
+      *(const RenderParams*)params);
   return (int)cudaGetLastError();
 }
 

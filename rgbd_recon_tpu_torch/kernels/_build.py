@@ -71,6 +71,7 @@ _SIGNATURES = {
     "rgbd_render_bracket": (_P, _P),
     "rgbd_render_bracket_plan": (_P, _PI),
     "rgbd_render_hit_gather": (_P, _P),
+    "rgbd_render_hit_gather_plan": (_P, _PI),
     "rgbd_render_compose": (_P, _P),
     "rgbd_render_params_size": (ctypes.POINTER(_I),),
     "rgbd_holefill_pull": (_LL, _LL, _LL, _P, _LL, _PI, _I, _I, _I, _PI,

@@ -271,8 +271,20 @@ def bracket_cuda(g, grid, blk, s_end, flags, blk_idx, cam):
     return ray8
 
 
+def hit_gather_plan(capH: int) -> dict:
+    """The hit gather's launch for ``capH`` hit slots (csrc/render_stages.cu
+    rgbd_render_hit_gather_plan): blocks and threads (a slot each)."""
+    p = RenderParams()
+    p.capH = capH
+    out = (_I * 2)()
+    _lib().rgbd_render_hit_gather_plan(ctypes.byref(p), out)
+    return dict(blocks=out[0], threads=out[1])
+
+
 def hit_gather_cuda(ray8, st8, hit_idx):
-    """:func:`ops.render_stages.hit_gather_plain` in one launch."""
+    """:func:`ops.render_stages.hit_gather_plain` in one launch. A row is
+    read as 16-byte words, so ``ray8`` and ``st8`` must start on 16 bytes;
+    another raises ValueError."""
     if ray8.dim() != 2 or hit_idx.dim() != 1:
         raise ValueError("ray8 must be (R, 8), hit_idx (capH,)")
     R = ray8.shape[0]
@@ -281,11 +293,18 @@ def hit_gather_cuda(ray8, st8, hit_idx):
     _check(hit_idx, "hit_idx", torch.int64, hit_idx.shape, dev)
     if R == 0:
         raise ValueError("hit_gather needs at least one ray row")
+    for name, x in (("ray8", ray8), ("st8", st8)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"hit_gather: {name} must start on 16 bytes")
     capH = hit_idx.shape[0]
-    p = RenderParams()
     rows = torch.empty((capH, 8), dtype=torch.float32, device=dev)
     pos = torch.empty((capH, 3), dtype=torch.float32, device=dev)
     live = torch.empty(capH, dtype=torch.bool, device=dev)
+    if capH == 0:
+        return rows, pos, live
+    if rows.data_ptr() % 16:
+        raise RuntimeError("hit_gather: the hit rows are not 16-byte aligned")
+    p = RenderParams()
     p.ray8, p.st8, p.hit_idx = ray8.data_ptr(), st8.data_ptr(), \
         hit_idx.data_ptr()
     p.capH, p.R = capH, R

@@ -11,6 +11,7 @@ Without a CUDA device the ``cuda`` tests skip; the CPU tests always run.
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -31,6 +32,7 @@ from rgbd_recon_tpu_torch.ops.stage_calls import (
 )
 
 import bracket_cases
+import hit_gather_cases
 from hit_cases import record_hits
 from holefill_cases import fill_planes
 import preprocess_cases
@@ -2625,6 +2627,119 @@ def test_render_stage_block_setup_back_to_back_and_in_graphs(cuda):
         torch.cuda.synchronize()
         assert all_bits_equal(out, eager), seed
         assert all_bits_equal(out, block_setup_plain(*new)), seed
+
+
+# the hit gather's slots a thread block (csrc/render_stages.cu) and the
+# list lengths around it: one slot, a few, a block less one, one, one more,
+# a ragged last block, the cells'
+GATHER_THREADS = int(re.search(
+    r"constexpr int GATHER_THREADS = (\d+);",
+    open(os.path.join(REPO, "rgbd_recon_tpu_torch", "csrc",
+                      "render_stages.cu")).read())[1])
+GATHER_CAPS = (1, 3, 4, 7, 8, GATHER_THREADS - 1, GATHER_THREADS,
+               GATHER_THREADS + 1, 1_023, 101_376)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", hit_gather_cases.KINDS)
+@pytest.mark.parametrize("capH", GATHER_CAPS)
+def test_render_stage_hit_gather_lists(cuda, capH, kind):
+    """The hit gather bit for bit against hit_gather_plain on the card
+    (hrows, hpos, live) on tests/hit_gather_cases.py's rows (NaN, +-0.0,
+    +-inf) for lists with no padding, all padding and some, at list lengths
+    around its thread block (a ragged last block), with R 2 capH + 3 rays
+    (the cells' 184,320 at 101,376 slots) and R = 1; one launch each, its
+    plan a slot a thread."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import (
+        hit_gather_cuda,
+        hit_gather_plan,
+    )
+    from rgbd_recon_tpu_torch.ops.render_stages import hit_gather_plain
+
+    R = 184_320 if capH == 101_376 else 2 * capH + 3
+    kernels.reset_launch_counts()
+    for seed, r in ((capH, R), (capH + 1, 1)):
+        case = hit_gather_cases.gather_case(seed, capH, r, kind, cuda)
+        got = hit_gather_cuda(*case)
+        want = hit_gather_plain(*case)
+        torch.cuda.synchronize()
+        assert all_bits_equal(got, want), (seed, r)
+    assert kernels.launch_counts()["hit_gather"] == 2
+    assert hit_gather_plan(capH) == dict(
+        blocks=-(-capH // GATHER_THREADS), threads=GATHER_THREADS)
+
+
+@pytest.mark.cuda
+def test_render_stage_hit_gather_refuses_unaligned_rows(cuda):
+    """A ray8 or st8 that does not start on 16 bytes (its rows are read as
+    16-byte words) is refused with ValueError, before any launch; an empty
+    list launches nothing."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import hit_gather_cuda
+
+    ray8, st8, idx = hit_gather_cases.gather_case(4, 40, 50, "mixed", cuda)
+    kernels.reset_launch_counts()
+    for off in (1, 2, 3):
+        flat = torch.empty(ray8.numel() + off, device=cuda)
+        view = flat[off:].view(ray8.shape)
+        assert view.data_ptr() % 16 == 4 * off
+        view.copy_(ray8)
+        with pytest.raises(ValueError, match="ray8 must start on 16 bytes"):
+            hit_gather_cuda(view, st8, idx)
+        view.copy_(st8)
+        with pytest.raises(ValueError, match="st8 must start on 16 bytes"):
+            hit_gather_cuda(ray8, view, idx)
+    rows, pos, live = hit_gather_cuda(ray8, st8, idx[:0])
+    assert rows.shape == (0, 8) and pos.shape == (0, 3) and live.numel() == 0
+    assert kernels.launch_counts()["hit_gather"] == 0
+
+
+@pytest.mark.cuda
+def test_render_stage_hit_gather_back_to_back_and_in_graphs(cuda):
+    """50 hit gathers launched back to back with no sync between them (the
+    fast config's recorded call and seeded lists at the ragged lengths),
+    each bit-equal to hit_gather_plain on its inputs; then a gather
+    captured in a CUDA graph on a side stream and replayed 3 times on
+    changed rows and lists (copied into the captured tensors), each replay
+    bit-equal to an eager gather of the same inputs."""
+    from rgbd_recon_tpu_torch.kernels.render_stages import hit_gather_cuda
+    from rgbd_recon_tpu_torch.ops.render_stages import hit_gather_plain
+
+    _, render, args = render_stage_scene(cuda, "fast")
+    calls = record_stages(lambda: render.render_from_baked(*args))
+    (rec,) = [c[1] for c in calls if c[0] == "hit_gather"]
+    kinds = hit_gather_cases.KINDS
+    cases = [tuple(t.clone() for t in rec) if i % 5 == 0 else
+             hit_gather_cases.gather_case(
+                 i, GATHER_CAPS[i % 9], 2 * GATHER_CAPS[i % 9] + 3,
+                 kinds[i % 3], cuda)
+             for i in range(50)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = [hit_gather_cuda(*c) for c in cases]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["hit_gather"] == 50
+    for i, c in enumerate(cases):
+        assert all_bits_equal(got[i], hit_gather_plain(*c)), i
+    capH, R = 1_023, 2_049
+    static = hit_gather_cases.gather_case(100, capH, R, "mixed", cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        hit_gather_cuda(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = hit_gather_cuda(*static)
+    for seed, kind in ((101, "live"), (102, "dead"), (103, "mixed")):
+        new = hit_gather_cases.gather_case(seed, capH, R, kind, cuda)
+        for s, n in zip(static, new):
+            s.copy_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = hit_gather_cuda(*new)
+        torch.cuda.synchronize()
+        assert all_bits_equal(out, eager), seed
+        assert all_bits_equal(out, hit_gather_plain(*new)), seed
 
 
 def _refine_call(device):
