@@ -43,7 +43,15 @@ shape (the refine's with its samples a chunk and whether its per-hit
 inputs took the row path). The
 preprocess kernels (``csrc/preprocess.cu``) are held and timed on the
 arguments one fast fuse hands each pass (the morph's launch shape and its
-pixels by exit printed). Then it drives
+pixels by exit printed). The fuse kernels (``csrc/fuse.cu``) are held and
+timed on the arguments one fast and one parity fuse hand
+``ops.bricks.mark_pixels`` and ``ops.tsdf.integrate_compact``: the
+marking's counts equal to ``mark_pixels_plain``'s, the volume bit-equal
+to ``integrate_compact_plain``'s (also at a capacity of half the occupied
+bricks), their launches and registers printed; the pipeline's marking and
+integrate run under ``torch.cuda.set_sync_debug_mode("error")`` and the
+whole fuse under ``"warn"``, its remaining syncs printed by site. Then it
+drives
 four paths
 at reference scale through the entry points a user calls: 4 synthetic
 sensors at 512x424 depth / 1280x1080 color, a 2 x 2.2 x 2 m box at 1 cm
@@ -64,7 +72,8 @@ stepwise march: ``PATH_MARCHES``; the fill's pull 3 times (two levels a
 launch) and its push once: ``FILL_LAUNCHES``; the hit kernels once a render, no refine in the
 trilinear full-screen render: ``PATH_HITS``; the block stages once a
 render of the block path, the compaction once a list:
-``PATH_STAGES``), that the output
+``PATH_STAGES``; the fuse's marking once, its compaction and integrate
+once on the brick-compact paths: ``PATH_FUSE``), that the output
 is finite, and the surface RMSE against the analytic sphere (the accuracy
 oracle of bench.py). Timings (CUDA events) are printed for information.
 
@@ -212,10 +221,35 @@ FAST_STAGES = dict(compact=4, scan=1, block_setup=1, bracket=1,
 PATH_STAGES = {"fast": FAST_STAGES, "parity": dict(FAST_STAGES, compact=2),
                "parity_dense": {k: 0 for k in STAGE_KERNELS},
                "fast_f32": FAST_STAGES}
+# the fuse's marking and brick-compact integration (csrc/fuse.cu): a
+# brick_mark launch a fuse (a shard of the sensor-sharded preprocess);
+# with the brick-compact integrate also one compaction (the occupied
+# bricks' slot map) and one brick_integrate (a slab of the sharded step);
+# the dense integrate (parity_dense) launches neither
+FUSE_KERNELS = ("brick_mark", "brick_integrate")
+COMPACT_FUSE = dict(brick_mark=1, compact=1, brick_integrate=1)
+PATH_FUSE = {"fast": COMPACT_FUSE, "parity": COMPACT_FUSE,
+             "parity_dense": dict(brick_mark=1, compact=0,
+                                  brick_integrate=0),
+             "fast_f32": COMPACT_FUSE}
+FRAME_KERNELS = (*STAGE_KERNELS, *FUSE_KERNELS)
+
+
+def _plus(*counts):
+    """Launch counts added kernel by kernel."""
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+# the stage and fuse kernels' launches of one fuse + render a path
+PATH_FRAME = {p: _plus(PATH_STAGES[p], PATH_FUSE[p]) for p in PATH_STAGES}
 # the kernels of the paths (the gather probe's four run on none)
 PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
                 "march", "holefill_pull", "holefill_push", "hit_refine",
-                "hit_shade", *PRE_LAUNCHES, *STAGE_KERNELS)
+                "hit_shade", *PRE_LAUNCHES, *STAGE_KERNELS, *FUSE_KERNELS)
 # the fill kernels' launches a render with colorfill: a pull launch for
 # every two levels past LOD 0 (a 1280x720 frame at 7 LODs: 3) and one push
 FILL_LAUNCHES = {"holefill_pull": 3, "holefill_push": 1}
@@ -286,7 +320,8 @@ def _gate(path):
 SIDE_LAUNCHES = {
     "parity": (("bilateral13", "quality13", "surface_occ"),
                ("sentinel_bake",)),
-    "parity_dense": (("bilateral13", "quality13"), ("sentinel_bake",)),
+    "parity_dense": (("bilateral13", "quality13", "brick_mark"),
+                     ("sentinel_bake", "brick_integrate")),
     "fast_f32": (("bilateral13", "quality13", "surface_occ",
                   "sentinel_bake"), ()),
 }  # the hit kernels as PATH_HITS says, the preprocess's as PRE_LAUNCHES
@@ -321,29 +356,31 @@ SPLAT_MEDIAN_MM = 10.0
 # times and the fill's pull three, twice the bake, march, fill and hit
 # kernels with stereo, the two stencils and the preprocess's six
 # elsewhere, bilateral13 a second time in the MVT render, whose depth
-# pass reads the calibration volumes and runs its twin)
+# pass reads the calibration volumes and runs its twin; every mode fuses,
+# so the fuse's marking, compaction and integration run once a frame)
 APP_FRAMES = 2
 MODE1_FRAME = dict(bilateral13=1, quality13=1, surface_occ=1,
                    sentinel_bake=1, march=PATH_MARCHES["fast"],
                    **FILL_LAUNCHES, **HIT_LAUNCHES, **PRE_LAUNCHES,
-                   **FAST_STAGES)
+                   **PATH_FRAME["fast"])
 APP_RUNS = {
     "app_mode0": (["--mode", "0"], dict(bilateral13=1, quality13=1,
-                                        **PRE_LAUNCHES)),
+                                        **PRE_LAUNCHES, **COMPACT_FUSE)),
     "app_mode1": (["--mode", "1"], MODE1_FRAME),
     "app_mode2": (["--mode", "2"], dict(bilateral13=1, quality13=1,
-                                        **PRE_LAUNCHES)),
+                                        **PRE_LAUNCHES, **COMPACT_FUSE)),
     "app_mode3": (["--mode", "3"], dict(bilateral13=2, quality13=1,
-                                        **PRE_LAUNCHES)),
+                                        **PRE_LAUNCHES, **COMPACT_FUSE)),
     "app_mode4": (["--mode", "4"], dict(bilateral13=1, quality13=1,
-                                        **PRE_LAUNCHES)),
+                                        **PRE_LAUNCHES, **COMPACT_FUSE)),
     "app_mode1_anaglyph": (["--mode", "1", "--stereo", "anaglyph"],
                            dict(bilateral13=1, quality13=1, surface_occ=2,
                                 sentinel_bake=2,
                                 march=2 * PATH_MARCHES["fast"],
-                                **{k: 2 * n for k, n in
-                                   {**FILL_LAUNCHES, **HIT_LAUNCHES,
-                                    **FAST_STAGES}.items()},
+                                **_plus({k: 2 * n for k, n in
+                                         {**FILL_LAUNCHES, **HIT_LAUNCHES,
+                                          **FAST_STAGES}.items()},
+                                        COMPACT_FUSE),
                                 **PRE_LAUNCHES)),
     "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
                          MODE1_FRAME),
@@ -1850,6 +1887,250 @@ def _phase3_preprocess(torch, pipe, frames, card, flush):
     return rows
 
 
+# the fuse kernels (csrc/fuse.cu): the dispatch each replaces on the card,
+# its twin, and the JAX package's code it replaces (XLA ops of the jitted
+# fuse; no Pallas kernel)
+FUSE_CALLS = {
+    "brick_mark": ("bricks", "mark_pixels", "mark_pixels_plain",
+                   "rgbd_recon_tpu/ops/bricks.py:20"),
+    "brick_integrate": ("tsdf", "integrate_compact",
+                        "integrate_compact_plain",
+                        "rgbd_recon_tpu/ops/tsdf.py:301"),
+}
+# f32 operations of a marked pixel (the world point, the brick index and
+# centre, the neighbour rule, the two atomics) and of a listed voxel a
+# sensor (the taps' coordinates, the bilinear blends or the bf16 rounding,
+# the fold), counted by hand from csrc/fuse.cu; both kernels are bound by
+# bytes at these counts
+MARK_PIXEL_OPS = 40
+INTEGRATE_OPS = {"nearest": 25, "bilinear": 60}
+
+
+def _record_fuse(torch, fuse):
+    """{kernel: (args, kwargs)} as one fuse called the dispatch of each
+    fuse kernel (the pipeline calls them through their modules)."""
+    from rgbd_recon_tpu_torch.ops import bricks, tsdf
+
+    mods = {"bricks": bricks, "tsdf": tsdf}
+    calls = {}
+    saved = {}
+    for kname, (mod, fname, _, _) in FUSE_CALLS.items():
+        fn = getattr(mods[mod], fname)
+        saved[(mod, fname)] = fn
+
+        def record(*args, _k=kname, _fn=fn, **kwargs):
+            calls[_k] = (args, kwargs)
+            return _fn(*args, **kwargs)
+
+        setattr(mods[mod], fname, record)
+    try:
+        fuse()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, fname), fn in saved.items():
+            setattr(mods[mod], fname, fn)
+    return calls
+
+
+def _fuse_syncs(torch, fn):
+    """{"file:line": count} of the host syncs ``fn`` makes, as
+    torch.cuda.set_sync_debug_mode("warn") reports them."""
+    import warnings
+
+    sites = {}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{w.filename.split('rgbd_recon_tpu_torch/')[-1]}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def _fuse_work(kname, args, kwargs):
+    """(bytes, operations) the data of a fuse kernel's call needs: the
+    marking's sampled depth and world inputs once and its counts once; the
+    integration's volume once, the listed bricks' projection rows, the
+    three maps and the slot map once."""
+    from rgbd_recon_tpu_torch.kernels.fuse import sampled_size
+
+    if kname == "brick_mark":
+        depth, _, _, res, s = args
+        N, H, W = depth.shape
+        px = N * sampled_size(H, s) * sampled_size(W, s)
+        world = 12 if kwargs.get("worlds") is not None else 24
+        return (px * (4 + world) + 4 * res[0] * res[1] * res[2],
+                px * MARK_PIXEL_OPS)
+    proj, counts, min_voxels, capacity = args[:4]
+    N, B, V, _ = proj.shape
+    listed = min(int((counts > min_voxels).sum()), capacity)
+    Z, Y, X = args[8]
+    maps = sum(m.numel() * 4 for m in args[4:7])
+    nbytes = Z * Y * X * 4 + listed * N * V * 16 + maps + B * 4
+    return nbytes, listed * V * N * INTEGRATE_OPS[kwargs.get("taps",
+                                                             "nearest")]
+
+
+def _phase3_fuse(torch, pipe, frames, card, flush):
+    """The fuse kernels on the arguments one fast and one parity fuse hand
+    ops/bricks.py mark_pixels and ops/tsdf.py integrate_compact: the
+    marking's counts equal to mark_pixels_plain's, the volume bit-equal to
+    integrate_compact_plain's (and at a capacity of half the occupied
+    bricks), each kernel timed (events around the dispatch, device time
+    with a cold and a warm L2, the twin) beside its bound by bytes, its
+    launch and registers printed; the pipeline's marking and integration
+    free of host syncs under set_sync_debug_mode("error"), and the whole
+    fuse's remaining syncs by site under "warn". Returns the two kernels'
+    JSON rows (the fast fuse's figures, the parity fuse's under
+    "parity")."""
+    from rgbd_recon_tpu_torch import kernels
+    from rgbd_recon_tpu_torch.bench.trace import event_ms
+    from rgbd_recon_tpu_torch.kernels import fuse as kfuse
+    from rgbd_recon_tpu_torch.ops import bricks, tsdf
+    from rgbd_recon_tpu_torch.ops.compact import compact
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    mods = {"bricks": bricks, "tsdf": tsdf}
+    attrs = kfuse.kernel_attrs()
+    print(f"fuse kernels' registers, static shared and local bytes: {attrs}",
+          flush=True)
+    ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
+        pipe.config, **_side_paths()["parity"]), pipe.bbox)
+    rows = {k: {} for k in FUSE_CALLS}
+    for path, p in (("fast", pipe), ("parity", ppipe)):
+        p.fuse(frames)                          # warm-up: fits the models
+        calls = _record_fuse(torch, lambda: p.fuse(frames))
+        if set(calls) != set(FUSE_CALLS):
+            raise AssertionError(f"{path} fuse called {set(calls)}")
+        for kname, (mod, fname, pname, replaces) in FUSE_CALLS.items():
+            args, kwargs = calls[kname]
+            public = getattr(mods[mod], fname)
+            plain = getattr(mods[mod], pname)
+
+            def kern():
+                return public(*args, **kwargs)
+
+            def twin():
+                return plain(*args, **kwargs)
+
+            kernels.reset_launch_counts()
+            got = kern()
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in kernels.launch_counts().items() if n}
+            want_launch = ({kname: 1} if kname == "brick_mark"
+                           else {"compact": 1, kname: 1})
+            if launched != want_launch:
+                raise AssertionError(f"{fname} {path}: launched {launched}, "
+                                     f"expected {want_launch}")
+            want = twin()
+            equal = _bits_equal(torch, got, want)
+            err = _max_abs_err(torch, got, want)
+            extra = {}
+            if kname == "brick_mark":
+                extra["launch"] = kfuse.mark_plan(*args, **kwargs)
+                extra["occupied"] = int(
+                    (got > p.config.min_voxels_per_brick).sum())
+                extra["registers"] = attrs[
+                    "mark_kernel<true>" if extra["launch"]["shared_histogram"]
+                    else "mark_kernel<false>"]
+            else:
+                extra["launch"] = kfuse.integrate_plan(args[8], args[9],
+                                                       args[3])
+                extra["registers"] = attrs["integrate_kernel"]
+                # a capacity of half the occupied bricks: the rest cleared
+                occ = int((args[1] > args[2]).sum())
+                half = list(args)
+                half[3] = occ // 2
+                low = public(*half, **kwargs)
+                low_equal = _bits_equal(torch, low, plain(*half, **kwargs))
+                extra.update(occupied=occ, capacity_below=occ // 2,
+                             bit_equal_below_capacity=low_equal)
+                print(f"brick_integrate {path} at capacity {occ // 2} of "
+                      f"{occ} occupied bricks: bit-equal to its twin "
+                      f"{low_equal}", flush=True)
+                equal = equal and low_equal
+            print(f"{kname} {path}: max|kernel - plain| = {err!r}, bit-equal "
+                  f"{equal} (bound 0); launch {extra['launch']}, "
+                  f"{extra['registers']}", flush=True)
+            if not equal:
+                raise AssertionError(f"{kname} {path} differs from {pname}: "
+                                     f"max abs error {err}")
+            if kname == "brick_integrate":
+                # the kernel alone, on the slot map of the call's compaction
+                flags = (args[1] > args[2]).reshape(-1).view(torch.uint8)
+                listed = torch.empty(1, dtype=torch.int32, device=flags.device)
+                ids, slot = compact(flags, 0, args[3], listed, 0,
+                                    want_slot=True)
+
+                def timed():
+                    return kfuse.brick_integrate_cuda(
+                        args[0], ids, slot, *args[4:], **kwargs)
+                # events around the dispatch: the flags and the compaction
+                # too
+                extra["ms_with_flags_and_compact"] = event_ms(
+                    kern, iters=20, warmup=3)
+            else:
+                timed = kern
+            ms = event_ms(timed, iters=20, warmup=3)
+            plain_ms = event_ms(twin, iters=5, warmup=1)
+            cold, warm, split, n = _device_ms(torch, timed, flush)
+            nbytes, ops = _fuse_work(kname, args, kwargs)
+            bound_ms, bound_by = _bound_of(nbytes, ops)
+            row = dict(max_abs_err=err, bit_equal=equal, ms=ms,
+                       plain_ms=plain_ms, device_ms=cold,
+                       device_ms_warm=warm, device_split=split,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       ops=ops, share_of_bound=bound_ms / cold,
+                       trace_retakes=n, **extra)
+            rows[kname][path] = row
+            print(f"{kname} {path}: {ms!r} ms (events; plain {plain_ms!r}, "
+                  f"library none; {extra.get('ms_with_flags_and_compact')!r} "
+                  f"with the flags and the compaction), device {cold!r} ms "
+                  f"cold L2, {warm!r} warm {split}, bound {bound_ms!r} ms by "
+                  f"{bound_by} ({nbytes} B, {ops} ops), "
+                  f"{bound_ms / cold:.1%} of it, on {card}", flush=True)
+            del got, want
+        # the pipeline's marking and integration make no host sync
+        pm = p._get_pixel_models(frames.depths.shape[1:3])
+        maps, _ = p.preprocess(frames)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts = p._mark_bricks(pm, maps)
+            p.integrate(maps, counts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        sites = _fuse_syncs(torch, lambda: p.fuse(frames))
+        brickdraw = event_ms(lambda: p._mark_bricks(pm, maps), iters=20)
+        integrate = event_ms(lambda: p.integrate(maps, counts), iters=20)
+        print(f"fuse {path}: _mark_bricks and integrate make no host sync "
+              f"under set_sync_debug_mode('error'); the whole fuse's syncs "
+              f"by site {sites}; _mark_bricks {brickdraw!r} ms, integrate "
+              f"{integrate!r} ms (events, mean of 20) on {card}", flush=True)
+        for kname in FUSE_CALLS:
+            rows[kname][path].update(fuse_syncs=sites,
+                                     brickdraw_ms=brickdraw,
+                                     integrate_ms=integrate)
+        del calls, maps, counts
+    del ppipe
+    torch.cuda.empty_cache()
+    out = []
+    for kname, (mod, fname, pname, replaces) in FUSE_CALLS.items():
+        fast = rows[kname]["fast"]
+        out.append(dict(name=kname, route="cuda",
+                        source="rgbd_recon_tpu_torch/csrc/fuse.cu",
+                        replaces=replaces, library_ms=None,
+                        parity=rows[kname]["parity"], **fast))
+    return out
+
+
 def _check_render(torch, label, volume, out, counts, cfg, camera):
     """Finite volume, color and depth, a 1280x720 image, and the oracle's
     gate (bench/oracle.py) that the path ``label`` holds (``_gate``): the
@@ -2127,7 +2408,7 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
         print(f"{name}: setup + 2 frames {time.perf_counter() - t0:.1f} s; "
               f"launches {launched}", flush=True)
         want = {k: int(k in PATH_KERNELS) for k in launched}
-        want.update(FAST_STAGES)
+        want.update(PATH_FRAME["fast"])
         if vpipe.config.skip_fine_rounds > vpipe.brick_vox:
             want["sentinel_bake"] = 0        # the plain bake, as in JAX
         # with march_chunk, phase 1 is the chunked march (no kernel)
@@ -2171,9 +2452,11 @@ def _phase9_variants(np, torch, pipe, frames, camera, card, fast, by_path):
 
 def _phase10_reconfig(np, torch, pipe, frames, camera, card):
     """One pipeline and one renderer handle through set_tsdf_limit(0.02)
-    and back, set_voxel_size(0.02) (a 100x110x100 volume) and back: every
-    render finite, the flip-backs' hit masks (and after the voxel size,
-    depth) bit-equal to the first render."""
+    and back, set_voxel_size(0.02) (a 100x110x100 volume) and back: each
+    fuse launching the marking, one compaction and the integration once,
+    every render finite, the flip-backs' hit masks (and after the voxel
+    size, depth) bit-equal to the first render."""
+    from rgbd_recon_tpu_torch import kernels
     from rgbd_recon_tpu_torch.bench.oracle import surface_rmse_mm
     from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
 
@@ -2182,7 +2465,13 @@ def _phase10_reconfig(np, torch, pipe, frames, camera, card):
     handle = rpipe.make_renderer(camera)
 
     def frame(label):
+        kernels.reset_launch_counts()
         volume, maps, counts = rpipe.fuse(frames)
+        torch.cuda.synchronize()
+        fused = {k: kernels.launch_counts()[k] for k in COMPACT_FUSE}
+        if fused != COMPACT_FUSE:
+            raise AssertionError(f"{label}: the fuse launched {fused}, "
+                                 f"expected {COMPACT_FUSE}")
         out = handle(volume, maps, counts)
         torch.cuda.synchronize()
         for field in ("color", "depth"):
@@ -2468,10 +2757,12 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         step = dist.shard_compact_step(pipe, camera, mesh)
         step(frames)                                  # warm-up
         n = mesh.size
+        # a compaction and an integrate launch a slab, the marking once
         want = dict(bilateral13=1, quality13=1, surface_occ=n,
                     sentinel_bake=n, march=PATH_MARCHES["fast"],
                     **FILL_LAUNCHES, **PATH_HITS["fast"], **PRE_LAUNCHES,
-                    **FAST_STAGES)
+                    **_plus(FAST_STAGES, dict(brick_mark=1, compact=n,
+                                              brick_integrate=n)))
         vol_sh, out_sh = counted(label, lambda: step(frames), want)
         same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
                 for f in ("hit", "depth")}
@@ -2515,7 +2806,8 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
                                   march=PATH_MARCHES["parity_dense"],
                                   **FILL_LAUNCHES,
                                   **PATH_HITS["parity_dense"],
-                                  **PRE_LAUNCHES))
+                                  **PRE_LAUNCHES,
+                                  **PATH_FUSE["parity_dense"]))
     same = {f: torch.equal(getattr(out_sh, f), getattr(dout, f))
             for f in ("hit", "depth")}
     same["volume"] = torch.equal(vol_sh.gather(), dvol)
@@ -2540,6 +2832,7 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         smaps, scounts = counted(f"preprocess{n}", lambda: run(frames),
                                  dict(bilateral13=n, quality13=n,
                                       surface_occ=0, sentinel_bake=0,
+                                      brick_mark=n,
                                       **{k: n for k in PRE_LAUNCHES}))
         errs = {k: float((getattr(smaps, k) - getattr(ref_maps, k)).abs()
                          .max()) for k in MAP_TOLS}
@@ -2859,10 +3152,12 @@ def _phase14_multiprocess(np, torch, card, processes, shards):
             raise AssertionError(f"multiprocess {backend}: {same}, spans "
                                  f"{meta['process_spans']}")
         if (launched["surface_occ"] != shards
-                or launched["sentinel_bake"] != shards):
+                or launched["sentinel_bake"] != shards
+                or launched["brick_integrate"] != shards
+                or launched["brick_mark"] != 1):
             raise AssertionError(f"multiprocess {backend}: process 0 "
                                  f"launched {launched}, not once a shard "
-                                 f"of its {shards}")
+                                 f"of its {shards} (brick_mark once)")
 
     bit_equal("gloo")
     if torch.cuda.device_count() >= processes:
@@ -3284,6 +3579,7 @@ def main(argv=None) -> int:
     results += _phase3_fill(torch, pipe, camera, frames, card, flush)
     results += _phase3_hits(torch, pipe, camera, frames, card, flush)
     results += _phase3_preprocess(torch, pipe, frames, card, flush)
+    results += _phase3_fuse(torch, pipe, frames, card, flush)
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 13. the gather-rate probe, right after phase 3: torch.profiler
@@ -3306,11 +3602,11 @@ def main(argv=None) -> int:
     fills = {k: launched[k] for k in FILL_LAUNCHES}
     hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
     pre_launches = {k: launched[k] for k in PRE_LAUNCHES}
-    stage_launches = {k: launched[k] for k in STAGE_KERNELS}
+    stage_launches = {k: launched[k] for k in FRAME_KERNELS}
     if (missing or extra or launched["march"] != PATH_MARCHES["fast"]
             or fills != FILL_LAUNCHES or hit_launches != PATH_HITS["fast"]
             or pre_launches != PRE_LAUNCHES
-            or stage_launches != PATH_STAGES["fast"]):
+            or stage_launches != PATH_FRAME["fast"]):
         raise AssertionError(f"fast path did not launch {missing}, "
                              f"launched {extra}, march "
                              f"{launched['march']} times, fill {fills}, "
@@ -3360,12 +3656,12 @@ def main(argv=None) -> int:
         fills = {k: launched[k] for k in FILL_LAUNCHES}
         hit_launches = {k: launched[k] for k in HIT_LAUNCHES}
         pre_launches = {k: launched[k] for k in PRE_LAUNCHES}
-        stage_launches = {k: launched[k] for k in STAGE_KERNELS}
+        stage_launches = {k: launched[k] for k in FRAME_KERNELS}
         if (missing or extra or launched["march"] != PATH_MARCHES[name]
                 or fills != FILL_LAUNCHES
                 or hit_launches != PATH_HITS[name]
                 or pre_launches != PRE_LAUNCHES
-                or stage_launches != PATH_STAGES[name]):
+                or stage_launches != PATH_FRAME[name]):
             raise AssertionError(f"{name} path: not launched {missing}, "
                                  f"launched {extra}, march "
                                  f"{launched['march']} times, fill {fills}, "

@@ -24,8 +24,12 @@ runs on the output of the stage before, as the scripts chain them.
   ``normals`` and the ``quality`` combine; ``mark_bricks``; the colour
   bilinear fetch alone.
 - ``fuse`` (bench_fuse_stages.py): ``preprocess+mark``, ``mark_bricks``,
-  ``integrate``, then ``tsdf.occupied_brick_ids`` and
-  ``tsdf.integrate_bricks`` alone, and the occupied-brick count. The
+  ``integrate``, then ``tsdf.integrate_compact`` alone (the code the
+  pipeline's integrate runs: on the card the flags, one compaction and one
+  ``brick_integrate`` launch), the plain form's two calls
+  ``tsdf.occupied_brick_ids`` and ``tsdf.integrate_bricks`` alone (rows
+  ``occupied_brick_ids_plain``, ``integrate_bricks_plain``), and the
+  occupied-brick count. The
   script's rows of the TPU layouts (:78-133: the projection block gather,
   the packed maps, the 4x corner gathers, the block scatter, the unbrick
   transpose) have no counterpart: the port indexes the maps and scatters
@@ -137,13 +141,17 @@ def fuse_rows(pipe, frames, row: _Rows) -> dict:
     maps, counts = row("preprocess+mark", lambda: pipe.preprocess(frames))
     row("mark_bricks", lambda: pipe._mark_bricks(pm, maps))
     row("integrate", lambda: pipe.integrate(maps, counts))
-    ids = row("occupied_brick_ids", lambda: tsdf.occupied_brick_ids(
+    integrate_args = (maps.depth[..., 0], maps.quality, maps.silhouette,
+                      pipe._limit, pipe.volume_grid.shape, pipe.brick_vox)
+    integrate_kw = dict(carve_sil_threshold=c.carve_sil_threshold,
+                        phantom_hull=c.phantom_hull, taps=c.integrate_taps)
+    row("integrate_compact", lambda: tsdf.integrate_compact(
+        pipe.projections, counts, c.min_voxels_per_brick, c.brick_capacity,
+        *integrate_args, **integrate_kw))
+    ids = row("occupied_brick_ids_plain", lambda: tsdf.occupied_brick_ids(
         counts, c.min_voxels_per_brick, c.brick_capacity))
-    row("integrate_bricks", lambda: tsdf.integrate_bricks(
-        pipe.projections, ids, maps.depth[..., 0], maps.quality,
-        maps.silhouette, pipe._limit, pipe.volume_grid.shape,
-        pipe.brick_vox, carve_sil_threshold=c.carve_sil_threshold,
-        phantom_hull=c.phantom_hull, taps=c.integrate_taps))
+    row("integrate_bricks_plain", lambda: tsdf.integrate_bricks(
+        pipe.projections, ids, *integrate_args, **integrate_kw))
     return {"occupied_bricks": int((counts > c.min_voxels_per_brick).sum())}
 
 

@@ -319,12 +319,11 @@ def shard_compact_step(pipeline, camera, mesh: Mesh):
             maps.depth[..., 0], maps.quality, maps.silhouette))
         slabs = []
         for s, j, dev in shards:
-            ids = tsdf.occupied_brick_ids(
-                scatter(counts_p[s * Bzl: (s + 1) * Bzl], j, dev),
-                cfg.min_voxels_per_brick, cfg.brick_capacity)
-            slab = tsdf.integrate_bricks(
-                proj_l[j], ids, depth[dev], qual[dev], sil[dev], limit,
-                (Zl, Y, X), v, carve_sil_threshold=cfg.carve_sil_threshold,
+            slab = tsdf.integrate_compact(
+                proj_l[j], scatter(counts_p[s * Bzl: (s + 1) * Bzl], j, dev),
+                cfg.min_voxels_per_brick, cfg.brick_capacity, depth[dev],
+                qual[dev], sil[dev], limit, (Zl, Y, X), v,
+                carve_sil_threshold=cfg.carve_sil_threshold,
                 phantom_hull=cfg.phantom_hull, taps=cfg.integrate_taps)
             # rows past Z (the last brick's padding) hold the clear value,
             # as outside the single-device volume

@@ -8,7 +8,8 @@ both fill kernels from one call).
 The plain PyTorch twins and the CPU/CUDA dispatch live in ``ops/`` beside
 their callers (``ops/stencil13.py``, ``ops/bake.py``, ``ops/gather.py``,
 ``ops/raymarch.py``, ``ops/holefill.py``, ``ops/hits.py``,
-``ops/preprocess.py``, ``ops/compact.py``, ``ops/render_stages.py``).
+``ops/preprocess.py``, ``ops/compact.py``, ``ops/render_stages.py``,
+``ops/bricks.py``, ``ops/tsdf.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ LAUNCHES = {
     "boundary": 0,
     "normals": 0,
     "quality": 0,
+    # the fuse's marking and brick-compact integration (csrc/fuse.cu)
+    "brick_mark": 0,
+    "brick_integrate": 0,
     # the gather-rate probe's kernels (bench/gather_probe.py; on no path)
     "gather_flat": 0,
     "gather_flat_smem": 0,

@@ -26,7 +26,8 @@ SOURCES = tuple(_PKG / "csrc" / f for f in ("stencil13.cu", "bake.cu",
                                               "gather.cu", "march.cu",
                                               "holefill.cu", "hits.cu",
                                               "preprocess.cu", "compact.cu",
-                                              "render_stages.cu"))
+                                              "render_stages.cu",
+                                              "fuse.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIBRARY = BUILD_DIR / "librgbd_kernels.so"
 
@@ -94,6 +95,13 @@ _SIGNATURES = {
     "rgbd_pre_boundary": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rgbd_pre_normals": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rgbd_pre_quality": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # a pointer to the parameter block (kernels/fuse.py) and the stream
+    "rgbd_brick_mark": (_P, _P),
+    "rgbd_brick_mark_plan": (_P, _PI),
+    "rgbd_brick_integrate": (_P, _P),
+    "rgbd_brick_integrate_plan": (_P, _PI),
+    "rgbd_fuse_params_sizes": (_PI,),
+    "rgbd_fuse_attrs": (_I, _PI),
 }
 
 _lock = threading.Lock()

@@ -4,11 +4,55 @@ mark_brick (inc_bricks.glsl:40-58): every valid depth pixel's world position
 counts toward its brick and, near a brick border, toward the neighbor brick
 along the dominant offset axis. The counts are an exact integer histogram
 (``bincount``) where the reference atomically increments SSBO counters.
+
+``mark_pixels`` is the fuse's marking (TsdfPipeline._mark_bricks): one
+launch of csrc/fuse.cu on CUDA tensors (kernels/fuse.py), its plain twin
+``mark_pixels_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def sample_pixels(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """The stride-sampled pixels (n, s//2 + s i, s//2 + s j) of an (N, H,
+    W, ...) map."""
+    return x[:, stride // 2::stride, stride // 2::stride] if stride > 1 else x
+
+
+def mark_pixels_plain(depth: torch.Tensor, bbox_min: torch.Tensor,
+                      brick_size: float, brick_res: tuple, stride: int,
+                      ray_a=None, ray_b=None, worlds=None) -> torch.Tensor:
+    """The fuse's brick counts, (Bz, By, Bx) int32: every ``stride``-th
+    pixel of the (N, H, W) normalized ``depth`` with 0 < d < 1 marks
+    :func:`mark_bricks` at its world point and counts stride^2. The world
+    point is ray_a + ray_b * d from the (N, H, W, 3) pixel models, or the
+    given (N, Hs, Ws, 3) ``worlds`` of the sampled pixels (the calibration
+    volumes' lookup)."""
+    d = sample_pixels(depth, stride)
+    valid = (d > 0.0) & (d < 1.0)
+    if worlds is None:
+        ra, rb = sample_pixels(ray_a, stride), sample_pixels(ray_b, stride)
+        worlds = torch.stack([ra[..., j] + rb[..., j] * d for j in range(3)],
+                             dim=-1)
+    counts = mark_bricks(worlds, valid, bbox_min, brick_size, brick_res)
+    return counts * (stride * stride)
+
+
+def mark_pixels(depth: torch.Tensor, bbox_min: torch.Tensor,
+                brick_size: float, brick_res: tuple, stride: int,
+                ray_a=None, ray_b=None, worlds=None) -> torch.Tensor:
+    """:func:`mark_pixels_plain`: one launch of csrc/fuse.cu on CUDA
+    tensors, no host sync; the plain version on CPU tensors. Same
+    arguments and result."""
+    if depth.device.type == "cpu":
+        return mark_pixels_plain(depth, bbox_min, brick_size, brick_res,
+                                 stride, ray_a, ray_b, worlds)
+    from ..kernels.fuse import brick_mark_cuda
+
+    return brick_mark_cuda(depth, bbox_min, brick_size, brick_res, stride,
+                           ray_a, ray_b, worlds)
 
 
 def mark_bricks(world_pos: torch.Tensor, valid: torch.Tensor,

@@ -8,6 +8,12 @@ bricks (every other voxel holds the clear value -limit) in a brick-major
 layout: the padded volume viewed as (B, V) with B bricks of V =
 brick_vox^3 voxels. The dense path integrates every voxel, optionally
 gated by a per-voxel mask.
+
+``integrate_compact`` is the fuse's brick-compact integration: on CUDA
+tensors the occupied flags, one ops/compact.py compaction (its slot map)
+and one launch of csrc/fuse.cu (kernels/fuse.py), with no host sync; on
+CPU tensors its plain twin ``integrate_compact_plain``
+(``occupied_brick_ids`` then ``integrate_bricks``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import compact as compact_ops
 from .sampling import bilinear_2d, quad_bilinear, trilinear_3d
 
 
@@ -235,3 +242,51 @@ def fold_and_scatter(proj_z, depth, qual, sil, in_frustum, ids, limit,
     dense = vol_bm.reshape(Bz, By, Bx, v, v, v).permute(0, 3, 1, 4, 2, 5)
     Z, Y, X = vol_shape
     return dense.reshape(padded)[:Z, :Y, :X].contiguous()
+
+
+def integrate_compact_plain(proj_bricks: torch.Tensor, counts: torch.Tensor,
+                            min_voxels: int, capacity: int,
+                            depths: torch.Tensor, qualities: torch.Tensor,
+                            silhouettes: torch.Tensor, limit: float,
+                            vol_shape: Tuple[int, int, int], brick_vox: int,
+                            carve_sil_threshold: float = 1.0,
+                            phantom_hull: bool = False,
+                            taps: str = "nearest") -> torch.Tensor:
+    """The dense (Z, Y, X) volume of the first ``capacity`` bricks whose
+    count is > ``min_voxels``: :func:`occupied_brick_ids` then
+    :func:`integrate_bricks`."""
+    ids = occupied_brick_ids(counts, min_voxels, capacity)
+    return integrate_bricks(
+        proj_bricks, ids, depths, qualities, silhouettes, limit, vol_shape,
+        brick_vox, carve_sil_threshold=carve_sil_threshold,
+        phantom_hull=phantom_hull, taps=taps)
+
+
+def integrate_compact(proj_bricks: torch.Tensor, counts: torch.Tensor,
+                      min_voxels: int, capacity: int, depths: torch.Tensor,
+                      qualities: torch.Tensor, silhouettes: torch.Tensor,
+                      limit: float, vol_shape: Tuple[int, int, int],
+                      brick_vox: int, carve_sil_threshold: float = 1.0,
+                      phantom_hull: bool = False,
+                      taps: str = "nearest") -> torch.Tensor:
+    """:func:`integrate_compact_plain`. On CUDA tensors: the flags
+    counts > min_voxels, one compaction (its list is occupied_brick_ids'
+    but padded with B; its slot map is -1 exactly for the bricks
+    occupied_brick_ids drops: unset, or past the capacity) and one
+    brick_integrate launch, no host sync; on CPU tensors the plain
+    version. Same arguments and result."""
+    if depths.device.type == "cpu":
+        return integrate_compact_plain(
+            proj_bricks, counts, min_voxels, capacity, depths, qualities,
+            silhouettes, limit, vol_shape, brick_vox, carve_sil_threshold,
+            phantom_hull, taps)
+    from ..kernels.fuse import brick_integrate_cuda
+
+    flags = (counts > min_voxels).reshape(-1).view(torch.uint8)
+    listed = torch.empty(1, dtype=torch.int32, device=counts.device)
+    ids, slot = compact_ops.compact(flags, 0, capacity, listed, 0,
+                                    want_slot=True)
+    return brick_integrate_cuda(
+        proj_bricks, ids, slot, depths, qualities, silhouettes, limit,
+        vol_shape, brick_vox, carve_sil_threshold=carve_sil_threshold,
+        phantom_hull=phantom_hull, taps=taps)

@@ -200,18 +200,13 @@ class TsdfPipeline:
         calib = self.calib if calib is None else calib
         N, H, W = maps.depth.shape[:3]
         s = max(int(self.config.mark_stride), 1)
-        d_all = maps.depth[..., 0]
-        if s > 1:
-            d_all = d_all[:, s // 2::s, s // 2::s]
-        valids = (d_all > 0.0) & (d_all < 1.0)
+        depth = maps.depth[..., 0]
+        ray_a = ray_b = worlds = None
         if pixel_models is not None:
+            # the marking makes the world points ray_a + ray_b * d itself
             ray_a, ray_b = pixel_models.ray_a, pixel_models.ray_b
-            if s > 1:
-                ray_a = ray_a[:, s // 2::s, s // 2::s]
-                ray_b = ray_b[:, s // 2::s, s // 2::s]
-            worlds = torch.stack([ray_a[..., j] + ray_b[..., j] * d_all
-                                  for j in range(3)], dim=-1)
         else:
+            d_all = brick_ops.sample_pixels(depth, s)
             dev = d_all.device
             u = (torch.arange(W, dtype=torch.float32, device=dev)[s // 2::s]
                  + 0.5) / W
@@ -223,10 +218,9 @@ class TsdfPipeline:
                              torch.stack([uu, vv, d_all[i]], dim=-1))
                 for i in range(N)
             ])
-        counts = brick_ops.mark_bricks(
-            worlds, valids, calib.bbox_min, self.config.brick_size,
-            self.brick_grid.res)
-        return counts * (s * s)
+        return brick_ops.mark_pixels(
+            depth, calib.bbox_min, self.config.brick_size,
+            self.brick_grid.res, s, ray_a=ray_a, ray_b=ray_b, worlds=worlds)
 
     def preprocess(self, frames: FrameSet):
         """frames -> (SensorMaps, (Bz, By, Bx) int32 brick counts)."""
@@ -274,10 +268,9 @@ class TsdfPipeline:
                 carve_sil_threshold=c.carve_sil_threshold,
                 phantom_hull=c.phantom_hull,
             )
-        ids = tsdf.occupied_brick_ids(brick_counts, c.min_voxels_per_brick,
-                                      c.brick_capacity)
-        return tsdf.integrate_bricks(
-            self.projections, ids, maps.depth[..., 0], maps.quality,
+        return tsdf.integrate_compact(
+            self.projections, brick_counts, c.min_voxels_per_brick,
+            c.brick_capacity, maps.depth[..., 0], maps.quality,
             maps.silhouette, lim, self.volume_grid.shape, self.brick_vox,
             carve_sil_threshold=c.carve_sil_threshold,
             phantom_hull=c.phantom_hull, taps=c.integrate_taps,

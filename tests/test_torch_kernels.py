@@ -32,6 +32,7 @@ from rgbd_recon_tpu_torch.ops.stage_calls import (
 )
 
 import bracket_cases
+import fuse_cases
 import hit_gather_cases
 from hit_cases import record_hits
 from holefill_cases import fill_planes
@@ -2898,3 +2899,241 @@ def test_hit_kernels_refuse_unaligned_oct_rows(cuda):
         shade_cuda(**hits.shade_kernel_args(*sargs, **skw))
     counts = kernels.launch_counts()
     assert counts["hit_refine"] == 0 and counts["hit_shade"] == 0
+
+
+# ---- the fuse's marking and brick-compact integration (csrc/fuse.cu) -----
+
+def _fuse_mark_args(c, device):
+    """mark_pixels' arguments of a fuse_cases.mark_case on ``device``: the
+    depth as channel 0 of its (N, H, W, 2) map (a strided view)."""
+    def t(k):
+        return None if c[k] is None else torch.from_numpy(c[k]).to(device)
+
+    depth = torch.from_numpy(c["depth"]).to(device)[..., 0]
+    return ((depth, t("bbox_min"), c["brick_size"], c["brick_res"],
+             c["stride"]),
+            dict(ray_a=t("ray_a"), ray_b=t("ray_b"), worlds=t("worlds")))
+
+
+def _fuse_integrate_args(c, device):
+    keys = ("proj_bricks", "counts", "min_voxels", "capacity", "depths",
+            "qualities", "silhouettes", "limit", "vol_shape", "brick_vox")
+    args = [torch.from_numpy(c[k]).to(device)
+            if isinstance(c[k], np.ndarray) else c[k] for k in keys]
+    return args, dict(carve_sil_threshold=c["carve_sil_threshold"],
+                      phantom_hull=c["phantom_hull"], taps=c["taps"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(fuse_cases.MARK_CASES))
+def test_fuse_brick_mark_matches_twin(cuda, name):
+    """brick_mark (through mark_pixels' dispatch) bit for bit against
+    mark_pixels_plain on the card on fuse_cases' pixels: strides 1-3, the
+    pixel models and given world points (points on brick faces and past
+    the box), 10 cm bricks (the shared histogram) and 5 cm bricks (70,400
+    counts: global atomics, as its launch plan says); one launch."""
+    from rgbd_recon_tpu_torch.kernels.fuse import mark_plan
+    from rgbd_recon_tpu_torch.ops import bricks
+
+    c = fuse_cases.mark_case(name)
+    args, kw = _fuse_mark_args(c, cuda)
+    bins = int(np.prod(c["brick_res"]))
+    plan = mark_plan(*args, **kw)
+    assert plan["shared_histogram"] == (bins * 4 <= 48 * 1024)
+    kernels.reset_launch_counts()
+    got = bricks.mark_pixels(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["brick_mark"] == 1
+    want = bricks.mark_pixels_plain(*args, **kw)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(fuse_cases.INTEGRATE_CASES))
+def test_fuse_brick_integrate_matches_twin(cuda, name):
+    """integrate_compact on the card (the flags, one compaction, one
+    brick_integrate launch) bit for bit against integrate_compact_plain on
+    the card on fuse_cases' maps and projections: nearest and bilinear
+    taps, a capacity above and below the occupied bricks, the phantom
+    hull, carve threshold 0.5, padded bricks and the sharded step's
+    z-slab."""
+    from rgbd_recon_tpu_torch.ops import tsdf
+
+    c = fuse_cases.integrate_case(name)
+    args, kw = _fuse_integrate_args(c, cuda)
+    kernels.reset_launch_counts()
+    got = tsdf.integrate_compact(*args, **kw)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert launched == {"compact": 1, "brick_integrate": 1}
+    want = tsdf.integrate_compact_plain(*args, **kw)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", ["nearest", "bilinear"])
+def test_fuse_brick_integrate_on_slab_views(cuda, taps):
+    """The sharded step's form: each slab's projections a view of the
+    whole bake (the sensors a whole bake apart, not a slab apart) and its
+    counts a slice; each slab's volume bit-equal to the twin's and to the
+    kernel's on a contiguous copy of the view."""
+    from rgbd_recon_tpu_torch.ops import tsdf
+
+    c = fuse_cases.integrate_case(f"{taps}_whole", seed=5)
+    args, kw = _fuse_integrate_args(c, cuda)
+    proj, counts = args[0], args[1]
+    N, B, V, _ = proj.shape
+    Bz = counts.shape[0]
+    v = c["brick_vox"]
+    Z, Y, X = c["vol_shape"]
+    projz = proj.view(N, Bz, B // Bz, V, 4)
+    for lo, hi in ((0, 1), (1, 3)):
+        part = projz[:, lo:hi].reshape(N, (hi - lo) * (B // Bz), V, 4)
+        assert not part.is_contiguous()
+        sargs = list(args)
+        sargs[0], sargs[1] = part, counts[lo:hi]
+        sargs[8] = ((hi - lo) * v, Y, X)
+        got = tsdf.integrate_compact(*sargs, **kw)
+        assert _bits_equal(got, tsdf.integrate_compact_plain(*sargs, **kw))
+        sargs[0] = part.contiguous()
+        assert _bits_equal(got, tsdf.integrate_compact(*sargs, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brick_size", [0.1, 0.05, 0.2, 0.25, 0.3, 0.07])
+def test_fuse_mark_scalars_match_torch_division(cuda, brick_size):
+    """PyTorch's CUDA x / c by a Python c is x times mark_scalars' f32
+    reciprocal, bit for bit, on 2^20 seeded values around the box (the
+    twin's (p - bbox_min) / brick_size, which the kernel computes so)."""
+    from rgbd_recon_tpu_torch.kernels.fuse import mark_scalars
+
+    inv = mark_scalars(brick_size)[0]
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.rand(2 ** 20, device=cuda, generator=gen) * 2.4 - 0.1
+    assert _bits_equal(x / brick_size, x * torch.tensor(inv, device=cuda))
+
+
+@pytest.mark.cuda
+def test_fuse_kernels_back_to_back_and_in_graphs(cuda):
+    """The fuse's marking and integration (brick_mark; the flags, compact
+    and brick_integrate) captured in one CUDA graph on a side stream
+    (warmed up there first) and replayed 3 times on changed inputs copied
+    into the captured tensors, each replay bit-equal to the twins on those
+    inputs; then 20 eager rounds back to back with no sync, each
+    bit-equal."""
+    from rgbd_recon_tpu_torch.ops import bricks, tsdf
+
+    def inputs(seed):
+        m = fuse_cases.mark_case("stride3_models", seed)
+        c = fuse_cases.integrate_case("nearest_capacity_below", seed)
+        return _fuse_mark_args(m, cuda), _fuse_integrate_args(c, cuda)
+
+    (margs, mkw), (iargs, ikw) = inputs(0)
+    static = [margs[0], margs[1], mkw["ray_a"], mkw["ray_b"], iargs[0],
+              iargs[1], iargs[4], iargs[5], iargs[6]]
+
+    def run():
+        counts = bricks.mark_pixels(*margs, **mkw)
+        vol = tsdf.integrate_compact(*iargs, **ikw)
+        return counts, vol
+
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        counts, vol = run()
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == {
+        "brick_mark": 1, "compact": 1, "brick_integrate": 1}
+    for seed in (1, 2, 3):
+        (m2, mk2), (i2, ik2) = inputs(seed)
+        new = [m2[0], m2[1], mk2["ray_a"], mk2["ray_b"], i2[0], i2[1], i2[4],
+               i2[5], i2[6]]
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(counts, bricks.mark_pixels_plain(*margs, **mkw))
+        assert _bits_equal(vol, tsdf.integrate_compact_plain(*iargs, **ikw))
+    rounds = [inputs(10 + i) for i in range(20)]
+    torch.cuda.synchronize()
+    outs = [(bricks.mark_pixels(*ma, **mk), tsdf.integrate_compact(*ia, **ik))
+            for (ma, mk), (ia, ik) in rounds]
+    torch.cuda.synchronize()
+    for ((ma, mk), (ia, ik)), (cg, vg) in zip(rounds, outs):
+        assert torch.equal(cg, bricks.mark_pixels_plain(*ma, **mk))
+        assert _bits_equal(vg, tsdf.integrate_compact_plain(*ia, **ik))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [{}, dict(integrate_taps="bilinear",
+                                          mark_stride=1),
+                                 dict(pixel_ray_model=False)])
+def test_fuse_on_the_kernels_matches_twins(cuda, monkeypatch, cfg):
+    """A fuse of the small scene on the card launches brick_mark,
+    compact and brick_integrate once each; its marking and integration
+    make no host sync (set_sync_debug_mode("error")); its counts and
+    volume are bit-equal to the same fuse with the marking and the
+    integration on their twins (which launch none of the three)."""
+    from rgbd_recon_tpu_torch.ops import bricks, tsdf
+
+    pipe, _, _, _, _, frames = _small_scene(cuda, brick_size=0.2, **cfg)
+    pm = pipe._get_pixel_models(frames.depths.shape[1:3])
+    maps, _ = pipe.preprocess(frames)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counts = pipe._mark_bricks(pm, maps)
+        vol = pipe.integrate(maps, counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert {k: launched[k] for k in ("brick_mark", "compact",
+                                     "brick_integrate")} == {
+        "brick_mark": 1, "compact": 1, "brick_integrate": 1}
+    monkeypatch.setattr(bricks, "mark_pixels", bricks.mark_pixels_plain)
+    monkeypatch.setattr(tsdf, "integrate_compact",
+                        tsdf.integrate_compact_plain)
+    kernels.reset_launch_counts()
+    want_counts = pipe._mark_bricks(pm, maps)
+    want_vol = pipe.integrate(maps, want_counts)
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts()[k] for k in (
+        "brick_mark", "compact", "brick_integrate"))
+    assert torch.equal(counts, want_counts)
+    assert _bits_equal(vol, want_vol)
+    assert int((counts > pipe.config.min_voxels_per_brick).sum()) > 10
+
+
+@pytest.mark.cuda
+def test_fuse_wrappers_raise_on_the_card(cuda):
+    """On CUDA tensors the wrappers refuse what their kernels do not take
+    (maps on two devices, projections off 16 bytes) and launch nothing."""
+    from rgbd_recon_tpu_torch.kernels.fuse import (
+        brick_integrate_cuda,
+        brick_mark_cuda,
+    )
+
+    m = fuse_cases.mark_case("stride3_models")
+    margs, mkw = _fuse_mark_args(m, cuda)
+    c = fuse_cases.integrate_case("nearest_whole")
+    iargs, ikw = _fuse_integrate_args(c, cuda)
+    B = iargs[0].shape[1]
+    slot = torch.full((B,), -1, dtype=torch.int32, device=cuda)
+    ids = torch.full((iargs[3],), B, dtype=torch.int64, device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="one card"):
+        brick_mark_cuda(*margs, ray_a=mkw["ray_a"].cpu(), ray_b=mkw["ray_b"])
+    proj = iargs[0]
+    off = torch.zeros(proj.numel() + 1, device=cuda)[1:].view(proj.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        brick_integrate_cuda(off, ids, slot, *iargs[4:], **ikw)
+    with pytest.raises(ValueError, match="one card"):
+        brick_integrate_cuda(proj, ids, slot.cpu(), *iargs[4:], **ikw)
+    assert not any(kernels.launch_counts().values())

@@ -32,7 +32,8 @@ STAGE_ROWS = {
                    "lab_colors", "bilateral_lab", "boundary", "normals",
                    "quality", "mark_bricks", "color_fetch"],
     "fuse": ["preprocess+mark", "mark_bricks", "integrate",
-             "occupied_brick_ids", "integrate_bricks"],
+             "integrate_compact", "occupied_brick_ids_plain",
+             "integrate_bricks_plain"],
     "render": ["fuse", "render", "bake", "surface_occ", "sentinel_bake",
                "render_from_baked", "fill_colors_planar"],
 }
