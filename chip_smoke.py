@@ -2040,9 +2040,10 @@ def _phase3_fuse(torch, pipe, frames, card, flush):
                     "mark_kernel<true>" if extra["launch"]["shared_histogram"]
                     else "mark_kernel<false>"]
             else:
-                extra["launch"] = kfuse.integrate_plan(args[8], args[9],
-                                                       args[3])
-                extra["registers"] = attrs["integrate_kernel"]
+                extra["launch"] = kfuse.integrate_plan(
+                    args[8], args[9], args[3], args[0].shape[0])
+                extra["registers"] = attrs[
+                    f"integrate_kernel<{kwargs.get('taps', 'nearest')}>"]
                 # a capacity of half the occupied bricks: the rest cleared
                 occ = int((args[1] > args[2]).sum())
                 half = list(args)

@@ -465,15 +465,18 @@ def _build_variant(name: str, parent=None):
 def ptxas_usage(report: str, kernel: str) -> dict:
     """{instance: (registers, shared bytes, spill store bytes)} of the
     entry functions of ``kernel`` in a ptxas -v report, an instance named
-    by its template argument (f32 ``IfE``, bf16 ``ItE``) or "kernel"."""
+    by its template argument (f32 ``IfE``, bf16 ``ItE``, true ``ILb1E``,
+    false ``ILb0E``) or "kernel"."""
     out, name, spills = {}, None, 0
     entry = re.compile(rf"Compiling entry function '(\S*{kernel}\S*)'")
     for line in report.splitlines():
         m = entry.search(line)
         if m:
             mangled = m.group(1)
-            name = ("f32" if f"{kernel}IfE" in mangled else "bf16"
-                    if f"{kernel}ItE" in mangled else "kernel")
+            args = {"IfE": "f32", "ItE": "bf16", "ILb1E": "true",
+                    "ILb0E": "false"}
+            name = next((v for k, v in args.items()
+                         if f"{kernel}{k}" in mangled), "kernel")
             spills = 0
         elif name and "spill stores" in line:
             spills = int(re.search(r"(\d+) bytes spill stores", line)[1])

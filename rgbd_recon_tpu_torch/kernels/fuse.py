@@ -42,7 +42,7 @@ class IntegrateParams(ctypes.Structure):
         ("out", _P),
         *[(k, _I) for k in ("N", "H", "W", "Z", "Y", "X", "v", "Bz", "By",
                             "Bx", "V", "bilinear", "phantom_hull",
-                            "capacity", "clear_blocks", "chunks")],
+                            "capacity")],
         ("limit", _F), ("carve", _F),
     ]
 
@@ -156,15 +156,16 @@ def _mark_params(depth, bbox_min, brick_size, brick_res, stride, ray_a,
 def mark_plan(depth, bbox_min, brick_size, brick_res, stride, ray_a=None,
               ray_b=None, worlds=None) -> dict:
     """The launch of :func:`brick_mark_cuda` on these arguments: blocks,
-    threads, dynamic shared bytes, and whether the counts go through a
-    shared histogram a block (else straight to global memory)."""
+    threads, dynamic shared bytes, whether the counts go through a shared
+    histogram a block (else straight to global memory), and how many
+    touched bins a block lists before it flushes its whole histogram."""
     q = _mark_params(depth, bbox_min, brick_size, brick_res, stride, ray_a,
                      ray_b, worlds)
-    out = (_I * 4)()
+    out = (_I * 5)()
     with torch.cuda.device(depth.device):
         _lib().rgbd_brick_mark_plan(ctypes.byref(q), out)
     return dict(blocks=out[0], threads=out[1], shared_bytes=out[2],
-                shared_histogram=bool(out[3]))
+                shared_histogram=bool(out[3]), list_capacity=out[4])
 
 
 def brick_mark_cuda(depth, bbox_min, brick_size, brick_res, stride,
@@ -248,26 +249,37 @@ def _integrate_params(proj_bricks, ids, slot, depths, qualities,
     return q
 
 
-def integrate_plan(vol_shape, brick_vox: int, capacity: int) -> dict:
-    """The launch of :func:`brick_integrate_cuda` for a (Z, Y, X) volume
-    in bricks of ``brick_vox`` voxels and a list of ``capacity`` entries:
-    the clear blocks (a thread four voxels along x), the brick blocks (a
-    thread a voxel of a listed brick) and the threads a block."""
+def integrate_plan(vol_shape, brick_vox: int, capacity: int,
+                   sensors: int = 4) -> dict:
+    """The launch of :func:`brick_integrate_cuda` on the current card for
+    a (Z, Y, X) volume in bricks of ``brick_vox`` voxels, a list of
+    ``capacity`` entries and ``sensors`` sensors: the brick blocks (an
+    item of ``threads`` voxels of a listed brick a block), the clear
+    blocks (x-rows a warp), interleaved through the grid; the threads a
+    block, the dynamic shared bytes, the items and the items a list entry.
+    The library's launch decides them; bench/fuse_split.py's forms that
+    stage the sensors' rows in shared memory read them here too."""
     q = IntegrateParams()
     q.Z, q.Y, q.X = (int(s) for s in vol_shape)
-    q.V, q.capacity = int(brick_vox) ** 3, int(capacity)
-    out = (_I * 3)()
+    q.v = int(brick_vox)
+    q.Bz, q.By, q.Bx = (-(-s // q.v) for s in (q.Z, q.Y, q.X))
+    q.V, q.capacity, q.N = q.v ** 3, int(capacity), int(sensors)
+    out = (_I * 6)()
     _lib().rgbd_brick_integrate_plan(ctypes.byref(q), out)
-    return dict(clear_blocks=out[0], brick_blocks=out[1], threads=out[2])
+    return dict(brick_blocks=out[0], clear_blocks=out[1], threads=out[2],
+                shared_bytes=out[3], items=out[4], items_an_entry=out[5])
 
 
 def kernel_attrs() -> dict:
-    """Registers, static shared bytes and local (spill) bytes of the three
-    kernels of csrc/fuse.cu, as the loaded library reports them."""
+    """Registers, static shared bytes and local (spill) bytes of the four
+    kernels of csrc/fuse.cu (the marking with and without its shared
+    histogram, the integrate with nearest and with bilinear taps), as the
+    loaded library reports them."""
     lib = _lib()
     attrs = {}
     for which, name in enumerate(("mark_kernel<true>", "mark_kernel<false>",
-                                  "integrate_kernel")):
+                                  "integrate_kernel<nearest>",
+                                  "integrate_kernel<bilinear>")):
         out = (_I * 3)()
         check(lib.rgbd_fuse_attrs(which, out), name)
         attrs[name] = dict(registers=out[0], shared_bytes=out[1],

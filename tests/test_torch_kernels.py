@@ -3001,6 +3001,65 @@ def test_fuse_brick_integrate_on_slab_views(cuda, taps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("listed", ["none", "every", "odd"])
+@pytest.mark.parametrize("name", ["nearest_padded", "bilinear_big_bricks",
+                                  "nearest_six_sensors"])
+def test_fuse_brick_integrate_on_whole_lists(cuda, name, listed):
+    """brick_integrate on an empty list (every voxel cleared by the clear
+    blocks), on every brick listed (the brick blocks write every voxel)
+    and on every other brick, each at a capacity of exactly the listed
+    bricks: bit for bit against integrate_compact_plain with min_voxels
+    and counts that list the same bricks."""
+    from rgbd_recon_tpu_torch.kernels.fuse import brick_integrate_cuda
+    from rgbd_recon_tpu_torch.ops import tsdf
+
+    c = fuse_cases.integrate_case(name)
+    args, kw = _fuse_integrate_args(c, cuda)
+    B = args[0].shape[1]
+    on = {"none": torch.zeros(B, dtype=torch.bool, device=cuda),
+          "every": torch.ones(B, dtype=torch.bool, device=cuda),
+          "odd": torch.arange(B, device=cuda) % 2 == 1}[listed]
+    args[1] = on.to(torch.int32).view(args[1].shape) * 20
+    n = int(on.sum())
+    args[3] = n
+    ids = torch.full((max(n, 1),), B, dtype=torch.int64, device=cuda)
+    ids[:n] = torch.nonzero(on).reshape(-1)
+    slot = torch.full((B,), -1, dtype=torch.int32, device=cuda)
+    slot[ids[:n]] = torch.arange(n, dtype=torch.int32, device=cuda)
+    got = brick_integrate_cuda(args[0], ids, slot, *args[4:], **kw)
+    want = tsdf.integrate_compact_plain(*args, **kw)
+    assert _bits_equal(got, want)
+    if listed == "none":
+        assert bool((got == -c["limit"]).all())
+
+
+@pytest.mark.cuda
+def test_fuse_brick_mark_past_the_touched_list(cuda):
+    """A marking whose blocks each touch more distinct bricks than their
+    list holds (1,638,400 pixels, pixel k near the centre of brick k mod
+    8,800): the blocks flush their whole histograms, and the counts equal
+    mark_pixels_plain's; one launch."""
+    from rgbd_recon_tpu_torch.kernels.fuse import mark_plan
+    from rgbd_recon_tpu_torch.ops import bricks
+
+    rng = np.random.default_rng(4)
+    shape = (4, 640, 640)
+    w = fuse_cases.gathered_points("every_brick", shape, 0.1, rng)
+    depth = torch.full((*shape, 2), 0.5, device=cuda)[..., 0]
+    args = (depth, torch.tensor(fuse_cases.BOX_MIN, device=cuda), 0.1,
+            fuse_cases.brick_res(0.1), 1)
+    kw = dict(worlds=torch.from_numpy(w).to(cuda))
+    plan = mark_plan(*args, **kw)
+    assert plan["shared_histogram"]
+    assert np.prod(shape) / plan["blocks"] > plan["list_capacity"]
+    kernels.reset_launch_counts()
+    got = bricks.mark_pixels(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["brick_mark"] == 1
+    assert torch.equal(got, bricks.mark_pixels_plain(*args, **kw))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("brick_size", [0.1, 0.05, 0.2, 0.25, 0.3, 0.07])
 def test_fuse_mark_scalars_match_torch_division(cuda, brick_size):
     """PyTorch's CUDA x / c by a Python c is x times mark_scalars' f32
