@@ -11,7 +11,14 @@ kernel (CUDA events around the wrapper, and its own device time under
 between CUDA events once the profiler records no device activity)
 beside its bound (bytes or operations of this run's inputs at the H100's
 peak rates) and, where one PyTorch call computes the same function, that
-call. The render's stage kernels (``csrc/compact.cu``,
+call. The render bake's chain kernels (``csrc/bake.cu`` ``brick_clearance``
+and ``oct_table``) are held and timed on the inputs one fast and one
+parity frame's bake hands them (the clearance also at 0, 1, 6 and 16
+rounds, on an empty, a full and a 30 x 30 x 30 grid; the oct table at
+half the surface bricks' capacity and in f32), and the whole
+bake on the kernels bit for bit against it on the twins, with no host sync
+under ``torch.cuda.set_sync_debug_mode("error")``, its launches, device
+activities and host ms printed. The render's stage kernels (``csrc/compact.cu``,
 ``csrc/render_stages.cu`` and ``csrc/march.cu``'s row march) are held and
 timed on the recorded inputs of every stage call of one fast frame (the
 scan, the block set-up, four compactions, the coarse march, the bracket,
@@ -73,7 +80,9 @@ launch) and its push once: ``FILL_LAUNCHES``; the hit kernels once a render, no 
 trilinear full-screen render: ``PATH_HITS``; the block stages once a
 render of the block path, the compaction once a list:
 ``PATH_STAGES``; the fuse's marking once, its compaction and integrate
-once on the brick-compact paths: ``PATH_FUSE``), that the output
+once on the brick-compact paths: ``PATH_FUSE``; the bake's clearance once
+a bake, its compaction and oct table once where the render builds the oct
+table: ``PATH_BAKE``), that the output
 is finite, and the surface RMSE against the analytic sphere (the accuracy
 oracle of bench.py). Timings (CUDA events) are printed for information.
 
@@ -232,7 +241,19 @@ PATH_FUSE = {"fast": COMPACT_FUSE, "parity": COMPACT_FUSE,
              "parity_dense": dict(brick_mark=1, compact=0,
                                   brick_integrate=0),
              "fast_f32": COMPACT_FUSE}
-FRAME_KERNELS = (*STAGE_KERNELS, *FUSE_KERNELS)
+# the render bake's chain (csrc/bake.cu): one brick_clearance launch a
+# bake (also without the sentinel table), and where the render builds its
+# oct table one compaction of the surface bricks and one oct_table launch
+BAKE_KERNELS = ("brick_clearance", "oct_table")
+FAST_BAKE = dict(brick_clearance=1, compact=1, oct_table=1)
+PATH_BAKE = {"fast": FAST_BAKE,
+             "parity": dict(brick_clearance=1, compact=0, oct_table=0),
+             "parity_dense": dict(brick_clearance=0, compact=0, oct_table=0),
+             "fast_f32": FAST_BAKE}
+# a whole bake's launches (the phase 3 bake section)
+BAKE_LAUNCHES = {"fast": dict(surface_occ=1, sentinel_bake=1, **FAST_BAKE),
+                 "parity": dict(surface_occ=1, brick_clearance=1)}
+FRAME_KERNELS = (*STAGE_KERNELS, *FUSE_KERNELS, *BAKE_KERNELS)
 
 
 def _plus(*counts):
@@ -244,12 +265,15 @@ def _plus(*counts):
     return out
 
 
-# the stage and fuse kernels' launches of one fuse + render a path
-PATH_FRAME = {p: _plus(PATH_STAGES[p], PATH_FUSE[p]) for p in PATH_STAGES}
+# the stage, fuse and bake-chain kernels' launches of one fuse + render a
+# path
+PATH_FRAME = {p: _plus(PATH_STAGES[p], PATH_FUSE[p], PATH_BAKE[p])
+              for p in PATH_STAGES}
 # the kernels of the paths (the gather probe's four run on none)
 PATH_KERNELS = ("bilateral13", "quality13", "surface_occ", "sentinel_bake",
                 "march", "holefill_pull", "holefill_push", "hit_refine",
-                "hit_shade", *PRE_LAUNCHES, *STAGE_KERNELS, *FUSE_KERNELS)
+                "hit_shade", *PRE_LAUNCHES, *STAGE_KERNELS, *FUSE_KERNELS,
+                *BAKE_KERNELS)
 # the fill kernels' launches a render with colorfill: a pull launch for
 # every two levels past LOD 0 (a 1280x720 frame at 7 LODs: 3) and one push
 FILL_LAUNCHES = {"holefill_pull": 3, "holefill_push": 1}
@@ -318,12 +342,13 @@ def _gate(path):
 # kernels each side path must and must not launch (the march: as
 # PATH_MARCHES says)
 SIDE_LAUNCHES = {
-    "parity": (("bilateral13", "quality13", "surface_occ"),
-               ("sentinel_bake",)),
+    "parity": (("bilateral13", "quality13", "surface_occ",
+                "brick_clearance"), ("sentinel_bake", "oct_table")),
     "parity_dense": (("bilateral13", "quality13", "brick_mark"),
-                     ("sentinel_bake", "brick_integrate")),
+                     ("sentinel_bake", "brick_integrate", "brick_clearance",
+                      "oct_table")),
     "fast_f32": (("bilateral13", "quality13", "surface_occ",
-                  "sentinel_bake"), ()),
+                  "sentinel_bake", "brick_clearance", "oct_table"), ()),
 }  # the hit kernels as PATH_HITS says, the preprocess's as PRE_LAUNCHES
 # device time of a kernel (phase 3): torch.profiler over DEVICE_ITERS calls,
 # each after a write of FLUSH_BYTES that evicts the 50 MB L2 and a read of
@@ -353,8 +378,8 @@ SPLAT_OUTSIDE_FRAC = 0.01
 SPLAT_MEDIAN_MM = 10.0
 # phase 8: frames per app run, and the kernel launches each run must make
 # (a mode's per-frame counts: every path kernel in mode 1, the march four
-# times and the fill's pull three, twice the bake, march, fill and hit
-# kernels with stereo, the two stencils and the preprocess's six
+# times and the fill's pull three, twice the bake (its chain too), march,
+# fill and hit kernels with stereo, the two stencils and the preprocess's six
 # elsewhere, bilateral13 a second time in the MVT render, whose depth
 # pass reads the calibration volumes and runs its twin; every mode fuses,
 # so the fuse's marking, compaction and integration run once a frame)
@@ -378,8 +403,9 @@ APP_RUNS = {
                                 sentinel_bake=2,
                                 march=2 * PATH_MARCHES["fast"],
                                 **_plus({k: 2 * n for k, n in
-                                         {**FILL_LAUNCHES, **HIT_LAUNCHES,
-                                          **FAST_STAGES}.items()},
+                                         _plus(FILL_LAUNCHES, HIT_LAUNCHES,
+                                               FAST_STAGES,
+                                               FAST_BAKE).items()},
                                         COMPACT_FUSE),
                                 **PRE_LAUNCHES)),
     "app_mode1_refine": (["--mode", "1", "--refine-every", "1"],
@@ -2132,6 +2158,325 @@ def _phase3_fuse(torch, pipe, frames, card, flush):
     return out
 
 
+# the render bake's chain kernels: the dispatch each wraps, its twin, and
+# the JAX package's code it replaces (XLA stages of the jitted render)
+BAKE_CALLS = {
+    "brick_clearance": ("bake", "brick_clearance", "brick_clearance_plain",
+                        "rgbd_recon_tpu/recon/tsdf_pipeline.py:1042"),
+    "oct_table": ("raymarch", "oct_rows", "oct_rows_plain",
+                  "rgbd_recon_tpu/ops/raymarch.py:351"),
+}
+# each kernel's device activity (csrc/bake.cu)
+BAKE_ACTIVITY = {"brick_clearance": "clearance_grid_kernel",
+                 "oct_table": "oct_table"}
+# the clearance's extra rounds on the card, and a grid larger than the
+# cells' (30 x 30 x 30 bricks, 1% set)
+CLEARANCE_ROUNDS = (0, 1, 6, 16)
+LARGE_GRID = (30, 30, 30)
+
+
+def _record_bake(torch, bake_fn):
+    """{kernel: (args, kwargs)} as one bake called the dispatch of each
+    chain kernel, and the (args, kwargs) of its build_oct_bricks call (or
+    None)."""
+    from rgbd_recon_tpu_torch.ops import bake, raymarch
+
+    mods = {"bake": bake, "raymarch": raymarch}
+    calls = {}
+    targets = [(mod, fname, k) for k, (mod, fname, _, _) in BAKE_CALLS.items()]
+    targets.append(("raymarch", "build_oct_bricks", "build_oct"))
+    saved = []
+    for mod, fname, key in targets:
+        fn = getattr(mods[mod], fname)
+        saved.append((mod, fname, fn))
+
+        def record(*args, _k=key, _fn=fn, **kwargs):
+            calls[_k] = (args, kwargs)
+            return _fn(*args, **kwargs)
+
+        setattr(mods[mod], fname, record)
+    try:
+        bake_fn()
+        torch.cuda.synchronize()
+    finally:
+        for mod, fname, fn in saved:
+            setattr(mods[mod], fname, fn)
+    return calls
+
+
+@contextlib.contextmanager
+def _bake_on_twins():
+    """The render bake's dispatches pointed at their plain twins."""
+    from rgbd_recon_tpu_torch.ops import bake, raymarch
+
+    swaps = [(bake, "surface_occ", bake.surface_occ_plain),
+             (bake, "brick_clearance", bake.brick_clearance_plain),
+             (bake, "sentinel_bake", bake.sentinel_bake_plain),
+             (raymarch, "build_oct_bricks", raymarch.build_oct_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, fn in swaps:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _bake_parts(baked):
+    """The bake's outputs by name, the oct table as its rows and slots."""
+    table, oct, occ, bsafe = baked
+    parts = {"table": table, "occ": occ, "bsafe": bsafe}
+    if oct is not None:
+        parts.update(oct_rows=oct.rows, oct_slots=oct.slots)
+    return parts
+
+
+def _outputs_equal(torch, got, want) -> bool:
+    """Tensors or tuples of tensors bit-equal (shapes, dtypes, bits; bf16
+    compared as int16)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+
+    def same(g, w):
+        if g.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+            return g.shape == w.shape and torch.equal(
+                g.contiguous().view(torch.int16),
+                w.contiguous().view(torch.int16))
+        return _bits_equal(torch, g, w)
+
+    return len(got) == len(want) and all(map(same, got, want))
+
+
+def _clearance_checks(torch, occ, brick_vox):
+    """brick_clearance at CLEARANCE_ROUNDS on ``occ``, on an empty and a
+    full grid of its shape, and on a LARGE_GRID grid, each bit-equal to
+    brick_clearance_plain; {case: True}."""
+    from rgbd_recon_tpu_torch.kernels.bake import brick_clearance_cuda
+    from rgbd_recon_tpu_torch.ops import bake
+
+    gen = torch.Generator(occ.device).manual_seed(5)
+    grids = {"frame": occ, "empty": torch.zeros_like(occ),
+             "full": torch.ones_like(occ),
+             "large": torch.rand(LARGE_GRID, generator=gen,
+                                 device=occ.device) < 0.01}
+    out = {}
+    for name, g in grids.items():
+        for r in CLEARANCE_ROUNDS:
+            want = bake.brick_clearance_plain(g, r, brick_vox)
+            got = brick_clearance_cuda(g, r, brick_vox)
+            out[f"{name} R={r}"] = _outputs_equal(torch, got, want)
+    torch.cuda.synchronize()
+    return out
+
+
+def _phase3_bake(torch, pipe, frames, camera, card, flush):
+    """The render bake's chain kernels on the inputs one fast and one
+    parity frame's bake hands them (csrc/bake.cu brick_clearance through
+    ops/bake.py brick_clearance; oct_table through ops/raymarch.py
+    oct_rows, after build_oct_bricks' compaction): each bit-equal to its
+    twin, timed (events, device time with a cold and a warm L2 counting
+    its own activity, the twin, which is the parent's chain for the
+    clearance) beside its bound by bytes (bench/kernel_inputs.py
+    oct_table_bytes for the oct table); the whole bake on the kernels
+    bit-equal, part for part, to it on the twins, its launches, no host
+    sync under set_sync_debug_mode("error"), its device activities, device
+    ms and host ms (profile_slice.py's helpers). On the fast frame's inputs
+    also: the clearance at 0, 1, 6 and 16 rounds, on an empty, a full and
+    a 30 x 30 x 30 grid; the oct table at half the surface bricks'
+    capacity and as the f32 table. Returns the two kernels' JSON rows (the fast
+    frame's figures, the parity frame's under "parity")."""
+    from rgbd_recon_tpu_torch import kernels
+    from rgbd_recon_tpu_torch.bench.kernel_inputs import oct_table_bytes
+    from rgbd_recon_tpu_torch.bench.trace import event_ms, profile_frames
+    from rgbd_recon_tpu_torch.ops import bake, raymarch
+    from rgbd_recon_tpu_torch.profile_slice import host_wall_ms, render_syncs
+    from rgbd_recon_tpu_torch.recon.tsdf_pipeline import TsdfPipeline
+
+    mods = {"bake": bake, "raymarch": raymarch}
+    ppipe = TsdfPipeline(pipe.calib, dataclasses.replace(
+        pipe.config, **_side_paths()["parity"]), pipe.bbox)
+    rows = {k: {} for k in BAKE_CALLS}
+    bakes = {}
+    for path, p in (("fast", pipe), ("parity", ppipe)):
+        render, _ = p.make_render_fn(camera)
+        volume, _, counts = p.fuse(frames)
+
+        def run_bake():
+            return render.bake(volume, counts)
+
+        run_bake()                                   # warm-up
+        calls = _record_bake(torch, run_bake)
+        want_calls = {"brick_clearance"} | (
+            {"oct_table", "build_oct"} if path == "fast" else set())
+        if set(calls) != want_calls:
+            raise AssertionError(f"{path} bake called {set(calls)}")
+
+        # the whole bake: launches, no host sync, bit-equal to the twins'
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run_bake()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        with _bake_on_twins():
+            kernels.reset_launch_counts()
+            want = run_bake()
+            torch.cuda.synchronize()
+            twin_launches = sum(kernels.launch_counts().values())
+        g, w = _bake_parts(got), _bake_parts(want)
+        same = {k: set(g) == set(w) and _outputs_equal(torch, g[k], w[k])
+                for k in w}
+        host_ms = host_wall_ms(run_bake, 20)
+        prof = profile_frames(run_bake, 5, host_ms)
+        syncs = render_syncs(run_bake)
+        bakes[path] = dict(
+            launches=launched, bit_equal=same, host_ms=host_ms,
+            host_syncs=syncs,
+            activities=prof and prof["activities_per_frame"],
+            device_ms=prof and prof["device_ms_per_frame"],
+            top=prof and [dict(r, calls=r["calls"] / 5,
+                               device_ms=r["device_ms"] / 5)
+                          for r in prof["top"]])
+        print(f"bake {path}: no host sync under set_sync_debug_mode('error') "
+              f"({syncs} under 'warn'); launches {launched} (expected "
+              f"{BAKE_LAUNCHES[path]}); bit-equal to the twins' bake {same} "
+              f"(the twins launch {twin_launches}); host ms {host_ms!r} a "
+              f"bake (synchronized, mean of 20); device "
+              f"{bakes[path]['activities']} activities, "
+              f"{bakes[path]['device_ms']!r} ms a bake, by kernel "
+              f"{bakes[path]['top']} on {card}", flush=True)
+        if (launched != BAKE_LAUNCHES[path] or not all(same.values())
+                or twin_launches or syncs):
+            raise AssertionError(f"bake {path}: launches {launched}, "
+                                 f"bit-equal {same}, twin launches "
+                                 f"{twin_launches}, syncs {syncs}")
+
+        for kname, (args, kwargs) in calls.items():
+            if kname not in BAKE_CALLS:
+                continue
+            mod, fname, pname, _ = BAKE_CALLS[kname]
+            public = getattr(mods[mod], fname)
+            plain = getattr(mods[mod], pname)
+
+            def kern(_f=public, _a=args, _k=kwargs):
+                return _f(*_a, **_k)
+
+            def twin(_f=plain, _a=args, _k=kwargs):
+                return _f(*_a, **_k)
+
+            kernels.reset_launch_counts()
+            got_k = kern()
+            torch.cuda.synchronize()
+            n_launch = kernels.launch_counts()[kname]
+            want_k = twin()
+            torch.cuda.synchronize()
+            equal = _outputs_equal(torch, got_k, want_k)
+            err = max(_max_abs_err(torch, a, b) for a, b in zip(
+                got_k if isinstance(got_k, tuple) else (got_k,),
+                want_k if isinstance(want_k, tuple) else (want_k,)))
+            if not (equal and n_launch == 1):
+                raise AssertionError(f"{kname} {path}: bit-equal {equal} "
+                                     f"(max abs error {err}), {n_launch} "
+                                     "launches")
+            act = BAKE_ACTIVITY[kname]
+            ms = event_ms(kern, iters=20, warmup=3)
+            plain_ms = event_ms(twin, iters=5, warmup=1)
+            cold, warm, split, n = _device_ms(
+                torch, kern, flush, keep=lambda a, _s=act: _s in a)
+            plain_cold, plain_warm = _events_ms(torch, twin, flush)
+            outs = got_k if isinstance(got_k, tuple) else (got_k,)
+            extra = {}
+            if kname == "brick_clearance":
+                occ, r, v = args
+                n_b = occ.numel()
+                # the mask read once, both f32 outputs written once; at
+                # least one tap a brick a pass
+                nbytes, ops = n_b + 8 * n_b, 3 * n_b
+                extra["bricks"], extra["rounds"] = n_b, r
+            else:
+                vol, ids, v = args[:3]
+                cap = ids.numel()
+                # the union of the read bricks' extended boxes, the list
+                # and the rows, each once
+                nbytes = oct_table_bytes(torch, vol.shape, ids, v,
+                                         outs[0].element_size())
+                ops = 0
+                extra.update(slots=cap, table=str(outs[0].dtype),
+                             listed=int((ids < vol.numel() // v ** 3)
+                                        .sum()))
+            bound_ms, bound_by = _bound_of(nbytes, ops)
+            row = dict(max_abs_err=err, bit_equal=equal, ms=ms,
+                       plain_ms=plain_ms, device_ms=cold,
+                       device_ms_warm=warm, device_split=split,
+                       plain_events_cold_ms=plain_cold,
+                       plain_events_warm_ms=plain_warm, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, ops=ops,
+                       share_of_bound=bound_ms / cold, trace_retakes=n,
+                       **extra)
+            rows[kname][path] = row
+            print(f"{kname} {path}: bit-equal to its twin (max abs error "
+                  f"{err!r}); {ms!r} ms (events; plain {plain_ms!r}, "
+                  f"library none), device {cold!r} ms cold L2, {warm!r} warm "
+                  f"{split}; the twin's chain {plain_cold!r} cold, "
+                  f"{plain_warm!r} warm (events); bound {bound_ms!r} ms by "
+                  f"{bound_by} ({nbytes} B, {ops} ops), "
+                  f"{bound_ms / cold:.1%} of it; {extra} on {card}",
+                  flush=True)
+
+        if path == "fast":
+            # the extra shapes, on the fast frame's inputs
+            occ, r, v = calls["brick_clearance"][0]
+            checks = _clearance_checks(torch, occ, v)
+            vol, occ_b, v, cap, dtype = calls["build_oct"][0]
+            listed = int(occ_b.sum())
+            half = max(listed // 2, 1)
+            for label, c, dt in (("half capacity", half, dtype),
+                                 ("f32 table", cap, torch.float32)):
+                a = raymarch.build_oct_bricks(vol, occ_b, v, c, dt)
+                b = raymarch.build_oct_plain(vol, occ_b, v, c, dt)
+                checks[f"oct {label}"] = (
+                    _outputs_equal(torch, (a.rows, a.slots),
+                                   (b.rows, b.slots)))
+            ids = calls["oct_table"][0][1]
+
+            def kern32():
+                return raymarch.oct_rows(vol, ids, v, torch.float32)
+
+            rows32 = kern32()
+            c32, w32, _, n = _device_ms(
+                torch, kern32, flush,
+                keep=lambda a: BAKE_ACTIVITY["oct_table"] in a)
+            b32 = _bound_of(oct_table_bytes(torch, vol.shape, ids, v, 4),
+                            0)[0]
+            rows["oct_table"]["fast"].update(
+                f32_device_ms=c32, f32_device_ms_warm=w32, f32_bound_ms=b32,
+                f32_share_of_bound=b32 / c32,
+                f32_ms=event_ms(kern32, iters=20, warmup=3))
+            print(f"bake extra shapes bit-equal to the twins {checks}; "
+                  f"surface bricks {listed} (oct capacity {cap}; half "
+                  f"{half}); oct_table f32: device {c32!r} ms cold, "
+                  f"{w32!r} warm, bound {b32!r}, {b32 / c32:.1%} of it, on "
+                  f"{card}", flush=True)
+            if not all(checks.values()):
+                raise AssertionError(f"bake extra shapes: {checks}")
+            rows["brick_clearance"]["fast"]["extra_shapes"] = checks
+        del calls, got, want, volume, counts
+    del ppipe
+    torch.cuda.empty_cache()
+    out = []
+    for kname, (_, _, _, replaces) in BAKE_CALLS.items():
+        out.append(dict(name=kname, route="cuda",
+                        source="rgbd_recon_tpu_torch/csrc/bake.cu",
+                        replaces=replaces, library_ms=None,
+                        parity=rows[kname].get("parity"), bake=bakes,
+                        **rows[kname]["fast"]))
+    return out
+
+
 def _check_render(torch, label, volume, out, counts, cfg, camera):
     """Finite volume, color and depth, a 1280x720 image, and the oracle's
     gate (bench/oracle.py) that the path ``label`` holds (``_gate``): the
@@ -2758,12 +3103,15 @@ def _phase12_dist(np, torch, pipe, frames, camera, card, drifted, by_path):
         step = dist.shard_compact_step(pipe, camera, mesh)
         step(frames)                                  # warm-up
         n = mesh.size
-        # a compaction and an integrate launch a slab, the marking once
+        # a compaction and an integrate launch a slab, the marking once;
+        # the two bake kernels a slab, the clearance and the oct table
+        # (with its compaction) once on the gathered mask and volume
         want = dict(bilateral13=1, quality13=1, surface_occ=n,
                     sentinel_bake=n, march=PATH_MARCHES["fast"],
                     **FILL_LAUNCHES, **PATH_HITS["fast"], **PRE_LAUNCHES,
-                    **_plus(FAST_STAGES, dict(brick_mark=1, compact=n,
-                                              brick_integrate=n)))
+                    **_plus(FAST_STAGES, FAST_BAKE,
+                            dict(brick_mark=1, compact=n,
+                                 brick_integrate=n)))
         vol_sh, out_sh = counted(label, lambda: step(frames), want)
         same = {f: torch.equal(getattr(out_sh, f), getattr(out, f))
                 for f in ("hit", "depth")}
@@ -3411,8 +3759,7 @@ def main(argv=None) -> int:
     vol = volume.contiguous()
     bv = pipe.brick_vox
     occ = bake.surface_occ_plain(vol, bv)
-    bs_scaled = (bake.fine_safe_field(occ, cfg.skip_brick_rounds)
-                 * float(bv)).contiguous()
+    bs_scaled = bake.brick_clearance(occ, cfg.skip_brick_rounds, bv)[1]
     K = cfg.skip_fine_rounds
     from rgbd_recon_tpu_torch.kernels.bake import (
         sentinel_bake_cuda,
@@ -3542,8 +3889,7 @@ def main(argv=None) -> int:
             # 20 rounds in 20-voxel bricks (phase 9's bricks_20_rounds_20):
             # two dilation launches of 10 rounds, also bit for bit
             occ20 = bake.surface_occ_plain(vol, 20)
-            bs20 = (bake.fine_safe_field(occ20, cfg.skip_brick_rounds)
-                    * 20.0).contiguous()
+            bs20 = bake.brick_clearance(occ20, cfg.skip_brick_rounds, 20)[1]
 
             def kern20():
                 return sentinel_bake_cuda(vol, bs20, 20, 20)
@@ -3576,6 +3922,7 @@ def main(argv=None) -> int:
                   f"device activity and were taken again", flush=True)
         results.append(row)
 
+    results += _phase3_bake(torch, pipe, frames, camera, card, flush)
     results += _phase3_render(torch, pipe, frames, camera, card, flush)
     results += _phase3_fill(torch, pipe, camera, frames, card, flush)
     results += _phase3_hits(torch, pipe, camera, frames, card, flush)

@@ -12,7 +12,9 @@ same inputs against the JAX package):
   invalid edges at shapes that are no multiple of the boundary kernel's
   tile, and the bytes and operations the pass needs on given maps;
 - ``morph_exits``: how many pixels of a depth map take each of the morph
-  kernel's exits.
+  kernel's exits;
+- ``oct_table_bytes``: the bytes the oct hit table's kernel needs for a
+  given list of bricks.
 """
 
 from __future__ import annotations
@@ -177,3 +179,30 @@ def morph_exits(torch, depth):
     return dict(valid=int(valid.sum()),
                 no_valid_tap=int((~valid & ~near).sum()),
                 two_pass=int((~valid & near).sum()), pixels=depth.numel())
+
+
+def oct_table_bytes(torch, shape, ids, brick_vox, row_itemsize):
+    """The bytes the oct table needs on a (Z, Y, X) volume of whole
+    ``brick_vox`` bricks for the (capacity,) brick ``ids`` (compact's list
+    padded with the brick count B; the kernel reads brick min(id, B - 1)):
+    each voxel in the union of the read bricks' extended boxes (the brick
+    and the voxel planes past its three high faces, clipped to the volume)
+    once, 4 bytes; the ids once; the capacity * brick_vox^3 rows of 8
+    corners of ``row_itemsize`` bytes written once."""
+    v = brick_vox
+    grid = tuple(s // v for s in shape)
+    n_bricks = grid[0] * grid[1] * grid[2]
+    read = torch.zeros(n_bricks, dtype=torch.bool, device=ids.device)
+    read[ids.clamp(max=n_bricks - 1)] = True
+    need = read.view(grid)
+    for dim, n in enumerate(grid):
+        # along this axis voxel c is in brick c // v's box, and a first
+        # voxel of a brick also in the extended box of the brick before
+        c = torch.arange(n * v, device=ids.device)
+        own = need.index_select(dim, c // v)
+        prev = need.index_select(dim, (c // v - 1).clamp(min=0))
+        first = ((c % v == 0) & (c >= v)).view(
+            [-1 if d == dim else 1 for d in range(3)])
+        need = own | (prev & first)
+    cap = ids.numel()
+    return int(need.sum()) * 4 + cap * 8 + cap * v ** 3 * 8 * row_itemsize

@@ -36,8 +36,9 @@ runs on the output of the stage before, as the scripts chain them.
   the bricks directly, without those layouts.
 - ``render`` (bench_render.py, bench_render_stages.py): ``fuse``; the full
   render, with its hits, overflow and ``pipe.diagnostics``;
-  ``render.bake``, ``ops/bake.surface_occ`` and ``ops/bake.sentinel_bake``
-  on the fused volume; ``render.render_from_baked``;
+  ``render.bake``, ``ops/bake.surface_occ``, ``ops/bake.brick_clearance``
+  and ``ops/bake.sentinel_bake`` on the fused volume (the bake's parts, as
+  the pipeline calls them); ``render.render_from_baked``;
   ``holefill.fill_colors_planar`` on a zero frame of the camera's size;
   then one render from a moved camera (bench_render_stages.py:99-106),
   which must not rebuild the renderer.
@@ -186,8 +187,8 @@ def render_rows(pipe, frames, camera, row: _Rows) -> dict:
         baked = row("bake", lambda: render_fn.bake(volume, counts))
         bv = pipe.brick_vox
         occ = row("surface_occ", lambda: bake.surface_occ(volume, bv))
-        bs = (bake.fine_safe_field(occ, c.skip_brick_rounds)
-              * float(bv)).contiguous()
+        _, bs = row("brick_clearance", lambda: bake.brick_clearance(
+            occ, c.skip_brick_rounds, bv))
         dtype = (torch.bfloat16 if c.march_dtype == "bfloat16"
                  else torch.float32)
         row("sentinel_bake", lambda: bake.sentinel_bake(

@@ -1,8 +1,10 @@
-// March-volume bake: the surface-brick mask and the sentinel-coded march
-// table.
+// March-volume bake: the surface-brick mask, the brick clearance, the
+// sentinel-coded march table and the oct hit table's corner rows.
 //
-// Replaces the Pallas TPU kernels surface_occ_tpu and sentinel_bake_tpu of
-// rgbd_recon_tpu/ops/bake_pallas.py.
+// surface_occ and sentinel_bake replace the Pallas TPU kernels
+// surface_occ_tpu and sentinel_bake_tpu of
+// rgbd_recon_tpu/ops/bake_pallas.py; brick_clearance and oct_table replace
+// XLA stages of the JAX package's jitted render (below).
 //
 // surface_occ: a brick is set iff some voxel of its box, grown by one voxel
 // on each side and clipped to the volume, is > 0 (the brick any-pool of the
@@ -68,7 +70,47 @@
 // between the two passes.
 // Every value is an integer or a copy until the single rounding, so the
 // output is bit-exact against the plain version (ops/bake.py).
+//
+// brick_clearance: the render bake's brick-level clearance to the surface
+// bricks. Replaces no Pallas kernel: the XLA ops of brick_safe_field
+// (rgbd_recon_tpu/recon/tsdf_pipeline.py:1042), R = skip_brick_rounds
+// 3x3x3 dilations of the (Bz, By, Bx) surface-brick mask, which the port
+// ran as ~40 torch launches (ops/bake.py brick_clearance_plain). For each
+// brick, with D the Chebyshev distance in bricks to the nearest set brick
+// inside the grid (infinite when none is set):
+//   bsafe     = min(max(D - 1, 0), R)   (the rounds that miss the brick)
+//   bs_scaled = bsafe * brick_vox       (sentinel_bake's input; small
+//                                        integers, so the product is exact)
+// It need not repeat the R dilations: the Chebyshev distance is separable,
+// the distance along x, then the min over dy of max(|dy|, that), then the
+// same over dz, each capped at R + 1 (so a byte holds it: R <= 254). A
+// pass along y or z stops at the first |d| not below the best so far.
+// Bound: launch latency (8,800 bricks: 8.8 KB in, 70.4 KB out, 0.024 us
+// at 3.35 TB/s). Design: one cooperative launch of a thread a brick
+// (grid-strided past what the card holds at once), the passes between two
+// grid barriers over two byte planes in global memory (L2). One block of
+// 1,024 threads holding the grid and its two planes in shared memory
+// measured 3-4x slower on the H100 (its one SM issues every brick's taps;
+// PERF.md §6).
+//
+// oct_table: the oct hit table's corner rows. Replaces no Pallas kernel:
+// the XLA gathers of build_oct_bricks (rgbd_recon_tpu/ops/raymarch.py:351),
+// which the port ran as ~25 torch launches (ops/raymarch.py
+// oct_rows_plain). For each slot of compact's ascending list of surface
+// bricks (padded with B; the id clamped to B - 1, as the JAX code's idc),
+// each voxel (lz, ly, lx) of the brick gets one row of the eight corners
+// of the cell it anchors, in the order dz*4 + dy*2 + dx, edge-clamped at
+// the volume's faces, rounded to the table's type as Tensor.to rounds
+// (bf16 round-to-nearest-even, or f32 unchanged). Bound: bytes (the
+// slots' extended bricks read once, the rows written once: 4.09 + 12.29
+// MB in bf16 at 768 slots of 10-voxel bricks, 4.9 us at 3.35 TB/s).
+// Design: a block a slot; its (v+1)^3 extended brick staged in shared
+// memory (5.3 KB at v = 10; neighbouring threads load neighbouring x of a
+// run), then a thread a row, neighbouring threads on neighbouring rows,
+// each row one 16-byte store (bf16) or two (f32). Bricks whose extended
+// block passes 48 KB (v > 22) read their corners from global memory.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -485,6 +527,176 @@ int launch_bake(const float* vol, const float* bs_scaled, OutT* out,
 #undef RGBD_ENCODE
 }
 
+
+// ---- brick_clearance -------------------------------------------------------
+
+constexpr int CLR_THREADS = 256;        // threads a block
+// the most rounds: distances capped at R + 1 fit a byte
+constexpr int CLR_MAX_ROUNDS = 254;
+
+// distance along x from brick i (column x of its row) to the nearest set
+// brick of the row, capped at R + 1
+__device__ __forceinline__ unsigned char clr_x(const unsigned char* occ,
+                                               int i, int x, int Bx, int R) {
+  const unsigned char* row = occ + (i - x);
+  for (int k = 0; k <= R; ++k) {
+    const bool lo = x - k >= 0, hi = x + k < Bx;
+    if (!lo && !hi) break;
+    if ((lo && row[x - k]) || (hi && row[x + k])) return (unsigned char)k;
+  }
+  return (unsigned char)(R + 1);
+}
+
+// min over d of max(|d|, p[i + d s]) along an axis of extent E where brick
+// i sits at coordinate c: the distance over this axis and the ones before
+__device__ __forceinline__ int clr_fold(const unsigned char* p, int i, int c,
+                                        int E, int s) {
+  int best = p[i];
+  for (int k = 1; k < best; ++k) {
+    const bool lo = c - k >= 0, hi = c + k < E;
+    if (!lo && !hi) break;
+    int t = 255;
+    if (lo) t = p[i - k * s];
+    if (hi) t = min(t, (int)p[i + k * s]);
+    best = min(best, max(k, t));
+  }
+  return best;
+}
+
+__device__ __forceinline__ void clr_store(float* __restrict__ bsafe,
+                                          float* __restrict__ bs, int i,
+                                          int d, float v) {
+  const float f = (float)(d > 0 ? d - 1 : 0);
+  bsafe[i] = f;
+  bs[i] = f * v;
+}
+
+// one cooperative launch, a thread a brick (grid-strided): the x
+// distances of the mask into plane a, a grid barrier, their y fold into
+// plane b, a grid barrier, the z fold of b out
+__global__ void __launch_bounds__(CLR_THREADS)
+clearance_grid_kernel(const unsigned char* __restrict__ occ,
+                      unsigned char* __restrict__ a,
+                      unsigned char* __restrict__ b,
+                      float* __restrict__ bsafe, float* __restrict__ bs,
+                      int Bz, int By, int Bx, int R, float v) {
+  const int plane = By * Bx, n = Bz * plane;
+  const int first = blockIdx.x * CLR_THREADS + threadIdx.x;
+  const int step = gridDim.x * CLR_THREADS;
+  for (int i = first; i < n; i += step) a[i] = clr_x(occ, i, i % Bx, Bx, R);
+  cooperative_groups::this_grid().sync();
+  for (int i = first; i < n; i += step)
+    b[i] = (unsigned char)clr_fold(a, i, (i / Bx) % By, By, Bx);
+  cooperative_groups::this_grid().sync();
+  for (int i = first; i < n; i += step)
+    clr_store(bsafe, bs, i, clr_fold(b, i, i / plane, Bz, plane), v);
+}
+
+// the blocks: a thread a brick, at most as many blocks as the card holds
+// at once (a cooperative launch); 0 on an error
+int clearance_blocks(int n) {
+  int dev = 0, sms = 0, resident = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &resident, clearance_grid_kernel, CLR_THREADS, 0) !=
+          cudaSuccess)
+    return 0;
+  const long long want = (n + CLR_THREADS - 1) / CLR_THREADS;
+  return (int)max(1ll, min(want, (long long)sms * max(resident, 1)));
+}
+
+
+// ---- oct_table -------------------------------------------------------------
+
+constexpr int OCT_THREADS = 256;
+constexpr int OCT_STAGE_BYTES = 48 * 1024;  // the largest staged brick
+
+__device__ __forceinline__ void store8(__nv_bfloat16* out,
+                                       const float (&c)[8]) {
+  uint4 w;
+  __nv_bfloat162 h;
+  h = __floats2bfloat162_rn(c[0], c[1]);
+  w.x = *reinterpret_cast<uint32_t*>(&h);
+  h = __floats2bfloat162_rn(c[2], c[3]);
+  w.y = *reinterpret_cast<uint32_t*>(&h);
+  h = __floats2bfloat162_rn(c[4], c[5]);
+  w.z = *reinterpret_cast<uint32_t*>(&h);
+  h = __floats2bfloat162_rn(c[6], c[7]);
+  w.w = *reinterpret_cast<uint32_t*>(&h);
+  *reinterpret_cast<uint4*>(out) = w;
+}
+
+__device__ __forceinline__ void store8(float* out, const float (&c)[8]) {
+  reinterpret_cast<float4*>(out)[0] = make_float4(c[0], c[1], c[2], c[3]);
+  reinterpret_cast<float4*>(out)[1] = make_float4(c[4], c[5], c[6], c[7]);
+}
+
+// rows[slot * v^3 + (lz * v + ly) * v + lx][dz * 4 + dy * 2 + dx] =
+// vol[min(z0 + lz + dz, Z - 1), min(y0 + ly + dy, Y - 1), min(x0 + lx +
+// dx, X - 1)] for the brick min(ids[slot], B - 1) at (z0, y0, x0). STAGED:
+// the (v+1)^3 extended brick in dynamic shared memory first.
+template <typename OutT, bool STAGED>
+__global__ void __launch_bounds__(OCT_THREADS)
+oct_table_kernel(const float* __restrict__ vol,
+                 const long long* __restrict__ ids, OutT* __restrict__ rows,
+                 int Z, int Y, int X, int v, int By, int Bx, int B) {
+  extern __shared__ float ext[];
+  const int slot = blockIdx.x;
+  const long long id = ids[slot];
+  const int bid = id < (long long)B - 1 ? (int)id : B - 1;
+  const int bx = bid % Bx, q = bid / Bx;
+  const int by = q % By, bz = q / By;
+  const int z0 = bz * v, y0 = by * v, x0 = bx * v;
+  const int w = v + 1;
+  if (STAGED) {
+    const int m = w * w * w;
+    for (int e = threadIdx.x; e < m; e += OCT_THREADS) {
+      const int dx = e % w, r = e / w;
+      const int dy = r % w, dz = r / w;
+      const int z = min(z0 + dz, Z - 1), y = min(y0 + dy, Y - 1);
+      const int x = min(x0 + dx, X - 1);
+      ext[e] = vol[((size_t)z * Y + y) * X + x];
+    }
+    __syncthreads();
+  }
+  const int V = v * v * v;
+  OutT* out = rows + (size_t)slot * V * 8;
+  for (int r = threadIdx.x; r < V; r += OCT_THREADS) {
+    const int lx = r % v, t = r / v;
+    const int ly = t % v, lz = t / v;
+    float c[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+      if (STAGED) {
+        c[k] = ext[((lz + dz) * w + ly + dy) * w + lx + dx];
+      } else {
+        const int z = min(z0 + lz + dz, Z - 1);
+        const int y = min(y0 + ly + dy, Y - 1);
+        const int x = min(x0 + lx + dx, X - 1);
+        c[k] = vol[((size_t)z * Y + y) * X + x];
+      }
+    }
+    store8(out + (size_t)r * 8, c);
+  }
+}
+
+template <typename OutT>
+int launch_oct(const float* vol, const long long* ids, OutT* rows,
+               int capacity, int Z, int Y, int X, int v, cudaStream_t s) {
+  const int By = Y / v, Bx = X / v, B = (Z / v) * By * Bx;
+  const size_t stage = (size_t)(v + 1) * (v + 1) * (v + 1) * sizeof(float);
+  if (stage <= OCT_STAGE_BYTES)
+    oct_table_kernel<OutT, true><<<capacity, OCT_THREADS, stage, s>>>(
+        vol, ids, rows, Z, Y, X, v, By, Bx, B);
+  else
+    oct_table_kernel<OutT, false><<<capacity, OCT_THREADS, 0, s>>>(
+        vol, ids, rows, Z, Y, X, v, By, Bx, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -524,6 +736,54 @@ int rgbd_sentinel_bake(const void* vol, const void* bs_scaled, void* out,
   return launch_bake<__nv_bfloat16>(
       (const float*)vol, (const float*)bs_scaled, (__nv_bfloat16*)out,
       (uint32_t*)bits, Z, Y, X, brick_vox, rounds, By, Bx, s);
+}
+
+// (Bz, By, Bx) bool surface-brick mask -> bsafe = min(max(D - 1, 0),
+// rounds) and bs = bsafe * brick_vox, both f32, D the Chebyshev distance in
+// bricks to the nearest set brick (rounds where none is set). One
+// cooperative launch; scratch holds 2 Bz By Bx bytes. rounds in [0, 254].
+int rgbd_brick_clearance(const void* occ, void* bsafe, void* bs,
+                         void* scratch, int Bz, int By, int Bx, int rounds,
+                         int brick_vox, void* stream) {
+  const int n = Bz * By * Bx;
+  if (rounds < 0 || rounds > CLR_MAX_ROUNDS || n <= 0 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float v = (float)brick_vox;
+  const int blocks = clearance_blocks(n);
+  if (blocks == 0) return (int)cudaGetLastError();
+  unsigned char* a = (unsigned char*)scratch;
+  unsigned char* b = a + n;
+  const unsigned char* occ_b = (const unsigned char*)occ;
+  float* bsafe_f = (float*)bsafe;
+  float* bs_f = (float*)bs;
+  int R = rounds;
+  void* args[] = {&occ_b, &a, &b, &bsafe_f, &bs_f, &Bz, &By, &Bx, &R,
+                  (void*)&v};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)clearance_grid_kernel, dim3(blocks),
+      dim3(CLR_THREADS), args, 0, s);
+  // a refused launch's error is cleared, so the next launch reports its own
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// (Z, Y, X) f32 volume (sides multiples of brick_vox) + (capacity,) int64
+// ascending brick ids padded with B -> (capacity * brick_vox^3, 8) corner
+// rows, bf16 (out_f32 = 0) or f32 (out_f32 = 1). capacity >= 1.
+int rgbd_oct_table(const void* vol, const void* ids, void* rows,
+                   int capacity, int Z, int Y, int X, int brick_vox,
+                   int out_f32, void* stream) {
+  if (capacity < 1 || brick_vox < 1 || Z % brick_vox || Y % brick_vox ||
+      X % brick_vox || Z < brick_vox || Y < brick_vox || X < brick_vox)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (out_f32)
+    return launch_oct<float>((const float*)vol, (const long long*)ids,
+                             (float*)rows, capacity, Z, Y, X, brick_vox, s);
+  return launch_oct<__nv_bfloat16>((const float*)vol, (const long long*)ids,
+                                   (__nv_bfloat16*)rows, capacity, Z, Y, X,
+                                   brick_vox, s);
 }
 
 }  // extern "C"

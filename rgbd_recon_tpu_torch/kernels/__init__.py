@@ -21,6 +21,9 @@ LAUNCHES = {
     "quality13": 0,
     "surface_occ": 0,
     "sentinel_bake": 0,
+    # the render bake's brick clearance and oct hit table (csrc/bake.cu)
+    "brick_clearance": 0,
+    "oct_table": 0,
     "march": 0,
     # the render's block stages (csrc/compact.cu, csrc/render_stages.cu)
     "compact": 0,

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "rgbd_surface_occ": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rgbd_sentinel_bake": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P),
+    "rgbd_brick_clearance": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rgbd_oct_table": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rgbd_gather_flat": (_P, _P, _P, _I, _I, _P),
     "rgbd_gather_flat_smem": (_P, _P, _P, _I, _I, _P),
     "rgbd_gather_flat_smem_plan": (_I, _I, ctypes.POINTER(_I)),

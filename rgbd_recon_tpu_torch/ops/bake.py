@@ -2,9 +2,11 @@
 
 Counterpart of rgbd_recon_tpu/ops/bake_pallas.py plus the jnp reference
 forms it fuses (tsdf_pipeline._surface_brick_mask, fine_safe_field,
-sentinel_volume and the bf16 cast of PackedVolume.from_volume).
-``surface_occ`` and ``sentinel_bake`` run the plain PyTorch version for CPU
-tensors and the CUDA kernel (csrc/bake.cu) for CUDA tensors.
+sentinel_volume and the bf16 cast of PackedVolume.from_volume), and of the
+render's brick clearance (tsdf_pipeline.brick_safe_field).
+``surface_occ``, ``brick_clearance`` and ``sentinel_bake`` run the plain
+PyTorch version for CPU tensors and the CUDA kernel (csrc/bake.cu) for
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -46,6 +48,16 @@ def fine_safe_field(pos_mask: torch.Tensor, rounds: int) -> torch.Tensor:
         reach = dilate3(reach)
         safe = safe + (~reach).to(torch.float32)
     return safe
+
+
+def brick_clearance_plain(occ: torch.Tensor, rounds: int, brick_vox: int):
+    """(Bz, By, Bx) bool surface-brick mask -> (bsafe, bs_scaled), f32:
+    bsafe counts the ``rounds`` dilation rounds of the mask that have not
+    reached a brick (fine_safe_field over the brick grid, the JAX
+    brick_safe_field), bs_scaled = bsafe * brick_vox (sentinel_bake's
+    input)."""
+    bsafe = fine_safe_field(occ, rounds)
+    return bsafe, bsafe * float(brick_vox)
 
 
 def sentinel_bake_plain(volume: torch.Tensor, bs_scaled: torch.Tensor,
@@ -107,3 +119,13 @@ def sentinel_bake(volume: torch.Tensor, bs_scaled: torch.Tensor,
 
     return sentinel_bake_cuda(volume, bs_scaled, brick_vox, rounds,
                               out_dtype)
+
+
+def brick_clearance(occ: torch.Tensor, rounds: int, brick_vox: int):
+    """(bsafe, bs_scaled) of :func:`brick_clearance_plain`; one CUDA
+    kernel launch on a CUDA tensor, the plain version on a CPU tensor."""
+    if occ.device.type == "cpu":
+        return brick_clearance_plain(occ, rounds, brick_vox)
+    from ..kernels.bake import brick_clearance_cuda
+
+    return brick_clearance_cuda(occ.contiguous(), rounds, brick_vox)

@@ -170,26 +170,23 @@ class OctVolume:
         return torch.stack([gx, gy, gz], dim=-1), valid
 
 
-def build_oct_bricks(volume: torch.Tensor, occ: torch.Tensor, brick_vox: int,
-                     capacity: int, dtype=torch.bfloat16) -> OctVolume:
-    """Cell-corner table over the first ``capacity`` surface bricks (in
-    ascending brick id). Requires brick-aligned volume dims."""
+def oct_rows_plain(volume: torch.Tensor, ids: torch.Tensor, brick_vox: int,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """(capacity * v^3, 8) cell-corner rows of the bricks ``ids`` (ids past
+    the last brick, compact's padding, take the last brick's corners, as
+    the JAX package's ``idc``): row (slot, lz, ly, lx) holds the corners
+    dz*4 + dy*2 + dx of the cell at that voxel, edge-clamped, cast to
+    ``dtype``. Requires brick-aligned volume dims."""
     Z, Y, X = volume.shape
     v = brick_vox
     Bz, By, Bx = Z // v, Y // v, X // v
     B = Bz * By * Bx
-    dev = volume.device
-    ids = torch.nonzero(occ.reshape(-1)).reshape(-1)[:capacity]
-    n = ids.shape[0]
-    slots = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    slots[ids] = torch.arange(n, dtype=torch.int32, device=dev)
-    # pad to capacity with the last brick (never referenced: no slot)
-    ids = torch.cat([ids, torch.full((capacity - n,), B - 1,
-                                     dtype=ids.dtype, device=dev)])
-    bz = ids // (By * Bx)
-    by = (ids // Bx) % By
-    bx = ids % Bx
-    r = torch.arange(v + 1, device=dev)
+    capacity = ids.shape[0]
+    idc = torch.clamp_max(ids, B - 1)
+    bz = idc // (By * Bx)
+    by = (idc // Bx) % By
+    bx = idc % Bx
+    r = torch.arange(v + 1, device=volume.device)
     ez = torch.clamp_max(bz[:, None] * v + r, Z - 1)       # (K, v+1)
     ey = torch.clamp_max(by[:, None] * v + r, Y - 1)
     ex = torch.clamp_max(bx[:, None] * v + r, X - 1)
@@ -198,8 +195,54 @@ def build_oct_bricks(volume: torch.Tensor, occ: torch.Tensor, brick_vox: int,
     corners = [ext[:, dz: dz + v, dy: dy + v, dx: dx + v]
                for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
     rows = torch.stack(corners, dim=-1).reshape(capacity * v * v * v, 8)
-    return OctVolume(rows=rows.to(dtype), slots=slots, shape=(Z, Y, X),
-                     brick_vox=v)
+    return rows.to(dtype)
+
+
+def oct_rows(volume: torch.Tensor, ids: torch.Tensor, brick_vox: int,
+             dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`oct_rows_plain`: one csrc/bake.cu ``oct_table`` launch on
+    CUDA tensors, the plain version on CPU tensors."""
+    if volume.device.type == "cpu":
+        return oct_rows_plain(volume, ids, brick_vox, dtype)
+    from ..kernels.bake import oct_table_cuda
+
+    return oct_table_cuda(volume.contiguous(), ids, brick_vox, dtype)
+
+
+def _oct_volume(volume, occ, brick_vox, capacity, dtype, compact_fn,
+                rows_fn) -> OctVolume:
+    """The oct table from ``compact_fn``'s list of the surface bricks and
+    its slot map, rows by ``rows_fn``."""
+    flags = occ.reshape(-1).view(torch.uint8)
+    count = torch.empty(1, dtype=torch.int32, device=flags.device)
+    ids, slots = compact_fn(flags, 0, capacity, count, 0, want_slot=True)
+    return OctVolume(rows=rows_fn(volume, ids, brick_vox, dtype),
+                     slots=slots, shape=tuple(volume.shape),
+                     brick_vox=brick_vox)
+
+
+def build_oct_bricks(volume: torch.Tensor, occ: torch.Tensor, brick_vox: int,
+                     capacity: int, dtype=torch.bfloat16) -> OctVolume:
+    """Cell-corner table over the first ``capacity`` surface bricks (in
+    ascending brick id; the padding slots hold the last brick's corners)
+    and the slot of each brick (-1 unlisted). On CUDA tensors one
+    ``compact`` launch and one ``oct_table`` launch, no host sync; on CPU
+    tensors :func:`build_oct_plain`. Requires brick-aligned volume
+    dims."""
+    from .compact import compact
+
+    return _oct_volume(volume, occ, brick_vox, capacity, dtype, compact,
+                       oct_rows)
+
+
+def build_oct_plain(volume: torch.Tensor, occ: torch.Tensor, brick_vox: int,
+                    capacity: int, dtype=torch.bfloat16) -> OctVolume:
+    """:func:`build_oct_bricks`' plain twin: ``compact_plain``'s list and
+    slot map, ``oct_rows_plain``'s rows."""
+    from .compact import compact_plain
+
+    return _oct_volume(volume, occ, brick_vox, capacity, dtype,
+                       compact_plain, oct_rows_plain)
 
 
 def _secant_den(den):

@@ -598,8 +598,10 @@ class TsdfPipeline:
                                 num_samples=num_img, overflow=overflow)
 
         def brick_safe_field(occ):
-            """Brick-level clearance to the surface bricks (plain torch)."""
-            return bake_ops.fine_safe_field(occ, c.skip_brick_rounds)
+            """Brick-level clearance to the surface bricks (the kernel on
+            the card)."""
+            return bake_ops.brick_clearance(occ, c.skip_brick_rounds,
+                                            brick_vox)[0]
 
         def sentinel_bake(volume, bs_scaled):
             """The march table of ``volume`` (the kernel's by configuration,
@@ -658,11 +660,11 @@ class TsdfPipeline:
             else:
                 occ = brick_ops.occupied_mask(brick_counts,
                                               c.min_voxels_per_brick)
-            bsafe = brick_safe_field(occ)
+            bsafe, bs_scaled = bake_ops.brick_clearance(
+                occ, c.skip_brick_rounds, brick_vox)
             if not skip_:
                 return volume, None, occ, bsafe
-            table = sentinel_bake(volume,
-                                  (bsafe * float(brick_vox)).contiguous())
+            table = sentinel_bake(volume, bs_scaled)
             oct = build_oct(volume, occ) if use_oct else None
             return table, oct, occ, bsafe
 

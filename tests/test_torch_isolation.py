@@ -99,7 +99,9 @@ def test_module_list_is_whole():
                  "ops/stage_calls.py",
                  "bench/gather_probe.py", "bench/headline.py",
                  "bench/oracle.py", "bench/trace.py", "bench/ablation.py",
-                 "bench/render_sweep.py", "bench/stages.py"):
+                 "bench/render_sweep.py", "bench/stages.py",
+                 "kernels/fuse.py", "bench/fuse_split.py",
+                 "bench/kernel_inputs.py", "profile_slice.py"):
         assert f"rgbd_recon_tpu_torch/{name}" in PORT_FILES, name
 
 

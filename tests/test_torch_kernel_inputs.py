@@ -1,7 +1,8 @@
 """The CPU side of rgbd_recon_tpu_torch/bench/kernel_inputs.py (the timing
 of the compaction and the boundary pass needs the card): the library
 compaction's list against compact_plain, the boundary maps' cases, the
-bytes and operations the boundary pass needs. Imports torch only."""
+bytes and operations the boundary pass needs, the bytes the oct table
+needs. Imports torch only."""
 
 import numpy as np
 import pytest
@@ -83,3 +84,44 @@ def test_library_compact_holds_its_list_to_the_compactions():
     ids[17] += 1
     with pytest.raises(AssertionError, match="differs"):
         kernel_inputs.library_compact(torch, flags, 2, 900, ids=ids)
+
+
+def _oct_bytes_by_box(shape, ids, v, itemsize):
+    """oct_table_bytes by marking each read brick's extended box."""
+    grid = tuple(s // v for s in shape)
+    n_bricks = int(np.prod(grid))
+    need = np.zeros(shape, bool)
+    for b in {min(int(i), n_bricks - 1) for i in ids}:
+        z, y, x = np.unravel_index(b, grid)
+        need[z * v: z * v + v + 1, y * v: y * v + v + 1,
+             x * v: x * v + v + 1] = True
+    return (int(need.sum()) * 4 + len(ids) * 8
+            + len(ids) * v ** 3 * 8 * itemsize)
+
+
+# (volume shape, brick_vox, ids): neighbours sharing faces, edges and a
+# corner, padding (the brick count) past the list, bricks on the high
+# faces, every brick, no slot
+OCT_BYTES_CASES = {
+    "neighbours": ((12, 16, 20), 4, [0, 1, 5, 6, 26, 60, 60]),
+    "padded": ((12, 16, 20), 4, [3, 17, 33, 60, 60, 60]),
+    "high_faces": ((12, 16, 20), 4, [19, 39, 59]),
+    "every_brick": ((6, 9, 6), 3, list(range(12)) + [12, 12]),
+    "no_slot": ((6, 9, 6), 3, []),
+}
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("name", sorted(OCT_BYTES_CASES))
+def test_oct_table_bytes_counts_each_voxel_once(name, itemsize):
+    """The oct table's bytes: each voxel of the union of the read bricks'
+    extended boxes once (the padding's brick B - 1 once, shared halo planes
+    once, clipped at the volume's faces), the list, the rows; every brick
+    read is the whole volume."""
+    shape, v, ids = OCT_BYTES_CASES[name]
+    idt = torch.tensor(ids, dtype=torch.int64)
+    got = kernel_inputs.oct_table_bytes(torch, shape, idt, v, itemsize)
+    assert got == _oct_bytes_by_box(shape, ids, v, itemsize)
+    if name == "every_brick":
+        assert got == (int(np.prod(shape)) * 4 + len(ids) * 8
+                       + len(ids) * v ** 3 * 8 * itemsize)

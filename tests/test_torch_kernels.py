@@ -31,6 +31,7 @@ from rgbd_recon_tpu_torch.ops.stage_calls import (
     replay,
 )
 
+import bake_chain_cases
 import bracket_cases
 import fuse_cases
 import hit_gather_cases
@@ -777,6 +778,202 @@ def test_sharded_step_over_the_cards(cuda):
     assert torch.equal(vol_sh.gather(), volume)
     for field in ("hit", "depth", "color"):
         assert torch.equal(getattr(out, field), getattr(ref, field)), field
+
+
+# ---- the render bake's chain kernels (csrc/bake.cu brick_clearance and
+# oct_table) ------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", bake_chain_cases.ROUNDS)
+@pytest.mark.parametrize("name", bake_chain_cases.CARD_CLEARANCE_CASES)
+def test_bake_chain_clearance_matches_twin(cuda, name, rounds):
+    """brick_clearance (through its dispatch: one launch) bit for bit
+    against brick_clearance_plain on bake_chain_cases' grids at 0, 1, 6
+    and 16 rounds."""
+    occ = torch.from_numpy(bake_chain_cases.clearance_case(name)).to(cuda)
+    kernels.reset_launch_counts()
+    got = bake.brick_clearance(occ, rounds, 10)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["brick_clearance"] == 1
+    want = bake.brick_clearance_plain(occ, rounds, 10)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and _bits_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [254, 30])
+def test_bake_chain_clearance_most_rounds(cuda, rounds):
+    """The most rounds the kernel takes (a capped distance of 255 in a
+    byte) and more rounds than the grid is wide, bit for bit; 255 rounds
+    are refused."""
+    from rgbd_recon_tpu_torch.kernels.bake import brick_clearance_cuda
+
+    occ = torch.from_numpy(bake_chain_cases.clearance_case("one_brick")).to(
+        cuda)
+    want = bake.brick_clearance_plain(occ, rounds, 4)
+    assert float(want[0].max()) == 3.0
+    for g, w in zip(brick_clearance_cuda(occ, rounds, 4), want):
+        assert _bits_equal(g, w)
+    empty = torch.zeros(3, 4, 5, dtype=torch.bool, device=cuda)
+    assert bool((brick_clearance_cuda(empty, rounds, 4)[0] == rounds).all())
+    with pytest.raises(ValueError, match="rounds"):
+        brick_clearance_cuda(occ, 255, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(bake_chain_cases.CARD_OCT_CASES))
+def test_bake_chain_oct_matches_twin(cuda, name, dtype):
+    """build_oct_bricks on the card (one compact, one oct_table launch)
+    bit for bit against build_oct_plain on the card: every capacity row
+    and the slot map; fewer, as many and more set bricks than the
+    capacity, none, the cells' 200 x 220 x 200 volume at 768 slots, 20-
+    voxel bricks (staged) and 23-voxel bricks (read in place)."""
+    from rgbd_recon_tpu_torch.ops import raymarch
+
+    vol, occ, v, capacity = bake_chain_cases.oct_case(name)
+    vol = torch.from_numpy(vol).to(cuda)
+    occ = torch.from_numpy(occ).to(cuda)
+    kernels.reset_launch_counts()
+    got = raymarch.build_oct_bricks(vol, occ, v, capacity, dtype)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert launched == {"compact": 1, "oct_table": 1}
+    want = raymarch.build_oct_plain(vol, occ, v, capacity, dtype)
+    assert got.rows.dtype == dtype and got.rows.shape == want.rows.shape
+    assert _bits_equal(got.rows, want.rows)
+    assert torch.equal(got.slots, want.slots)
+
+
+@pytest.mark.cuda
+def test_bake_chain_wrappers_refuse(cuda):
+    """On CUDA tensors the two wrappers refuse a wrong type, shape, layout
+    or device, and count nothing."""
+    from rgbd_recon_tpu_torch.kernels.bake import (
+        brick_clearance_cuda,
+        oct_table_cuda,
+    )
+
+    kernels.reset_launch_counts()
+    occ = torch.zeros(4, 5, 6, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="bool"):
+        brick_clearance_cuda(occ.to(torch.uint8), 6, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        brick_clearance_cuda(occ.transpose(0, 2), 6, 4)
+    vol = torch.zeros(8, 12, 16, device=cuda)
+    ids = torch.zeros(3, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="multiples"):
+        oct_table_cuda(vol, ids, 5)
+    with pytest.raises(ValueError, match="float32"):
+        oct_table_cuda(vol.double(), ids, 4)
+    with pytest.raises(ValueError, match="int64"):
+        oct_table_cuda(vol, ids.int(), 4)
+    with pytest.raises(ValueError, match="int64"):
+        oct_table_cuda(vol, ids.cpu(), 4)
+    with pytest.raises(ValueError, match="out_dtype"):
+        oct_table_cuda(vol, ids, 4, torch.float16)
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    assert oct_table_cuda(vol, ids[:0], 4).shape == (0, 8)
+    assert kernels.launch_counts()["oct_table"] == 0
+
+
+def _bake_on_twins(monkeypatch):
+    """Point the bake's dispatches at their plain twins."""
+    from rgbd_recon_tpu_torch.ops import raymarch
+
+    monkeypatch.setattr(bake, "surface_occ", bake.surface_occ_plain)
+    monkeypatch.setattr(bake, "brick_clearance", bake.brick_clearance_plain)
+    monkeypatch.setattr(bake, "sentinel_bake", bake.sentinel_bake_plain)
+    monkeypatch.setattr(raymarch, "build_oct_bricks",
+                        raymarch.build_oct_plain)
+
+
+# the small scene's configs of the render bake (20 cm bricks of 2 voxels:
+# the (20, 22, 20) volume is whole bricks and the fast config builds its
+# oct table; 2 fine rounds take the sentinel kernel) and their launches
+BAKE_CHAIN_CONFIGS = {
+    "fast": dict(skip_fine_rounds=2),
+    "parity": dict(march_mode="trilinear", march_empty_skip=False,
+                   integrate_taps="bilinear", projection_model=False,
+                   march_dtype="float32", skip_fine_rounds=2),
+}
+BAKE_CHAIN_LAUNCHES = {
+    "fast": dict(surface_occ=1, brick_clearance=1, sentinel_bake=1,
+                 compact=1, oct_table=1),
+    "parity": dict(surface_occ=1, brick_clearance=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", sorted(BAKE_CHAIN_CONFIGS))
+def test_bake_chain_bake_without_host_sync(cuda, monkeypatch, cfg):
+    """A whole render bake on the card makes no host sync
+    (set_sync_debug_mode("error")), launches the kernels of its config once
+    each and nothing else, and is bit-equal, part for part, to the same
+    bake on the twins (which launch none)."""
+    pipe, volume, _, counts, cam, _ = _small_scene(
+        cuda, brick_size=0.2, **BAKE_CHAIN_CONFIGS[cfg])
+    render, _ = pipe.make_render_fn(cam)
+    render.bake(volume, counts)                 # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = render.bake(volume, counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == \
+        BAKE_CHAIN_LAUNCHES[cfg]
+    assert (got[1] is not None) == (cfg == "fast")
+    _bake_on_twins(monkeypatch)
+    kernels.reset_launch_counts()
+    want = render.bake(volume, counts)
+    torch.cuda.synchronize()
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    for name, g, w in zip(("table", "oct", "occ", "bsafe"), got, want):
+        assert _same_bake_part(g, w), name
+    assert int(got[2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_bake_chain_bake_in_a_graph(cuda, monkeypatch):
+    """The fast config's whole bake (surface_occ, brick_clearance,
+    sentinel_bake, compact, oct_table) captured in one CUDA graph on a side
+    stream, after one eager bake there (compact's scratch), and replayed 3
+    times on changed volumes copied into the captured one: each replay
+    bit-equal, part for part, to the bake on the twins of that volume."""
+    pipe, volume, _, counts, cam, _ = _small_scene(
+        cuda, brick_size=0.2, **BAKE_CHAIN_CONFIGS["fast"])
+    render, _ = pipe.make_render_fn(cam)
+    static = volume.clone()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        render.bake(static, counts)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        baked = render.bake(static, counts)
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == \
+        BAKE_CHAIN_LAUNCHES["fast"]
+    rng = np.random.default_rng(9)
+    twins = []
+    for i in range(3):
+        shift = torch.from_numpy(rng.uniform(-0.05, 0.05, volume.shape)
+                                 .astype(np.float32)).to(cuda)
+        static.copy_(torch.clamp(volume + shift * i, -pipe._limit,
+                                 pipe._limit))
+        graph.replay()
+        torch.cuda.synchronize()
+        with monkeypatch.context() as m:
+            _bake_on_twins(m)
+            want = render.bake(static, counts)
+        for name, g, w in zip(("table", "oct", "occ", "bsafe"), baked, want):
+            assert _same_bake_part(g, w), (i, name)
+        twins.append(int(want[2].sum()))
+    assert len(set(twins)) > 1
 
 
 # ---- the gather-rate probe's kernels ----------------------------------------

@@ -34,8 +34,8 @@ STAGE_ROWS = {
     "fuse": ["preprocess+mark", "mark_bricks", "integrate",
              "integrate_compact", "occupied_brick_ids_plain",
              "integrate_bricks_plain"],
-    "render": ["fuse", "render", "bake", "surface_occ", "sentinel_bake",
-               "render_from_baked", "fill_colors_planar"],
+    "render": ["fuse", "render", "bake", "surface_occ", "brick_clearance",
+               "sentinel_bake", "render_from_baked", "fill_colors_planar"],
 }
 MODULES = {"ablation": ablation, "render_sweep": render_sweep,
            "stages": stages}
